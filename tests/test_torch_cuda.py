@@ -1,0 +1,129 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: skipped where no GPU is present.  On a machine with one:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+
+Small and ragged shapes (batches that do not fill a 64-row tile, every limb
+count, both key shifts), plus one GATE_TOY bootstrap that must give the same
+ciphertexts on the card as on the CPU.  Imports nothing of JAX.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tfhe_tpu_torch.boot import gate
+from tfhe_tpu_torch.ops import kernels as K
+from tfhe_tpu_torch.params import GATE_TOY
+from tfhe_tpu_torch.rng import TfheRng
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def _i32(r, shape):
+    return torch.from_numpy(r.integers(-2**31, 2**31, shape).astype(np.int32))
+
+
+def _i8(r, shape, lo=-128, hi=128):
+    return torch.from_numpy(r.integers(lo, hi, shape).astype(np.int8))
+
+
+def _same_on_card(fn, plain, args, kw, cuda):
+    got = fn(*(t.to(cuda) for t in args), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), plain(*args, **kw))
+
+
+@pytest.mark.parametrize("L,J,U,N", [(3, 9, 3, 512), (1, 2, 1, 16),
+                                     (4, 6, 2, 1024)])
+def test_materialize_w(cuda, L, J, U, N):
+    v = _i8(np.random.default_rng(0), (L, J, U, 2 * N))
+    _same_on_card(K.materialize_w, K.materialize_w_plain, (v,), {}, cuda)
+
+
+@pytest.mark.parametrize("B,k,N,l,bgbit", [(5, 1, 64, 3, 7),
+                                           (33, 2, 512, 3, 7),
+                                           (16, 1, 1024, 2, 8)])
+def test_rotate_decompose(cuda, B, k, N, l, bgbit):
+    r = np.random.default_rng(1)
+    acc = _i32(r, (B, k + 1, N))
+    a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
+    kw = dict(l=l, bgbit=bgbit, offset=0x81020400)
+    _same_on_card(K.rotate_decompose, K.rotate_decompose_plain, (a, acc), kw,
+                  cuda)
+
+
+@pytest.mark.parametrize("B", [1, 70, 256])
+@pytest.mark.parametrize("L,shift", [(1, 24), (2, 16), (3, 8), (4, 0)])
+def test_mm_recombine_acc(cuda, B, L, shift):
+    r = np.random.default_rng(2)
+    K_, UN = 6 * 128, 2 * 128
+    args = (_i8(r, (B, K_), -64, 65), _i8(r, (L, K_, UN)), _i32(r, (B, UN)))
+    _same_on_card(K.mm_recombine_acc, K.mm_recombine_acc_plain, args,
+                  {"shift_base": shift}, cuda)
+
+
+@pytest.mark.parametrize("B,k,N,L,key_shift", [(3, 2, 512, 3, 8),
+                                               (130, 2, 512, 3, 0),
+                                               (64, 1, 64, 2, 16),
+                                               (8, 1, 1024, 1, 24)])
+def test_fused_cmux_step_v2(cuda, B, k, N, L, key_shift):
+    r = np.random.default_rng(3)
+    l = 3
+    acc = _i32(r, (B, k + 1, N))
+    a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
+    w = _i8(r, (L, (k + 1) * l * N, (k + 1) * N))
+    kw = dict(l=l, bgbit=7, offset=0x81020400, key_shift=key_shift)
+    _same_on_card(K.fused_cmux_step_v2, K.fused_cmux_step_v2_plain,
+                  (a, acc, w), kw, cuda)
+    flat = dict(kw, kp1=k + 1)
+    _same_on_card(K.fused_cmux_step_v2, K.fused_cmux_step_v2_plain,
+                  (a, acc.reshape(B, -1), w), flat, cuda)
+
+
+@pytest.mark.parametrize("tile_rows", [64, 128])
+@pytest.mark.parametrize("B", [3, 100, 130, 800])
+def test_fused_cmux_step_v2_each_tile(cuda, B, tile_rows):
+    r = np.random.default_rng(4)
+    k, N, l, L = 2, 512, 3, 3
+    acc = _i32(r, (B, k + 1, N))
+    a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
+    w = _i8(r, (L, (k + 1) * l * N, (k + 1) * N))
+    kw = dict(l=l, bgbit=7, offset=0x81020400, key_shift=8)
+    got = K.fused_cmux_step_v2(a.to(cuda), acc.to(cuda), w.to(cuda),
+                               tile_rows=tile_rows, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), K.fused_cmux_step_v2_plain(a, acc, w, **kw))
+
+
+def test_unsupported_shape_raises_instead_of_falling_back(cuda):
+    x = torch.zeros((8, 64), dtype=torch.int8, device=cuda)
+    w = torch.zeros((1, 64, 64), dtype=torch.int8, device=cuda)
+    acc = torch.zeros((8, 64), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="kernel"):
+        K.mm_recombine_acc(x, w, acc)
+    with pytest.raises(ValueError, match="CPU or on one CUDA device"):
+        K.mm_recombine_acc(x.cpu(), w, acc)
+
+
+@pytest.mark.parametrize("backend", ["onthefly", "matmul"])
+def test_toy_bootstrap_same_on_card_and_cpu(cuda, backend):
+    outs = {}
+    for dev in ("cpu", cuda):
+        rng = TfheRng(5)
+        sk = gate.SecretKey.generate(GATE_TOY, rng)
+        ck = gate.CloudKey.generate(sk, rng, backend=backend, device=dev)
+        ct = gate.encrypt_bool(sk, [0, 1, 1, 0, 1], rng, device=dev)
+        outs[str(dev)] = gate.gate_nand(ck.data, ct, ct, GATE_TOY,
+                                        backend).cpu()
+    assert torch.equal(outs["cpu"], outs["cuda"])
+    assert (gate.decrypt_bool(sk, outs["cpu"])
+            == ~np.array([0, 1, 1, 0, 1], bool)).all()

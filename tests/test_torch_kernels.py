@@ -1,0 +1,152 @@
+"""The port's kernel wrappers (tfhe_tpu_torch.ops.kernels) against the
+Pallas kernels they replace, bit for bit.
+
+On the CPU every wrapper runs its plain PyTorch version; the Pallas kernels
+run in interpret mode, at the shapes of tests/test_pallas_kernels.py.  The
+CUDA kernels themselves are held against the same plain versions on the
+card by chip_smoke.py and tests/test_torch_cuda.py.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from tfhe_tpu.params import TGswParams, TLweParams
+from tfhe_tpu.ops import pallas_kernels as pk
+from tfhe_tpu.ops.engine import EngineConfig, OnTheFlyMatmulEngine
+from tfhe_tpu_torch.ops import kernels as K
+
+
+def _offset(N, k, l, bgbit):
+    return TGswParams(l=l, bgbit=bgbit, key_limbs=3,
+                      tlwe=TLweParams(N=N, k=k, stdev=2.0**-25)).offset
+
+
+def _i32(r, shape):
+    return r.integers(-2**31, 2**31, shape).astype(np.int32)
+
+
+def _same(got, want):
+    assert got.shape == tuple(np.shape(want))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("N,J,U,L", [(128, 4, 2, 3), (256, 6, 3, 2),
+                                     (128, 2, 1, 1)])
+def test_materialize_w(N, J, U, L):
+    v = np.random.default_rng(0).integers(-128, 128, (L, J, U, 2 * N)
+                                          ).astype(np.int8)
+    if J * U * L * N <= 4096:
+        want = pk.materialize_w(jnp.asarray(v), rows=64, interpret=True)
+    else:
+        # interpreting the Pallas kernel costs ~4 ms per output row; the
+        # widest shape is held against the JAX package's XLA
+        # materialization instead (equal to the kernel by
+        # tests/test_pallas_kernels.py)
+        eng = OnTheFlyMatmulEngine(EngineConfig(N=N, out_bits=32,
+                                                digit_bits=7))
+        m = np.asarray(eng._materialize(jnp.asarray(v)))    # (L,J,U,t,i)
+        want = m.transpose(0, 1, 3, 2, 4).reshape(L, J * N, U * N)
+    _same(K.materialize_w(torch.from_numpy(v)), want)
+
+
+@pytest.mark.parametrize("N,k,l,bgbit", [(128, 1, 3, 7), (128, 2, 3, 7),
+                                         (256, 1, 2, 8)])
+def test_rotate_decompose(N, k, l, bgbit):
+    r = np.random.default_rng(1)
+    B = 8
+    acc = _i32(r, (B, k + 1, N))
+    a = r.integers(0, 2 * N, (B,)).astype(np.int32)
+    a[:3] = [0, N, 2 * N - 1]              # identity, pure sign flip, edge
+    off = _offset(N, k, l, bgbit)
+    want = pk.rotate_decompose(jnp.asarray(a), jnp.asarray(acc), l=l,
+                               bgbit=bgbit, offset=off, tb=B * (k + 1),
+                               interpret=True)
+    got = K.rotate_decompose(torch.from_numpy(a), torch.from_numpy(acc),
+                             l=l, bgbit=bgbit, offset=off)
+    _same(got, want)
+    assert not got[0].any()                # (X^0 - 1) * acc = 0
+
+
+@pytest.mark.parametrize("L,shift", [(3, 8), (2, 0), (4, 0)])
+@pytest.mark.parametrize("flat_acc", [False, True])
+def test_mm_recombine_acc(L, shift, flat_acc):
+    r = np.random.default_rng(2)
+    B, N, J, U = 8, 128, 4, 2
+    x = r.integers(-64, 64, (B, J * N)).astype(np.int8)
+    w = r.integers(-128, 128, (L, J * N, U * N)).astype(np.int8)
+    acc = _i32(r, (B, U * N) if flat_acc else (B, U, N))
+    want = pk.mm_recombine_acc(jnp.asarray(x), jnp.asarray(w),
+                               jnp.asarray(acc), shift_base=shift, tm=B,
+                               tn=N, tk=N, interpret=True)
+    got = K.mm_recombine_acc(torch.from_numpy(x), torch.from_numpy(w),
+                             torch.from_numpy(acc), shift_base=shift)
+    _same(got, want)
+
+
+@pytest.mark.parametrize("N,k,l,L,key_shift", [(128, 1, 3, 3, 8),
+                                               (128, 2, 3, 3, 8),
+                                               (128, 2, 3, 3, 0),
+                                               (256, 1, 2, 2, 16)])
+def test_fused_cmux_step_v2(N, k, l, L, key_shift):
+    r = np.random.default_rng(3)
+    B, J = 8, (k + 1) * l
+    acc = _i32(r, (B, k + 1, N))
+    a = r.integers(0, 2 * N, (B,)).astype(np.int32)
+    w = r.integers(-128, 128, (L, J * N, (k + 1) * N)).astype(np.int8)
+    kw = dict(l=l, bgbit=7, offset=_offset(N, k, l, 7), key_shift=key_shift)
+    want = pk.fused_cmux_step_v2(jnp.asarray(a), jnp.asarray(acc),
+                                 jnp.asarray(w), tm=B, interpret=True, **kw)
+    got = K.fused_cmux_step_v2(torch.from_numpy(a), torch.from_numpy(acc),
+                               torch.from_numpy(w), **kw)
+    _same(got, want)
+
+
+def test_fused_cmux_step_v2_flat_multi_tile():
+    """Several batch tiles and the flat (B, (k+1)N) carry layout."""
+    N, k, l, L = 128, 1, 3, 3
+    r = np.random.default_rng(4)
+    B, J = 32, (k + 1) * l
+    acc = _i32(r, (B, (k + 1) * N))
+    a = r.integers(0, 2 * N, (B,)).astype(np.int32)
+    w = r.integers(-128, 128, (L, J * N, (k + 1) * N)).astype(np.int8)
+    kw = dict(l=l, bgbit=7, offset=_offset(N, k, l, 7), key_shift=8,
+              kp1=k + 1)
+    want = pk.fused_cmux_step_v2(jnp.asarray(a), jnp.asarray(acc),
+                                 jnp.asarray(w), tm=8, interpret=True, **kw)
+    got = K.fused_cmux_step_v2(torch.from_numpy(a), torch.from_numpy(acc),
+                               torch.from_numpy(w), **kw)
+    _same(got, want)
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_nothing():
+    before = [k.launches for k in K.KERNELS]
+    v = torch.zeros((1, 2, 1, 32), dtype=torch.int8)
+    assert torch.equal(K.materialize_w(v), K.materialize_w_plain(v))
+    assert [k.launches for k in K.KERNELS] == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguity"])
+def test_wrapper_rejects_bad_input(bad):
+    x = torch.zeros((8, 256), dtype=torch.int8)
+    w = torch.zeros((3, 256, 128), dtype=torch.int8)
+    acc = torch.zeros((8, 128), dtype=torch.int32)
+    if bad == "dtype":
+        x = x.to(torch.int32)
+    elif bad == "shape":
+        w = w[:, :128].contiguous()
+    else:
+        x = torch.zeros((256, 8), dtype=torch.int8).t()
+    with pytest.raises(ValueError):
+        K.mm_recombine_acc(x, w, acc)
+
+
+@pytest.mark.parametrize("tile_rows", [32, 256])
+def test_fused_rejects_an_unknown_tile(tile_rows):
+    a = torch.zeros((4,), dtype=torch.int32)
+    acc = torch.zeros((4, 2, 64), dtype=torch.int32)
+    w = torch.zeros((1, 2 * 3 * 64, 2 * 64), dtype=torch.int8)
+    with pytest.raises(ValueError, match="tile_rows"):
+        K.fused_cmux_step_v2(a, acc, w, l=3, bgbit=7, offset=0,
+                             tile_rows=tile_rows)

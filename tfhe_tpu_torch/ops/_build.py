@@ -1,0 +1,110 @@
+"""Build the CUDA sources in ``csrc/`` with nvcc and bind them with ctypes.
+
+Each ``csrc/*.cu`` becomes its own shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds).  All sources compile in
+parallel, one nvcc process each, at first use; a library is named by the
+hash of its source, the shared header and the flags, so an edited source is
+rebuilt and an unchanged one is reused.  Outputs go to ``ops/build/``
+(ignored by git); ``-Xptxas -v`` reports (registers, spills) are kept there
+beside each library as ``<name>.ptxas.txt``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).parent / "csrc"
+BUILD_DIR = Path(__file__).parent / "build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+                      "-Xptxas", "-v", "-lineinfo"]
+
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+# C entry point of every source: (symbol, argtypes); each returns the
+# cudaError_t of its launch.
+SIGNATURES = {
+    "materialize_w": ("tfhe_materialize_w", [_P, _P, _I, _I, _I, _I, _P]),
+    "rotate_decompose": ("tfhe_rotate_decompose",
+                         [_P, _P, _P, _I, _I, _I, _I, _I, _U, _P]),
+    "mm_recombine_acc": ("tfhe_mm_recombine_acc",
+                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "fused_cmux_step": ("tfhe_fused_cmux_step",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _I, _I,
+                         _P]),
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+build_seconds: float | None = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return str(path)
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(f.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> dict[str, ctypes.CDLL]:
+    """Compile every source whose library is missing (in parallel) and load
+    them all.  Raises with nvcc's output if a build fails."""
+    global build_seconds
+    with _lock:
+        if _libs:
+            return _libs
+        t0 = time.perf_counter()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        jobs = []
+        for name in SIGNATURES:
+            out = _lib_path(name)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs.append((name, out, tmp, proc))
+        failed = []
+        for name, out, tmp, proc in jobs:
+            log, _ = proc.communicate()
+            out.with_suffix(".ptxas.txt").write_text(log)
+            if proc.returncode != 0:
+                failed.append(f"--- {name} (exit {proc.returncode})\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        for name, (sym, argtypes) in SIGNATURES.items():
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            fn = getattr(lib, sym)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _libs[name] = lib
+        build_seconds = time.perf_counter() - t0
+        return _libs
+
+
+def entry(name: str):
+    """The ctypes function of source ``name`` (building at first use)."""
+    return getattr(build_all()[name], SIGNATURES[name][0])

@@ -1,0 +1,33 @@
+"""Gadget (signed base-2^bgbit) decomposition, batched and branch-free
+(tGswTorus32PolynomialDecompH, tgsw_functions.cpp:224-335).
+
+32-bit torus only in this port so far; the uint32 offset add is carried in
+int64 and masked (see ``torus``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tfhe_tpu_torch import torus as T
+from tfhe_tpu_torch.params import TGswParams
+
+
+def decompose_torus_poly(x, p: TGswParams):
+    """Decompose torus polynomials (..., N) into l signed digit polynomials.
+
+    Returns (..., l, N) int32 digits in [-half_bg, half_bg)."""
+    if p.tlwe.bits != 32:
+        raise NotImplementedError(
+            "64-bit decomposition comes with the circuit-bootstrap slice")
+    buf = (T.u32(x) + p.offset) & T.MASK32
+    digs = [((buf >> (32 - (i + 1) * p.bgbit)) & p.mask_mod) - p.half_bg
+            for i in range(p.l)]
+    return torch.stack(digs, dim=-2).to(torch.int32)
+
+
+def decompose_tlwe(tlwe_av, p: TGswParams):
+    """Decompose a TRLWE sample (..., k+1, N) into (..., kpl, N) digit rows,
+    row-major over (poly index, gadget level)."""
+    d = decompose_torus_poly(tlwe_av, p)          # (..., k+1, l, N)
+    return d.reshape(*d.shape[:-3], p.kpl, d.shape[-1])

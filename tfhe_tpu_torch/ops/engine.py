@@ -1,0 +1,237 @@
+"""Negacyclic product engines (the counterpart of ``tfhe_tpu.ops.engine``).
+
+The product (int poly) x (torus poly) mod X^N+1 is an EXACT integer
+computation: the fixed operand (a key) is split into balanced signed int8
+limbs at preparation time, the varying operand (gadget digits) is int8 (or
+split into base-2^7 planes when wider), every limb x plane product is an
+int8 x int8 -> int32 contraction, and the partial results are recombined
+with shifts mod 2^32.  On the GPU the contractions run in the int8 tensor
+cores through the kernels of ``ops.kernels``; on the CPU the same wrappers
+take their plain versions, so both devices take the same dispatch.
+
+Contract shared by the engines:
+
+  prepare(key_polys (J, U, N) int32)  -> prepared dict of tensors
+  accumulate(x (..., J, N) digits, prepared) -> (..., U, N) int32
+
+  result[..., u, :] = sum_j negacyclic(x[..., j, :], key[j, u, :])
+
+Backends: ``naive`` (exact einsum oracle, CPU), ``matmul`` (dense negacyclic
+limb matrices) and ``onthefly`` (O(N) doubled-limb vectors, the matrices
+materialized per call).  The chunked, conv, FFT and Nussbaumer backends of
+the JAX package are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from tfhe_tpu_torch import torus as T
+from tfhe_tpu_torch.ops import kernels, poly
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    N: int
+    out_bits: int          # torus width of the result (32 or 64)
+    digit_bits: int        # log2 bound on the varying operand's magnitude
+    key_bits: int = 0      # width of the fixed operand (0 -> out_bits)
+    limb_bits: int = 8     # key limb width
+    key_limbs: int = 0     # 0 = exact; else truncate the key to this many
+                           # limbs (round-to-nearest on the dropped low bits)
+
+    @property
+    def kbits(self) -> int:
+        return self.key_bits or self.out_bits
+
+    @property
+    def num_limbs(self) -> int:
+        full = -(-self.kbits // self.limb_bits)
+        if self.key_limbs:
+            assert 0 < self.key_limbs <= full
+            return self.key_limbs
+        return full
+
+    @property
+    def key_shift(self) -> int:
+        """Bits dropped (with rounding) from the key before limb splitting."""
+        return max(0, self.kbits - self.num_limbs * self.limb_bits)
+
+    @property
+    def plane_split(self):
+        """(plane_bits, num_planes) for the varying operand: digits of at
+        most 8 bits pass as one int8 plane, wider ones split into balanced
+        base-2^7 planes."""
+        if self.digit_bits <= 8:
+            return (self.digit_bits, 1)
+        m, planes = 1 << (self.digit_bits - 1), 0
+        while m:
+            m = (m + 64) >> 7
+            planes += 1
+        return (7, planes)
+
+
+def _require_32(cfg: EngineConfig):
+    if cfg.out_bits != 32:
+        raise NotImplementedError(
+            "64-bit engines come with the circuit-bootstrap slice")
+
+
+def _digit_planes(cfg: EngineConfig, x):
+    """Split the varying operand (..., J, N) into int8 planes (P, ..., J, N)."""
+    pb, np_ = cfg.plane_split
+    if np_ == 1:
+        return torch.as_tensor(x).to(torch.int8)[None]
+    return T.signed_planes(x, pb, np_)
+
+
+def _key_rounded(cfg: EngineConfig, key_polys):
+    """Round the key to its top num_limbs*limb_bits bits (key_limbs
+    truncation); identity when key_shift == 0."""
+    s = cfg.key_shift
+    if not s:
+        return key_polys
+    # clamp the two extreme values (+-2^(kbits-s-1)) that would need an
+    # L+1-th balanced limb
+    wide = key_polys.to(torch.int64) + (1 << (s - 1))
+    lim = (1 << (cfg.kbits - s - 1)) - 1
+    return torch.clamp(wide >> s, -lim, lim).to(torch.int32)
+
+
+def _key_limbs_doubled(cfg: EngineConfig, key_polys):
+    """Balanced limbs of [key, -key]: (L, ..., 2N) int8.  Negation happens
+    in the torus domain before limb splitting; rounding happens first so the
+    wrap half is exactly the negated rounded key."""
+    _require_32(cfg)
+    key_polys = _key_rounded(cfg, key_polys)
+    doubled = torch.cat([key_polys, -key_polys], dim=-1)
+    return T.balanced_limbs(doubled, cfg.num_limbs, cfg.limb_bits)
+
+
+def _fold_planes(cfg: EngineConfig, x, w, acc):
+    """acc + sum_p (plane_p(x) @ w limbs) << (pb*p + key_shift): the whole
+    product, one mm_recombine_acc per digit plane.  x: (..., J, N);
+    w: (L, J*N, U*N); acc: (M, U, N) with M the flattened lead of x."""
+    pb, _ = cfg.plane_split
+    planes = _digit_planes(cfg, x)
+    for p in range(planes.shape[0]):
+        flat = planes[p].reshape(acc.shape[0], w.shape[1])
+        acc = kernels.mm_recombine_acc(flat.contiguous(), w, acc,
+                                       shift_base=cfg.key_shift + pb * p)
+    return acc
+
+
+class _EngineBase:
+    """Shared contract; accumulate_into defaults to acc + accumulate."""
+
+    def accumulate_into(self, acc, x, prepared):
+        return acc + self.accumulate(x, prepared)
+
+    def cmux_step(self, a, acc, prepared, *, l: int, bgbit: int, offset: int):
+        """acc + recombine(decompose((X^a - 1) * acc) @ key) in one fused
+        kernel when eligible, else None (the caller takes the generic
+        step)."""
+        return None
+
+    def _fused_ok(self, acc, bgbit) -> bool:
+        cfg = self.cfg
+        return (cfg.out_bits == 32 and cfg.kbits == 32
+                and cfg.plane_split[1] == 1 and bgbit <= 8
+                and cfg.num_limbs <= 3 and acc.ndim == 3)
+
+
+class NaiveEngine(_EngineBase):
+    """Exact O(N^2) einsum oracle (CPU)."""
+
+    def __init__(self, cfg: EngineConfig):
+        self.cfg = cfg
+
+    def prepare(self, key_polys):
+        _require_32(self.cfg)
+        assert key_polys.shape[-1] == self.cfg.N
+        return {"mat": poly.negacyclic_matrix(key_polys)}   # (J, U, N, N)
+
+    def accumulate(self, x, prepared):
+        # int64 products wrap mod 2^64, which keeps the result mod 2^32
+        y = torch.einsum("...jt,juti->...ui", torch.as_tensor(x).to(torch.int64),
+                         prepared["mat"].to(torch.int64))
+        return T.wrap32(y)
+
+
+class MatmulEngine(_EngineBase):
+    """Dense negacyclic limb matrices; one int8 GEMM per digit plane."""
+
+    def __init__(self, cfg: EngineConfig):
+        self.cfg = cfg
+
+    def prepare(self, key_polys):
+        cfg = self.cfg
+        J, U, N = key_polys.shape
+        assert N == cfg.N
+        limbs = _key_limbs_doubled(cfg, key_polys)          # (L,J,U,2N)
+        ar = torch.arange(N, device=key_polys.device)
+        idx = (ar[None, :] - ar[:, None]) % (2 * N)
+        mat = limbs[..., idx]                               # (L,J,U,t,i)
+        w = mat.permute(0, 1, 3, 2, 4)                      # (L,J,t,U,i)
+        return {"w": w.reshape(cfg.num_limbs, J * N, U * N).contiguous()}
+
+    def _w(self, prepared):
+        return prepared["w"]
+
+    def accumulate(self, x, prepared):
+        w = self._w(prepared)
+        L, JN, UN = w.shape
+        N = self.cfg.N
+        lead = x.shape[:-2]
+        M = x[..., 0, 0].numel()
+        acc = torch.zeros((M, UN // N, N), dtype=torch.int32, device=w.device)
+        return _fold_planes(self.cfg, x, w, acc).reshape(*lead, UN // N, N)
+
+    def accumulate_into(self, acc, x, prepared):
+        if acc.ndim != 3 or x.ndim != 3:
+            return acc + self.accumulate(x, prepared)
+        return _fold_planes(self.cfg, x, self._w(prepared), acc)
+
+    def cmux_step(self, a, acc, prepared, *, l, bgbit, offset):
+        if not self._fused_ok(acc, bgbit):
+            return None
+        return kernels.fused_cmux_step_v2(a, acc, self._w(prepared), l=l,
+                                          bgbit=bgbit, offset=offset,
+                                          key_shift=self.cfg.key_shift)
+
+
+class OnTheFlyMatmulEngine(MatmulEngine):
+    """Keys stored as O(N) doubled-limb vectors (L, J, U, 2N) int8; every
+    call materializes the negacyclic limb matrices (kernels.materialize_w)
+    and runs the same int8 GEMM as MatmulEngine.  The dense matrices would
+    cost N times the key memory (n * 21 MB at GATE_FAST2)."""
+
+    def prepare(self, key_polys):
+        J, U, N = key_polys.shape
+        assert N == self.cfg.N
+        return {"v": _key_limbs_doubled(self.cfg, key_polys).contiguous()}
+
+    def _w(self, prepared):
+        return kernels.materialize_w(prepared["v"])
+
+
+_LATER = {"chunked": "the N=1024 gate slice", "conv": "the engines slice",
+          "conv_bf16": "the engines slice", "fft": "the engines slice",
+          "fft_dd": "the engines slice", "fft_f64": "the engines slice",
+          "nussbaumer": "the engines slice"}
+
+
+def make_engine(cfg: EngineConfig, backend: str = "matmul"):
+    if backend == "matmul":
+        return MatmulEngine(cfg)
+    if backend == "onthefly":
+        return OnTheFlyMatmulEngine(cfg)
+    if backend == "naive":
+        return NaiveEngine(cfg)
+    if backend in _LATER:
+        raise NotImplementedError(
+            f"backend {backend!r} is not ported yet; it comes with "
+            f"{_LATER[backend]}")
+    raise ValueError(f"unknown backend {backend!r}")
