@@ -23,7 +23,16 @@ Phases (each prints its own lines; any failure exits non-zero):
      gate_nand and gate_mux truth tables on a small batch;
   4. generic step: GATE_DEFAULT (N=1024, 4 key limbs, so the fused step is
      ineligible) at B=256: rotate_decompose + materialize_w +
-     mm_recombine_acc, 630 of each per launch, decrypt-correct.
+     mm_recombine_acc, 630 of each per launch, decrypt-correct;
+  5. circuit bootstrap: CB_MXU (n0=500, N1=1024, N2=2048 Torus64, lvl2
+     Bg=2^8/l=5, 6-limb bk) at B=256 on the chunked engine through
+     CircuitCloudKey.generate (seconds per keygen.circuit.* span) /
+     make_circuit_bootstrap_staged, one untimed launch, then a timed one;
+     every step must go through rotate_decompose64_ck + ck_dot64p (1,000 of
+     each per launch: two 500-step rotations) and no 32-bit kernel; every
+     TRGSW row phase, a CMux driven by each TRGSW and a 4-bit LUT over 64
+     instances (lut.eval_lut_batch) must be right; then where one launch's
+     time goes (CUDA events) and the peak device memory.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero, with no result,
@@ -126,9 +135,12 @@ def _compare(name, got, want):
 
 def _kernel_cases(seed: int = 0):
     """(name, shape, source, replaces, wrapper, plain, args, kwargs, bound,
-    library-call); a kernel's first case is at the shape its path gives it."""
+    library-call, plain-on-card); a kernel's first case is at the shape its
+    path gives it.  The plain version runs on a CPU copy of the inputs, or
+    on the card where plain-on-card is set (its float64 sums are exact
+    there too, and the 64-bit contraction is too slow on the host)."""
     from tfhe_tpu_torch.ops import kernels as K
-    from tfhe_tpu_torch.params import GATE_DEFAULT, GATE_FAST2
+    from tfhe_tpu_torch.params import CB_ACTIVE, CB_MXU, GATE_DEFAULT, GATE_FAST2
     r = np.random.default_rng(seed)
     cases = []
 
@@ -148,7 +160,7 @@ def _kernel_cases(seed: int = 0):
     out_bytes = 3 * 9 * N * 3 * N
     cases.append(("materialize_w", "v (3,9,3,1024)", "csrc/materialize_w.cu",
                   f"{PALLAS}:77", K.materialize_w, K.materialize_w_plain,
-                  (v,), {}, bound_ms(v.numel() + out_bytes), None))
+                  (v,), {}, bound_ms(v.numel() + out_bytes), None, False))
 
     # fused_cmux_step_v2: GATE_FAST2 (k=2, l=3, L=3, key_shift=8) at the
     # main path's B=8192, then at B=1024
@@ -167,7 +179,7 @@ def _kernel_cases(seed: int = 0):
                       K.fused_cmux_step_v2, K.fused_cmux_step_v2_plain,
                       (a, acc, w), kw,
                       bound_ms(_nbytes(a, acc, w, acc), macs),
-                      ("_int_mm", (digits, wcat))))
+                      ("_int_mm", (digits, wcat)), False))
 
     # rotate_decompose + mm_recombine_acc: GATE_DEFAULT (N=1024, k=1, l=3,
     # L=4) at B=256
@@ -181,7 +193,7 @@ def _kernel_cases(seed: int = 0):
                   "csrc/rotate_decompose.cu",
                   f"{PALLAS}:163", K.rotate_decompose,
                   K.rotate_decompose_plain, (a, acc), kw,
-                  bound_ms(_nbytes(a, acc) + out_bytes), None))
+                  bound_ms(_nbytes(a, acc) + out_bytes), None, False))
     x = i8((B, kp1 * l * N), -64, 64)
     w = i8((L, kp1 * l * N, kp1 * N))
     macs = B * kp1 * l * N * kp1 * N * L
@@ -191,7 +203,40 @@ def _kernel_cases(seed: int = 0):
                   f"{PALLAS}:1535", K.mm_recombine_acc,
                   K.mm_recombine_acc_plain, (x, w, acc), {"shift_base": 0},
                   bound_ms(_nbytes(x, w, acc, acc), macs),
-                  ("_int_mm", (x, wcat))))
+                  ("_int_mm", (x, wcat)), False))
+
+    # rotate_decompose64_ck + ck_dot64p: the circuit bootstrap's lvl2 step at
+    # B=256, CB_MXU (l=5, Bg=2^8: one plane, 6 key limbs) then a
+    # CB_ACTIVE-shaped case (l=4, Bg=2^9: two planes, 8 key limbs)
+    B, kp1, N, m = 256, 2, 2048, 64
+    C = N // m
+    for label, p, L in (("CB_MXU", CB_MXU.tgsw_lvl2, 6),
+                        ("CB_ACTIVE", CB_ACTIVE.tgsw_lvl2, 8)):
+        P = 1 if p.bgbit <= 8 else 2
+        Jm = kp1 * p.l * m
+        acc = torch.from_numpy(r.integers(-2**63, 2**63, (B, kp1, N),
+                                          dtype=np.int64))
+        a = expo(B, N)
+        kw = dict(l=p.l, bgbit=p.bgbit, offset=p.offset, m=m, planes=P)
+        out_bytes = B * C * P * K.ck_width(Jm)
+        cases.append(("rotate_decompose64_ck", f"{label} B={B}",
+                      "csrc/rotate_decompose64_ck.cu", f"{PALLAS}:740",
+                      K.rotate_decompose64_ck, K.rotate_decompose64_ck_plain,
+                      (a, acc), kw, bound_ms(_nbytes(a, acc) + out_bytes),
+                      None, False))
+        lo, hi = (-128, 128) if P == 1 else (-64, 65)
+        x = i8((B, C * P * K.ck_width(Jm)), lo, hi)
+        wm = i8((kp1 * L, Jm, N + m))
+        UL = kp1 * L
+        # the product's essential MACs: every folded output sums J*N terms
+        macs = P * B * UL * N * (Jm // m) * N
+        out_bytes = UL * B * N * 4
+        wcat = wm.permute(1, 0, 2).reshape(Jm, UL * (N + m))
+        cases.append(("ck_dot64p", f"{label} B={B}", "csrc/ck_dot64p.cu",
+                      f"{PALLAS}:835", K.ck_dot64p, K.ck_dot64p_plain,
+                      (x, wm), dict(N=N, m=m, planes=P),
+                      bound_ms(_nbytes(x, wm) + out_bytes, macs),
+                      ("_int_mm", (x.reshape(B * C * P, Jm), wcat)), True))
     return cases
 
 
@@ -200,11 +245,11 @@ def phase_kernels(reps: int = 20):
     other cases go under the entry's "other_shapes"."""
     results = {}
     for (name, shape, src, replaces, wrapper, plain, args, kw, (bnd, by),
-         lib) in _kernel_cases():
+         lib, plain_on_card) in _kernel_cases():
         dev_args = tuple(t.cuda() for t in args)
         got = wrapper(*dev_args, **kw)
         torch.cuda.synchronize()
-        want = plain(*args, **kw)
+        want = plain(*(dev_args if plain_on_card else args), **kw)
         err = _compare(name, got, want)
         if name == "fused_cmux_step_v2":      # the flat (B, (k+1)N) layout
             a, acc, w = dev_args
@@ -389,6 +434,185 @@ def phase_generic(smi: str, batch: int = 256):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 5
+# ---------------------------------------------------------------------------
+
+def _torus_dist(x, want):
+    """|x - want| on the 32-bit torus, as int64."""
+    d = (x.to(torch.int64) - want) % 2**32
+    return torch.minimum(d, 2**32 - d)
+
+
+def check_trgsw_rows(gsw, bits, sk, P) -> list:
+    """Every TRGSW row (z=1, w) of the batch: coefficient 0 within h_w/4 of
+    bit * h_w, h_w = 2^(32-(w+1)*bg1), and the other coefficients within
+    h_w/4 of 0 (tests/test_circuit_bootstrap.py).  h_w/4 is below h_w/2, so
+    a row that encodes the wrong bit fails.  Returns the worst error of
+    each level."""
+    from tfhe_tpu_torch import tgsw
+    ph = tgsw.tgsw_phase(gsw, sk.ring_lvl1)          # (B, k+1, ell1, N1)
+    bit_t = torch.from_numpy(bits).to(gsw.device)
+    worst = []
+    for w in range(P.tgsw_lvl1.l):
+        h = 1 << (32 - (w + 1) * P.tgsw_lvl1.bgbit)
+        row = ph[:, 1, w]
+        worst.append(max(int(_torus_dist(row[:, 0], bit_t * h).max()),
+                         int(_torus_dist(row[:, 1:], 0).max())))
+        check(worst[-1] < h // 4, f"a TRGSW row phase of level {w} is off "
+              f"by {worst[-1]} >= h_{w}/4 = {h // 4}")
+    return worst
+
+
+def check_cmux(gsw, bits, sk, P) -> tuple:
+    """A CMux driven by each TRGSW selects d1 for bit 1 and d0 for bit 0.
+    d1 - d0 has the digit Bg/4 on the last level at coefficient 0, so a row
+    of that level that encodes the wrong bit moves the output by
+    (Bg/4) * h_last; the limit is half that.  Returns (worst error,
+    limit)."""
+    from tfhe_tpu_torch import tgsw, tlwe
+    p1, k = P.tgsw_lvl1, P.lvl1.k
+    h_last = 1 << (32 - p1.l * p1.bgbit)
+    limit = (1 << (p1.bgbit - 2)) * h_last // 2
+    m = torch.zeros((2, P.n_lvl1), dtype=torch.int32, device=gsw.device)
+    m[0, 0] = 1 << 29
+    m[1, 0] = -(1 << 29) + (1 << (p1.bgbit - 2)) * h_last
+    d0, d1 = (tlwe.noiseless_trivial_poly(m[i:i + 1], k) for i in (0, 1))
+    worst = 0
+    for i in range(gsw.shape[0]):
+        _, prep = tgsw.prepare(gsw[i], p1, "onthefly")
+        sel = tgsw.cmux(prep, d1, d0, p1, "onthefly")
+        err = _torus_dist(tlwe.tlwe_phase(sel, sk.ring_lvl1)[0],
+                          m[int(bits[i])].to(torch.int64))
+        worst = max(worst, int(err.max()))
+    check(worst < limit, f"a CMux selection is off by {worst} >= {limit}")
+    return worst, limit
+
+
+def phase_circuit(smi: str):
+    """CB_MXU circuit bootstrap of the 4 bits of each of 64 random LUT
+    indices, then the LUTs they select.  Returns the launch counts of the
+    timed launch and its numbers."""
+    from tfhe_tpu_torch import device, lwe, noise, tgsw, tlwe
+    from tfhe_tpu_torch import torus as T
+    from tfhe_tpu_torch.boot import circuit
+    from tfhe_tpu_torch.models import lut
+    from tfhe_tpu_torch.ops import kernels as K
+    from tfhe_tpu_torch.ops.engine import make_engine
+    from tfhe_tpu_torch.params import CB_MXU
+    from tfhe_tpu_torch.rng import TfheRng
+    from tfhe_tpu_torch.utils import observability as obs
+    P, instances, lut_bits = CB_MXU, 64, 4
+    dev = device.resolve(None)
+    batch = instances * lut_bits
+    k, ell1 = P.lvl1.k, P.tgsw_lvl1.l
+    shared = (noise.shared_rotation_penalty(P)
+              <= noise.SHARED_ROTATION_MAX_PENALTY)
+    steps = P.n_lvl0 * (1 if shared else ell1)
+
+    rng = TfheRng(0)
+    sk = circuit.CircuitSecretKey.generate(P, rng)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ck = circuit.CircuitCloudKey.generate(sk, rng, backend="chunked")
+    keygen_s = time.perf_counter() - t0
+    spans = obs.report()["spans"]
+    parts = ", ".join(f"{name.split('.')[-1]} {v['total_s']:.2f} s"
+                      for name, v in spans.items()
+                      if name.startswith("keygen.circuit."))
+    print(f"phase 5 keygen CB_MXU chunked: {keygen_s:.2f} s ({parts})")
+
+    # instance i selects table[idx_i]; its bits, LSB first, are ciphertexts
+    # i*lut_bits .. i*lut_bits + lut_bits - 1 (bit = 1 encodes as 1/2)
+    r = np.random.default_rng(5)
+    idx = r.integers(0, 1 << lut_bits, instances)
+    bits = ((idx[:, None] >> np.arange(lut_bits)) & 1).reshape(-1)
+    msgs = np.where(bits == 1, -(1 << 31), 0).astype(np.int32)
+    ct = lwe.encrypt(sk.lwe_lvl1, msgs, rng, 2.0**-20)
+    cb = circuit.make_circuit_bootstrap_staged(P, backend="chunked")
+    cb(ct, ck.data)                     # untimed: first-use set-up
+    torch.cuda.synchronize()
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    gsw = cb(ct, ck.data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {kern.__name__: kern.launches for kern in K.KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for name in ("rotate_decompose64_ck", "ck_dot64p"):
+        check(counts[name] == steps, f"CB_MXU: {name} launched "
+              f"{counts[name]} times, want {steps}")
+    for name in ("materialize_w", "rotate_decompose", "mm_recombine_acc",
+                 "fused_cmux_step_v2"):
+        check(counts[name] == 0, f"CB_MXU: 32-bit kernel {name} launched "
+              f"inside the circuit bootstrap")
+    check(tuple(gsw.shape) == (batch, k + 1, ell1, k + 1, P.n_lvl1),
+          f"CB_MXU: TRGSW batch of shape {tuple(gsw.shape)}")
+    print(f"phase 5 CB_MXU chunked B={batch}: {wall * 1e3 / batch:.3f} ms "
+          f"per ciphertext, {batch / wall:.2f} ct/s ({wall:.3f} s for one "
+          f"launch, {'one shared rotation' if shared else f'{ell1} rotations'}"
+          f" of {P.n_lvl0} steps), launches {counts} [{smi}]")
+
+    worst = check_trgsw_rows(gsw, bits, sk, P)
+    print(f"phase 5 TRGSW rows: all {batch * ell1} (z=1) rows within h_w/4 "
+          f"of bit * h_w; worst error per level {worst}")
+    worst, limit = check_cmux(gsw, bits, sk, P)
+    print(f"phase 5 CMux: all {batch} TRGSWs select the right message "
+          f"(worst phase error {worst} < {limit})")
+
+    # a lut_bits-bit LUT per instance: table[v] = perm[v] / 2^lut_bits
+    p1 = P.tgsw_lvl1
+    perm = r.permutation(1 << lut_bits)
+    table = T.wrap32(torch.from_numpy(perm.astype(np.int64)
+                                      << (32 - lut_bits)))
+    sel = gsw.reshape(instances, lut_bits, *gsw.shape[1:])
+    out = lut.eval_lut_batch(sel, table, p1, backend="onthefly")
+    dec = T.mod_switch_from_torus32(
+        tlwe.tlwe_phase(out, sk.ring_lvl1)[:, 0], 1 << lut_bits)
+    ok = dec.cpu().numpy() == perm[idx]
+    check(ok.all(), f"CB_MXU: {int((~ok).sum())} of {instances} LUT "
+          f"outputs wrong")
+    print(f"phase 5 LUT: all {instances} {lut_bits}-bit LUTs decode "
+          f"table[index]")
+
+    # where one launch's time goes, from CUDA events at the path's shapes
+    p2 = P.tgsw_lvl2
+    eng = make_engine(tgsw.engine_config(p2), "chunked")
+    wm0 = ck.data["bk"]["wm"][0]
+    acc = torch.randint(-2**63, 2**63 - 1, (batch, k + 1, P.n_lvl2),
+                        dtype=torch.int64, device=dev)
+    a0 = torch.randint(0, 2 * P.n_lvl2, (batch,), dtype=torch.int32,
+                       device=dev)
+    kw = dict(l=p2.l, bgbit=p2.bgbit, offset=p2.offset, m=eng.m,
+              planes=eng.cfg.plane_split[1])
+    x = K.rotate_decompose64_ck(a0, acc, **kw)
+    y = K.ck_dot64p(x, wm0, N=P.n_lvl2, m=eng.m, planes=kw["planes"])
+    rot_ms = cuda_ms(lambda: K.rotate_decompose64_ck(a0, acc, **kw), 20)
+    dot_ms = cuda_ms(lambda: K.ck_dot64p(x, wm0, N=P.n_lvl2, m=eng.m,
+                                         planes=kw["planes"]), 10)
+    epi_ms = cuda_ms(lambda: acc + eng._recombine(y, k + 1), 20)
+    step_ms = cuda_ms(lambda: eng.cmux_step(a0, acc, {"wm": wm0}, l=p2.l,
+                                            bgbit=p2.bgbit,
+                                            offset=p2.offset), 10)
+    preks = lwe.KeySwitchKey(P.ks10, P.n_lvl1, P.n_lvl0, ck.data["preks"])
+    pre_ms = cuda_ms(lambda: lwe.keyswitch(ct, preks), 5)
+    ext = torch.randint(-2**63, 2**63 - 1, (batch, P.n_lvl2 + 1),
+                        dtype=torch.int64, device=dev)
+    priv_ms = cuda_ms(lambda: circuit.priv_keyswitch(ext, ck.privks, 0), 5)
+    n_priv = ell1 * (k + 1)
+    total = (rot_ms + dot_ms + epi_ms) * steps + pre_ms + priv_ms * n_priv
+    print(f"phase 5 breakdown B={batch}: rotate_decompose64_ck "
+          f"{rot_ms:.4f} ms x {steps}, ck_dot64p {dot_ms:.4f} ms x {steps}, "
+          f"int64 epilogue {epi_ms:.4f} ms x {steps} (whole step "
+          f"{step_ms:.4f} ms), preKS {pre_ms:.3f} ms x 1, privKS "
+          f"{priv_ms:.3f} ms x {n_priv}; sum {total:.1f} ms vs "
+          f"{wall * 1e3:.1f} ms per launch; peak device memory "
+          f"{peak_gb:.2f} GB")
+    return counts, {"ct_per_s": batch / wall, "ms_per_ct": wall * 1e3 / batch,
+                    "keygen_s": keygen_s, "peak_gb": peak_gb}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -397,12 +621,14 @@ def main() -> int:
     smi = phase_device()
     results = phase_kernels()
     phase_tiles(results["fused_cmux_step_v2"])
-    main_counts, _ = phase_main(smi)
-    generic_counts = phase_generic(smi)
+    by_path = {}
+    by_path["gate_fast2"], _ = phase_main(smi)
+    by_path["gate_default"] = phase_generic(smi)
+    by_path["circuit_bootstrap"], _ = phase_circuit(smi)
     for name, entry in results.items():
-        entry["launches"] = main_counts[name] + generic_counts[name]
-        entry["launches_by_path"] = {"gate_fast2": main_counts[name],
-                                     "gate_default": generic_counts[name]}
+        entry["launches_by_path"] = {path: counts[name]
+                                     for path, counts in by_path.items()}
+        entry["launches"] = sum(entry["launches_by_path"].values())
         check(entry["launches"] > 0, f"{name} never launched on a path")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))

@@ -1,0 +1,364 @@
+"""The port's 64-bit layers (torus, poly, decomposition, TRLWE, TRGSW, the
+chunked engine, the two lvl2 kernels' plain versions, the CMux step and the
+blind rotation) against tfhe_tpu's, bit for bit, on the same numpy inputs
+(CPU), plus the committed reference anchors of the lvl2 ring
+(tests/fixtures/ref_exact, as in tests/test_reference_vectors.py).
+
+Tolerance 0 everywhere: every path is exact integer arithmetic mod 2^64 (or
+2^32).  The Pallas kernels run in interpret mode, at the cases of
+tests/test_chunked64.py.
+"""
+
+import pathlib
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from tfhe_tpu import tlwe as jtlwe, tgsw as jtgsw
+from tfhe_tpu import torus as jT
+from tfhe_tpu.boot import blind_rotate as jbr
+from tfhe_tpu.ops import decomp as jdecomp, engine as jeng, i64pair
+from tfhe_tpu.ops import pallas_kernels as pk, poly as jpoly
+from tfhe_tpu.params import (CB_ACTIVE, CB_MXU, CB_TOY, TGswParams,
+                             TLweParams)
+from tfhe_tpu.rng import TfheRng as JRng
+from tfhe_tpu_torch import tgsw, tlwe
+from tfhe_tpu_torch import torus as T
+from tfhe_tpu_torch.boot import blind_rotate as br
+from tfhe_tpu_torch.ops import decomp, engine, kernels as K, poly
+from tfhe_tpu_torch.params import (CB_ACTIVE as T_ACTIVE, CB_MXU as T_MXU,
+                                   CB_TOY as T_TOY, TGswParams as TGsw,
+                                   TLweParams as TTlwe)
+from tfhe_tpu_torch.rng import TfheRng
+
+EXACT = pathlib.Path(__file__).parent / "fixtures" / "ref_exact"
+I64_EDGES = np.array([-2**63, 2**63 - 1, 0, -1, 1, 2**62, -2**62 - 1],
+                     np.int64)
+
+
+def _i64(r, shape):
+    x = r.integers(-2**63, 2**63, shape, dtype=np.int64)
+    flat = x.reshape(-1)
+    flat[:len(I64_EDGES)] = I64_EDGES[:flat.size]
+    return x
+
+
+def _same(got, want):
+    want = np.asarray(want)
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _tgsw_pair(l, bgbit, N, k, key_limbs=0):
+    """The same 64-bit gadget in both packages."""
+    return (TGswParams(l=l, bgbit=bgbit, key_limbs=key_limbs,
+                       tlwe=TLweParams(N=N, k=k, stdev=0.0, bits=64)),
+            TGsw(l=l, bgbit=bgbit, key_limbs=key_limbs,
+                 tlwe=TTlwe(N=N, k=k, stdev=0.0, bits=64)))
+
+
+# ---------------------------------------------------------------------------
+# torus, poly, decomposition
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("num_limbs", [8, 6, 3])
+def test_balanced_limbs64_and_recombine(num_limbs):
+    x = _i64(np.random.default_rng(1), (64, 9))
+    limbs = T.balanced_limbs(torch.from_numpy(x), num_limbs)
+    _same(limbs, jT.balanced_limbs(jnp.asarray(x), num_limbs))
+    parts = np.random.default_rng(2).integers(-2**30, 2**30, (num_limbs, 33)
+                                              ).astype(np.int32)
+    _same(T.recombine_limbs(torch.from_numpy(parts), 8, 64),
+          jT.recombine_limbs(jnp.asarray(parts), 8, jnp.int64))
+    if num_limbs == 8:                   # eight limbs are the value itself
+        _same(T.recombine_limbs(limbs.to(torch.int32), 8, 64), x)
+
+
+@pytest.mark.parametrize("s", [0, 1, 7, 32, 56, 63])
+def test_srl64_and_signed_planes(s):
+    x = _i64(np.random.default_rng(3), (200,))
+    _same(T.srl64(torch.from_numpy(x), s),
+          (x.astype(np.uint64) >> np.uint64(s)).astype(np.int64))
+    d = np.random.default_rng(4).integers(-256, 256, (100,)).astype(np.int64)
+    _same(T.signed_planes(torch.from_numpy(d), 7, 2),
+          jT.signed_planes(jnp.asarray(d), 7, 2))
+
+
+@pytest.mark.parametrize("index", [0, 5, 127])
+def test_poly64(index):
+    r = np.random.default_rng(5)
+    N, B = 128, 9
+    x = _i64(r, (B, 2, N))
+    p = r.integers(0, 2 * N, (B,)).astype(np.int32)
+    p[:4] = [0, N, 2 * N - 1, N - 1]
+    _same(poly.mul_by_xai(torch.from_numpy(p), torch.from_numpy(x)),
+          jpoly.mul_by_xai(jnp.asarray(p), jnp.asarray(x)))
+    _same(poly.mul_by_xai_minus_one(torch.from_numpy(p), torch.from_numpy(x)),
+          jpoly.mul_by_xai_minus_one(jnp.asarray(p), jnp.asarray(x)))
+    _same(poly.sample_extract(torch.from_numpy(x), index),
+          jpoly.sample_extract(jnp.asarray(x), index))
+    _same(poly.negacyclic_shift(torch.from_numpy(x), index + N // 2),
+          jpoly.negacyclic_shift(jnp.asarray(x), index + N // 2))
+
+
+@pytest.mark.parametrize("name", ["CB_ACTIVE", "CB_MXU", "CB_TOY"])
+def test_decompose64(name):
+    jp = {"CB_ACTIVE": CB_ACTIVE, "CB_MXU": CB_MXU, "CB_TOY": CB_TOY}[name]
+    tp = {"CB_ACTIVE": T_ACTIVE, "CB_MXU": T_MXU, "CB_TOY": T_TOY}[name]
+    x = _i64(np.random.default_rng(6), (3, 2, tp.n_lvl2))
+    _same(decomp.decompose_torus_poly(torch.from_numpy(x), tp.tgsw_lvl2),
+          jdecomp.decompose_torus_poly(jnp.asarray(x), jp.tgsw_lvl2))
+    _same(decomp.decompose_tlwe(torch.from_numpy(x), tp.tgsw_lvl2),
+          jdecomp.decompose_tlwe(jnp.asarray(x), jp.tgsw_lvl2))
+
+
+# ---------------------------------------------------------------------------
+# TRLWE and TRGSW at 64 bits
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bits,coarse", [(64, 0), (64, 16), (32, 0),
+                                         (32, 8)])
+def test_encrypt_zero_and_phase(bits, coarse):
+    """Same seed -> the same ciphertexts, including the coarse lattice."""
+    jparams = TLweParams(N=128, k=1, stdev=2.0**-40, bits=bits)
+    tparams = TTlwe(N=128, k=1, stdev=2.0**-40, bits=bits)
+    jkey = jtlwe.TLweKey.generate(jparams, JRng(3))
+    key = tlwe.TLweKey.generate(tparams, TfheRng(3))
+    np.testing.assert_array_equal(key.key, jkey.key)
+    want = jtlwe.encrypt_zero(jkey, JRng(4), (5, 2), coarse_bits=coarse)
+    got = tlwe.encrypt_zero(key, TfheRng(4), (5, 2), coarse_bits=coarse,
+                            device="cpu")
+    _same(got, want)
+    if coarse:
+        assert not (got & ((1 << coarse) - 1)).any()
+    _same(tlwe.tlwe_phase(got, key), jtlwe.tlwe_phase(want, jkey))
+
+
+def test_tgsw_encrypt64_coarse():
+    """tgsw.encrypt at the CB_MXU-gadget toy: bk_limbs=6 puts the rows on
+    the 2^16 lattice; same seed -> same TRGSWs."""
+    jp = TGswParams(l=5, bgbit=8, key_limbs=6,
+                    tlwe=TLweParams(N=128, k=1, stdev=2.0**-44, bits=64))
+    tp = TGsw(l=5, bgbit=8, key_limbs=6,
+              tlwe=TTlwe(N=128, k=1, stdev=2.0**-44, bits=64))
+    jkey = jtlwe.TLweKey.generate(jp.tlwe, JRng(8))
+    key = tlwe.TLweKey.generate(tp.tlwe, TfheRng(8))
+    msgs = np.array([1, 0, 1])
+    want = jtgsw.encrypt(jkey, msgs, jp, JRng(9))
+    got = tgsw.encrypt(key, msgs, tp, TfheRng(9), device="cpu")
+    _same(got, want)
+    _same(tgsw.tgsw_phase(got, key), jtgsw.tgsw_phase(want, jkey))
+
+
+# ---------------------------------------------------------------------------
+# the committed reference anchors (FALSE_RANDOM, CB_ACTIVE lvl2)
+# ---------------------------------------------------------------------------
+
+def _pat64(i):
+    return ((np.asarray(i, np.uint64) + np.uint64(1))
+            * np.uint64(0x9E3779B97F4A7C15)).astype(np.int64)
+
+
+def _bk0():
+    p = T_ACTIVE
+    ring2 = tlwe.TLweKey(p.lvl2, np.ones((1, p.n_lvl2), np.int32))
+    gsw = tgsw.encrypt(ring2, np.array([1]), p.tgsw_lvl2,
+                       TfheRng(false_random=True), stdev=p.bk_stdev,
+                       device="cpu")
+    return tgsw.rows(gsw[0])                           # (2*l2, 2, N2)
+
+
+@pytest.mark.parametrize("anchor", ["decomp64_out", "cmux_decomp", "bk0",
+                                    "cmux_extprod"])
+def test_reference_anchor(anchor):
+    p = T_ACTIVE.tgsw_lvl2
+    N2, l2 = T_ACTIVE.n_lvl2, p.l
+    acc = torch.from_numpy(_pat64(np.arange(2 * N2)).reshape(2, N2))
+    if anchor == "decomp64_out":
+        ref = np.fromfile(EXACT / "decomp64_out.i32", np.int32)
+        q2 = torch.from_numpy(_pat64(np.arange(N2)))
+        _same(decomp.decompose_torus_poly(q2, p), ref.reshape(l2, N2))
+    elif anchor == "cmux_decomp":
+        ref = np.fromfile(EXACT / "cmux_decomp.i32", np.int32)
+        _same(decomp.decompose_tlwe(acc, p), ref.reshape(2 * l2, N2))
+    elif anchor == "bk0":
+        ref = np.fromfile(EXACT / "bk0.i64", np.int64)
+        _same(_bk0(), ref.reshape(2 * l2, 2, N2))
+    else:
+        # the CMux inner body (poc:608-632) through the port's chunked
+        # engine: decompose -> product with the bk0 rows
+        eng = engine.make_engine(tgsw.engine_config(p), "chunked")
+        got = eng.accumulate(decomp.decompose_tlwe(acc, p)[None],
+                             eng.prepare(_bk0()))[0]
+        ref = np.fromfile(EXACT / "cmux_extprod.i64", np.int64)
+        _same(got, ref.reshape(2, N2))
+
+
+# ---------------------------------------------------------------------------
+# the chunked engine and the two kernels' plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("N,J,U,dbits,klimbs,m", [
+    (128, 4, 2, 8, 0, 32), (128, 8, 2, 9, 6, 64), (128, 4, 2, 8, 6, 64)])
+def test_chunked_engine_matches_jax(N, J, U, dbits, klimbs, m):
+    r = np.random.default_rng(0)
+    cfg = dict(N=N, out_bits=64, digit_bits=dbits, key_limbs=klimbs)
+    key = _i64(r, (J, U, N))
+    half = 1 << (dbits - 1)
+    x = r.integers(-half, half, (3, J, N)).astype(np.int32)
+    x[0, :, :2] = [-half, half - 1]
+    je = jeng.ChunkedEngine(jeng.EngineConfig(**cfg), m=m)
+    te = engine.ChunkedEngine(engine.EngineConfig(**cfg), m=m)
+    jprep = jax.jit(je.prepare)(jnp.asarray(key))
+    tprep = te.prepare(torch.from_numpy(key))
+    _same(tprep["wm"], jprep["wm"])
+    _same(te.accumulate(torch.from_numpy(x), tprep),
+          jax.jit(je.accumulate)(jnp.asarray(x), jprep))
+    # a stack of keys prepares in one pass to the per-key layouts
+    stacked = te.prepare(torch.from_numpy(np.stack([key, key[::-1].copy()])))
+    _same(stacked["wm"][0], jprep["wm"])
+
+
+def test_chunked_naive64_and_the_32_bit_rule():
+    cfg = engine.EngineConfig(N=64, out_bits=64, digit_bits=8)
+    assert isinstance(engine.make_engine(cfg, "chunked"),
+                      engine.ChunkedEngine)
+    r = np.random.default_rng(1)
+    key = _i64(r, (2, 2, 64))
+    x = r.integers(-128, 128, (3, 2, 64)).astype(np.int32)
+    jn = jeng.NaiveEngine(jeng.EngineConfig(N=64, out_bits=64, digit_bits=8))
+    tn = engine.make_engine(cfg, "naive")
+    _same(tn.accumulate(torch.from_numpy(x), tn.prepare(torch.from_numpy(key))),
+          jn.accumulate(jnp.asarray(x), jn.prepare(jnp.asarray(key))))
+    with pytest.raises(NotImplementedError, match="ck_cmux_step32"):
+        engine.make_engine(engine.EngineConfig(N=64, out_bits=32,
+                                               digit_bits=7), "chunked")
+
+
+@pytest.mark.parametrize("N,k,l,bgbit,m", [(128, 1, 5, 8, 32),
+                                           (128, 1, 4, 9, 64),
+                                           (256, 2, 4, 9, 64)])
+def test_rotate_decompose64_ck_plain(N, k, l, bgbit, m):
+    """Against the Pallas kernel (interpret) on the data columns; the pad
+    columns of each (chunk, plane) block, which ck_dot64p never reads, are
+    zero here and left unwritten by the Pallas kernel."""
+    r = np.random.default_rng(5)
+    p, _ = _tgsw_pair(l, bgbit, N, k)
+    B = 4
+    acc = _i64(r, (B, k + 1, N))
+    a = r.integers(0, 2 * N, (B,)).astype(np.int32)
+    a[:2] = [0, N]
+    P = 2 if bgbit > 8 else 1
+    lo, hi = i64pair.from_i64(jnp.moveaxis(jnp.asarray(acc), -2, 0))
+    want = np.asarray(pk.rotate_decompose64_ck(
+        jnp.asarray(a), lo, hi, l=l, bgbit=bgbit, offset=p.offset, m=m,
+        planes=P, tb=B, interpret=True))
+    got = K.rotate_decompose64_ck(torch.from_numpy(a), torch.from_numpy(acc),
+                                  l=l, bgbit=bgbit, offset=p.offset, m=m,
+                                  planes=P).numpy()
+    jm = (k + 1) * l * m
+    ckp = K.ck_width(jm)
+    got, want = got.reshape(B, -1, ckp), want.reshape(B, -1, ckp)
+    np.testing.assert_array_equal(got[..., :jm], want[..., :jm])
+    assert not got[..., jm:].any()
+    assert not got[0].any()                  # (X^0 - 1) * acc = 0 digits
+    # the layout is decompose_tlwe's digits, chunked (plain emitter check)
+    digs = jax.jit(lambda a_, x_: jdecomp.decompose_tlwe(
+        jpoly.mul_by_xai_minus_one(a_, x_), p))(jnp.asarray(a),
+                                                jnp.asarray(acc))
+    planes = T.signed_planes(torch.from_numpy(np.array(digs)), 7, P) \
+        if P == 2 else torch.from_numpy(np.array(digs)).to(torch.int8)[None]
+    np.testing.assert_array_equal(K.ck_layout(planes, m).numpy(),
+                                  got.reshape(B, -1))
+
+
+@pytest.mark.parametrize("N,kp1,l,U,L,m,P,lgsize", [
+    (128, 2, 2, 2, 3, 32, 1, 2), (128, 2, 2, 2, 4, 64, 2, 2),
+    (256, 3, 2, 3, 2, 64, 1, 3)])
+def test_ck_dot64p_plain(N, kp1, l, U, L, m, P, lgsize):
+    r = np.random.default_rng(2)
+    C, Jm = N // m, kp1 * l * m
+    B = 8
+    x = r.integers(-64, 64, (B, C * P * K.ck_width(Jm))).astype(np.int8)
+    wm = r.integers(-128, 128, (U * L, Jm, N + m)).astype(np.int8)
+    want = pk.ck_dot64p(jnp.asarray(x), jnp.asarray(wm), N=N, m=m, planes=P,
+                        tm=8, lgsize=lgsize, interpret=True)
+    got = K.ck_dot64p(torch.from_numpy(x), torch.from_numpy(wm), N=N, m=m,
+                      planes=P, digit_bits=8 if P == 1 else 13)
+    _same(got, want)
+
+
+def test_ck_dot64p_asserts_the_int32_bound():
+    x = torch.zeros((2, 2 * 4 * 128), dtype=torch.int8)
+    wm = torch.zeros((2, 4 * 64, 128 + 64), dtype=torch.int8)
+    K.ck_dot64p(x, wm, N=128, m=64, planes=2)          # 9-bit digits fit
+    with pytest.raises(ValueError, match="int32 accumulation bound"):
+        K.ck_dot64p(x, wm, N=128, m=64, planes=2, digit_bits=20)
+    # prepare holds the key to the same bound: J=32 rows of 9-bit digits
+    # at N=2048 exceed it, J=16 (CB_ACTIVE's (k+1)*l2 = 8, doubled) do not
+    te = engine.ChunkedEngine(engine.EngineConfig(N=2048, out_bits=64,
+                                                  digit_bits=9))
+    assert K.ck_dot64p_exact(16, 2048, 64, 9)
+    with pytest.raises(ValueError, match="int32 accumulation bound"):
+        te.prepare(torch.zeros((32, 1, 2048), dtype=torch.int64))
+
+
+# ---------------------------------------------------------------------------
+# the CMux step and the blind rotation
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("l,bgbit,klimbs", [(4, 9, 0), (5, 8, 6)])
+def test_cmux_step64_matches_jax(l, bgbit, klimbs):
+    """The chunked engine's step (plain kernels on the CPU) equals the JAX
+    package's generic step acc + accumulate(decompose((X^a - 1) acc)), with
+    the JAX naive oracle on the rounded key as the product."""
+    N, k, B = 128, 1, 5
+    jp, tp = _tgsw_pair(l, bgbit, N, k, klimbs)
+    r = np.random.default_rng(3)
+    key = _i64(r, (jp.kpl, k + 1, N))
+    acc = _i64(r, (B, k + 1, N))
+    a = r.integers(0, 2 * N, (B,)).astype(np.int32)
+    cfg = jtgsw.engine_config(jp)
+    kr = jnp.asarray(np.asarray(jeng._key_rounded(cfg, jnp.asarray(key)))
+                     << cfg.key_shift)
+    je = jeng.NaiveEngine(cfg)
+
+    @jax.jit
+    def step(a_, acc_, kr_):
+        digits = jdecomp.decompose_tlwe(jpoly.mul_by_xai_minus_one(a_, acc_),
+                                        jp)
+        return acc_ + je.accumulate(digits, je.prepare(kr_))
+
+    want = step(jnp.asarray(a), jnp.asarray(acc), kr)
+    te = engine.make_engine(tgsw.engine_config(tp), "chunked")
+    got = te.cmux_step(torch.from_numpy(a), torch.from_numpy(acc),
+                       te.prepare(torch.from_numpy(key)), l=l, bgbit=bgbit,
+                       offset=tp.offset)
+    _same(got, want)
+
+
+@pytest.mark.parametrize("backend", ["chunked", "naive"])
+def test_blind_rotate64_matches_jax(backend):
+    """A 6-step lvl2 blind rotation at CB_TOY's gadget (two digit planes,
+    eight key limbs)."""
+    p, tp = CB_TOY.tgsw_lvl2, T_TOY.tgsw_lvl2
+    r = np.random.default_rng(4)
+    n, B, N, k = 6, 3, p.tlwe.N, p.tlwe.k
+    key = r.integers(-2**50, 2**50, (n, p.kpl, k + 1, N)).astype(np.int64)
+    acc = _i64(r, (B, k + 1, N))
+    abar = r.integers(0, 2 * N, (B, n)).astype(np.int32)
+    jprepare = jax.jit(jtgsw.make_engine(jtgsw.engine_config(p),
+                                         "chunked").prepare)
+    jprep = {"wm": jnp.stack([jprepare(jnp.asarray(key[i]))["wm"]
+                              for i in range(n)])}
+    want = jbr.blind_rotate(jnp.asarray(acc), jprep, jnp.asarray(abar), p,
+                            "chunked")
+    teng = engine.make_engine(tgsw.engine_config(tp), backend)
+    preps = [teng.prepare(torch.from_numpy(key[i])) for i in range(n)]
+    tprep = {name: torch.stack([q[name] for q in preps]) for name in preps[0]}
+    got = br.blind_rotate(torch.from_numpy(acc), tprep, torch.from_numpy(abar),
+                          tp, backend)
+    _same(got, want)

@@ -5,7 +5,8 @@ Marked ``cuda``: skipped where no GPU is present.  On a machine with one:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Small and ragged shapes (batches that do not fill a 64-row tile, every limb
-count, both key shifts), plus one GATE_TOY bootstrap that must give the same
+count, both key shifts, one and two digit planes), plus one GATE_TOY
+bootstrap and one CB_TOY circuit bootstrap that must give the same
 ciphertexts on the card as on the CPU.  Imports nothing of JAX.
 """
 
@@ -13,9 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from tfhe_tpu_torch.boot import gate
+from tfhe_tpu_torch import lwe
+from tfhe_tpu_torch.boot import circuit, gate
 from tfhe_tpu_torch.ops import kernels as K
-from tfhe_tpu_torch.params import GATE_TOY
+from tfhe_tpu_torch.params import CB_TOY, GATE_TOY
 from tfhe_tpu_torch.rng import TfheRng
 
 pytestmark = pytest.mark.cuda
@@ -127,3 +129,60 @@ def test_toy_bootstrap_same_on_card_and_cpu(cuda, backend):
     assert torch.equal(outs["cpu"], outs["cuda"])
     assert (gate.decrypt_bool(sk, outs["cpu"])
             == ~np.array([0, 1, 1, 0, 1], bool)).all()
+
+
+def _i64(r, shape):
+    return torch.from_numpy(r.integers(-2**63, 2**63, shape, dtype=np.int64))
+
+
+@pytest.mark.parametrize("B,k,N,l,bgbit,m", [(256, 1, 2048, 5, 8, 64),
+                                             (3, 1, 2048, 4, 9, 64),
+                                             (7, 2, 256, 4, 9, 64),
+                                             (5, 1, 128, 5, 8, 32)])
+def test_rotate_decompose64_ck(cuda, B, k, N, l, bgbit, m):
+    r = np.random.default_rng(5)
+    acc = _i64(r, (B, k + 1, N))
+    acc.view(-1)[:3] = torch.tensor([-2**63, 2**63 - 1, 0])
+    a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
+    a[0] = N                                   # a pure sign flip
+    offset = sum(1 << (63 - i * bgbit) for i in range(l + 1)) % 2**64
+    kw = dict(l=l, bgbit=bgbit, offset=offset, m=m,
+              planes=1 if bgbit <= 8 else 2)
+    _same_on_card(K.rotate_decompose64_ck, K.rotate_decompose64_ck_plain,
+                  (a, acc), kw, cuda)
+
+
+@pytest.mark.parametrize("B,N,J,UL,m,P", [(256, 2048, 10, 12, 64, 1),
+                                          (37, 2048, 8, 16, 64, 2),
+                                          (70, 256, 6, 3, 32, 1),
+                                          (9, 128, 4, 5, 64, 2)])
+def test_ck_dot64p(cuda, B, N, J, UL, m, P):
+    r = np.random.default_rng(6)
+    ckp = K.ck_width(J * m)
+    lo, hi = (-128, 128) if P == 1 else (-64, 65)
+    x = _i8(r, (B, (N // m) * P * ckp), lo, hi)
+    wm = _i8(r, (UL, J * m, N + m))
+    _same_on_card(K.ck_dot64p, K.ck_dot64p_plain, (x, wm),
+                  dict(N=N, m=m, planes=P), cuda)
+
+
+def test_ck_dot64p_unsupported_shape_raises(cuda):
+    """N = 64 is below the kernel's 128-column tile: the wrapper raises
+    instead of running the plain version on the card."""
+    x = torch.zeros((4, 2 * 128), dtype=torch.int8, device=cuda)
+    wm = torch.zeros((2, 2 * 32, 64 + 32), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="kernel"):
+        K.ck_dot64p(x, wm, N=64, m=32)
+
+
+def test_cb_toy_same_on_card_and_cpu(cuda):
+    outs = {}
+    bits = np.array([0, 1, 1, 0, 1])
+    for dev in ("cpu", cuda):
+        rng = TfheRng(7)
+        sk = circuit.CircuitSecretKey.generate(CB_TOY, rng)
+        ck = circuit.CircuitCloudKey.generate(sk, rng, device=dev)
+        msgs = np.where(bits.astype(bool), -(1 << 31), 0).astype(np.int32)
+        ct = lwe.encrypt(sk.lwe_lvl1, msgs, rng, 2.0**-20, device=dev)
+        outs[str(dev)] = circuit.circuit_bootstrap(ct, ck.data, CB_TOY).cpu()
+    assert torch.equal(outs["cpu"], outs["cuda"])

@@ -5,12 +5,16 @@ The n sequential CMux steps are a Python loop; the whole ciphertext batch
 advances through each step together, so every step is one large int8
 tensor-core contraction.  Each step takes, in order:
 
-  * the fused step (``engine.cmux_step``: materialize the step's key, then
-    one ``fused_cmux_step_v2`` kernel) when the engine and parameters allow
-    it: 32-bit torus, one digit plane, bgbit <= 8, at most 3 key limbs;
-  * else the generic step: ``rotate_decompose`` (bgbit <= 8) or the plain
-    rotate + decompose, then ``engine.accumulate_into`` (``materialize_w`` +
-    ``mm_recombine_acc`` on the onthefly engine).
+  * the engine's own step (``engine.cmux_step``) when it has one for these
+    parameters: at 32 bits the fused step (materialize the step's key, then
+    one ``fused_cmux_step_v2`` kernel: one digit plane, bgbit <= 8, at most
+    3 key limbs); at 64 bits the chunked engine's step
+    (``rotate_decompose64_ck`` + ``ck_dot64p`` + an int64 epilogue), with
+    the Torus64 accumulator carried natively as (B, k+1, N) int64;
+  * else the generic step: ``rotate_decompose`` (32 bits, bgbit <= 8) or the
+    plain rotate + decompose, then ``engine.accumulate_into``
+    (``materialize_w`` + ``mm_recombine_acc`` on the onthefly engine).  At
+    64 bits the generic step is plain torch code and serves only the CPU.
 
 The decision is the same on the CPU and on the GPU; only the kernel
 wrappers choose between a plain version and a kernel.
@@ -29,15 +33,13 @@ def blind_rotate(acc, bk_prepared, abar, p: TGswParams,
                  backend: str = "matmul"):
     """Run the n-step CMux loop.
 
-    acc:         (B, k+1, N) int32 accumulator (noiseless test vector).
+    acc:         (B, k+1, N) int32 or int64 accumulator (noiseless test
+                 vector).
     bk_prepared: dict of tensors with leading axis n (the engine-prepared
                  TRGSW of every small-LWE key bit).
     abar:        (B, n) int32 rotation exponents in [0, 2N).
     Returns the rotated accumulator (B, k+1, N).
     """
-    if p.tlwe.bits != 32:
-        raise NotImplementedError(
-            "the 64-bit blind rotation comes with the circuit-bootstrap slice")
     eng = make_engine(tgsw.engine_config(p), backend)
     steps = abar.t().contiguous()                     # (n, B): rows contiguous
     for i in range(steps.shape[0]):
@@ -48,7 +50,11 @@ def blind_rotate(acc, bk_prepared, abar, p: TGswParams,
         if fused is not None:
             acc = fused
             continue
-        if p.bgbit <= 8:
+        if p.tlwe.bits == 64 and acc.device.type != "cpu":
+            raise ValueError(
+                f"backend {backend!r} has no 64-bit step for the card; the "
+                f"64-bit blind rotation runs on the 'chunked' backend")
+        if p.tlwe.bits == 32 and p.bgbit <= 8:
             digits = kernels.rotate_decompose(a_i, acc, l=p.l, bgbit=p.bgbit,
                                               offset=p.offset)
         else:

@@ -27,6 +27,7 @@ FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
                       "-Xptxas", "-v", "-lineinfo"]
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+_U64 = ctypes.c_uint64
 # C entry point of every source: (symbol, argtypes); each returns the
 # cudaError_t of its launch.
 SIGNATURES = {
@@ -38,6 +39,11 @@ SIGNATURES = {
     "fused_cmux_step": ("tfhe_fused_cmux_step",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _I, _I,
                          _P]),
+    "rotate_decompose64_ck": ("tfhe_rotate_decompose64_ck",
+                              [_P, _P, _P, _I, _I, _I, _I, _I, _U64, _I, _I,
+                               _I, _P]),
+    "ck_dot64p": ("tfhe_ck_dot64p", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                     _P]),
 }
 
 _lock = threading.Lock()

@@ -5,21 +5,24 @@ computation: the fixed operand (a key) is split into balanced signed int8
 limbs at preparation time, the varying operand (gadget digits) is int8 (or
 split into base-2^7 planes when wider), every limb x plane product is an
 int8 x int8 -> int32 contraction, and the partial results are recombined
-with shifts mod 2^32.  On the GPU the contractions run in the int8 tensor
-cores through the kernels of ``ops.kernels``; on the CPU the same wrappers
-take their plain versions, so both devices take the same dispatch.
+with shifts mod 2^32 (or 2^64 for the Torus64 ring of the circuit
+bootstrap).  On the GPU the contractions run in the int8 tensor cores
+through the kernels of ``ops.kernels``; on the CPU the same wrappers take
+their plain versions, so both devices take the same dispatch.
 
 Contract shared by the engines:
 
-  prepare(key_polys (J, U, N) int32)  -> prepared dict of tensors
-  accumulate(x (..., J, N) digits, prepared) -> (..., U, N) int32
+  prepare(key_polys (J, U, N) torus)  -> prepared dict of tensors
+  accumulate(x (..., J, N) digits, prepared) -> (..., U, N) torus
 
   result[..., u, :] = sum_j negacyclic(x[..., j, :], key[j, u, :])
 
-Backends: ``naive`` (exact einsum oracle, CPU), ``matmul`` (dense negacyclic
-limb matrices) and ``onthefly`` (O(N) doubled-limb vectors, the matrices
-materialized per call).  The chunked, conv, FFT and Nussbaumer backends of
-the JAX package are not ported yet.
+Backends: ``naive`` (exact einsum oracle, CPU; 32 and 64 bits),
+``matmul`` (dense negacyclic limb matrices) and ``onthefly`` (O(N)
+doubled-limb vectors, the matrices materialized per call) at 32 bits, and
+``chunked`` (pre-shifted chunked keys) at 64 bits.  The 32-bit chunked step
+and the conv, FFT and Nussbaumer backends of the JAX package are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -75,8 +78,9 @@ class EngineConfig:
 
 def _require_32(cfg: EngineConfig):
     if cfg.out_bits != 32:
-        raise NotImplementedError(
-            "64-bit engines come with the circuit-bootstrap slice")
+        raise ValueError("the matmul and onthefly engines take a 32-bit "
+                         "torus; the 64-bit ring runs on 'chunked' or "
+                         "'naive'")
 
 
 def _digit_planes(cfg: EngineConfig, x):
@@ -95,9 +99,11 @@ def _key_rounded(cfg: EngineConfig, key_polys):
         return key_polys
     # clamp the two extreme values (+-2^(kbits-s-1)) that would need an
     # L+1-th balanced limb
+    # (at 64 bits the add wraps, as the JAX package's int64 add does)
     wide = key_polys.to(torch.int64) + (1 << (s - 1))
     lim = (1 << (cfg.kbits - s - 1)) - 1
-    return torch.clamp(wide >> s, -lim, lim).to(torch.int32)
+    return torch.clamp(wide >> s, -lim, lim).to(
+        torch.int32 if cfg.kbits <= 32 else torch.int64)
 
 
 def _key_limbs_doubled(cfg: EngineConfig, key_polys):
@@ -149,15 +155,15 @@ class NaiveEngine(_EngineBase):
         self.cfg = cfg
 
     def prepare(self, key_polys):
-        _require_32(self.cfg)
         assert key_polys.shape[-1] == self.cfg.N
         return {"mat": poly.negacyclic_matrix(key_polys)}   # (J, U, N, N)
 
     def accumulate(self, x, prepared):
-        # int64 products wrap mod 2^64, which keeps the result mod 2^32
+        # int64 products wrap mod 2^64, which is the 64-bit torus and keeps
+        # the result mod 2^32
         y = torch.einsum("...jt,juti->...ui", torch.as_tensor(x).to(torch.int64),
                          prepared["mat"].to(torch.int64))
-        return T.wrap32(y)
+        return y if self.cfg.out_bits == 64 else T.wrap32(y)
 
 
 class MatmulEngine(_EngineBase):
@@ -217,7 +223,94 @@ class OnTheFlyMatmulEngine(MatmulEngine):
         return kernels.materialize_w(prepared["v"])
 
 
-_LATER = {"chunked": "the N=1024 gate slice", "conv": "the engines slice",
+class ChunkedEngine(_EngineBase):
+    """Pre-shifted chunked keys: the negacyclic product as C = N/m int8
+    products against a static key operand, the production engine of the
+    64-bit lvl2 circuit-bootstrap loop (poc_CircuitBootstrapping.cpp:580-642;
+    ``tfhe_tpu.ops.engine.ChunkedEngine``).
+
+    Every key limb is stored as m acyclically shifted copies of width N+m,
+        wm[(u,l), (j,s), q] = limb[l, j, u, q - s]   (0 <= q-s < N, else 0),
+    so chunk c of the digits (coefficients c*m .. c*m+m-1 of every row j)
+    times wm lands at ring offset c*m; the 2N ring folds once with X^N = -1
+    (``kernels.ck_dot64p``).  m = 64 at 64 bits keeps the JAX package's key
+    layout, so its keys carry over unchanged (8.1 GB of wm at CB_MXU)."""
+
+    def __init__(self, cfg: EngineConfig, m: int | None = None):
+        if cfg.out_bits != 64:
+            raise NotImplementedError(
+                "the 32-bit chunked engine is not ported yet; it comes with "
+                "the N=1024 gate slice (kernel ck_cmux_step32)")
+        self.cfg = cfg
+        self.m = m or min(64, cfg.N)
+        assert cfg.N % self.m == 0
+
+    def prepare(self, key_polys):
+        """key_polys (..., J, U, N) -> {"wm": (..., U*L, J*m, N+m) int8};
+        leading axes (the steps of a bootstrapping key) are prepared in one
+        pass."""
+        cfg = self.cfg
+        *lead, J, U, N = key_polys.shape
+        assert N == cfg.N
+        m, L = self.m, cfg.num_limbs
+        if not kernels.ck_dot64p_exact(J, N, m, cfg.digit_bits):
+            raise ValueError("int32 accumulation bound of ck_dot64p exceeded "
+                             "for this shape")
+        limbs = T.balanced_limbs(_key_rounded(cfg, key_polys), L,
+                                 cfg.limb_bits)            # (L, ..., J, U, N)
+        n = len(lead)
+        lj = limbs.permute(*range(1, n + 1), n + 2, 0, n + 1, n + 3)
+        # lj: (..., U, L, J, N); wm[..., u, l, j, s, q] = lj[..., q - s]
+        wm = torch.zeros((*lead, U, L, J, m, N + m), dtype=torch.int8,
+                         device=key_polys.device)
+        for s in range(m):
+            wm[..., s, s:s + N] = lj
+        return {"wm": wm.reshape(*lead, U * L, J * m, N + m)}
+
+    def _recombine(self, y, U: int):
+        """Per-limb folded products (U*L, M, N) int32 -> (M, U, N) int64:
+        sum_l y[u, l] << (limb_bits*l + key_shift), mod 2^64."""
+        cfg = self.cfg
+        UL, M, N = y.shape
+        y = y.reshape(U, UL // U, M, N)
+        out = None
+        for lm in range(UL // U):
+            v = y[:, lm].to(torch.int64) << (cfg.limb_bits * lm + cfg.key_shift)
+            out = v if out is None else out + v
+        return out.permute(1, 0, 2)
+
+    def accumulate(self, x, prepared):
+        cfg = self.cfg
+        wm = prepared["wm"]
+        UL, Jm, Npm = wm.shape
+        U = UL // cfg.num_limbs
+        planes = _digit_planes(cfg, x)                      # (P, ..., J, N)
+        P = planes.shape[0]
+        lead = planes.shape[1:-2]
+        flat = planes.reshape(P, -1, Jm // self.m, cfg.N)
+        xc = kernels.ck_layout(flat, self.m)
+        y = kernels.ck_dot64p(xc, wm, N=cfg.N, m=self.m, planes=P,
+                              digit_bits=cfg.digit_bits)
+        return self._recombine(y, U).reshape(*lead, U, cfg.N)
+
+    def cmux_step(self, a, acc, prepared, *, l, bgbit, offset):
+        """One 64-bit blind-rotation step on the native int64 (B, k+1, N)
+        accumulator: rotate_decompose64_ck (digits straight into the chunk
+        layout) -> ck_dot64p -> limb recombination + accumulator add in
+        int64 torch ops (the JAX package's XLA epilogue)."""
+        cfg = self.cfg
+        pb, P = cfg.plane_split
+        if acc.ndim != 3 or P > 2:
+            return None
+        B, kp1, N = acc.shape
+        x = kernels.rotate_decompose64_ck(a, acc, l=l, bgbit=bgbit,
+                                          offset=offset, m=self.m, planes=P)
+        y = kernels.ck_dot64p(x, prepared["wm"], N=N, m=self.m, planes=P,
+                              digit_bits=cfg.digit_bits)
+        return acc + self._recombine(y, kp1)
+
+
+_LATER = {"conv": "the engines slice",
           "conv_bf16": "the engines slice", "fft": "the engines slice",
           "fft_dd": "the engines slice", "fft_f64": "the engines slice",
           "nussbaumer": "the engines slice"}
@@ -230,6 +323,8 @@ def make_engine(cfg: EngineConfig, backend: str = "matmul"):
         return OnTheFlyMatmulEngine(cfg)
     if backend == "naive":
         return NaiveEngine(cfg)
+    if backend == "chunked":
+        return ChunkedEngine(cfg)
     if backend in _LATER:
         raise NotImplementedError(
             f"backend {backend!r} is not ported yet; it comes with "

@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels of the CMux step, their wrappers and their
 plain PyTorch versions (the counterpart of ``tfhe_tpu/ops/pallas_kernels.py``
-for the 32-bit gate-bootstrap path).
+for the 32-bit gate-bootstrap path and the 64-bit circuit-bootstrap path).
 
 Every wrapper takes its plain version when its tensors lie on the CPU and
 launches its kernel (``csrc/<name>.cu``, built by ``_build``) when they lie on
@@ -13,11 +13,13 @@ The plain versions are the same exact integer functions: int8 products are
 contracted in float64 (every dot is an integer below 2^53, so the BLAS sum is
 exact) and the mod-2^32 recombination runs in int64.
 
-  kernel               replaces (pallas_kernels.py)  bound on the H100
-  materialize_w        materialize_w                 bytes written (L*J*U*N*N)
-  rotate_decompose     rotate_decompose              bytes moved (4 + l per coeff)
-  mm_recombine_acc     mm_recombine_acc              int8 MACs (W bytes at small B)
-  fused_cmux_step_v2   fused_cmux_step_v2            int8 MACs
+  kernel                 replaces (pallas_kernels.py)  bound on the H100
+  materialize_w          materialize_w                 bytes written (L*J*U*N*N)
+  rotate_decompose       rotate_decompose              bytes moved (4 + l per coeff)
+  mm_recombine_acc       mm_recombine_acc              int8 MACs (W bytes at small B)
+  fused_cmux_step_v2     fused_cmux_step_v2            int8 MACs
+  rotate_decompose64_ck  rotate_decompose64_ck         bytes moved (8 + l*P per coeff)
+  ck_dot64p              ck_dot64p                     int8 MACs
 """
 
 from __future__ import annotations
@@ -266,8 +268,168 @@ def fused_cmux_step_v2(a, acc, w, *, l: int, bgbit: int, offset: int,
 
 fused_cmux_step_v2.launches = 0
 
+# ---------------------------------------------------------------------------
+# rotate_decompose64_ck
+# ---------------------------------------------------------------------------
+
+def ck_width(jm: int) -> int:
+    """Columns of one (chunk, plane) block of the chunk layout: J*m rounded
+    up to 128 (the JAX package's lane rule, kept so both layouts agree byte
+    for byte; J*m is already a multiple of 128 at CB_MXU and CB_ACTIVE)."""
+    return -(-jm // 128) * 128
+
+
+def ck_layout(planes, m: int):
+    """Digit planes (P, M, J, N) int8 -> the chunk layout (M, C*P*ckp) int8:
+    byte (b, (c*P + p)*ckp + j*m + s) holds plane p of digit (j, c*m + s);
+    columns past J*m in each block are zero."""
+    P, M, J, N = planes.shape
+    C = N // m
+    x = planes.reshape(P, M, J, C, m).permute(1, 3, 0, 2, 4)   # (M,C,P,J,m)
+    x = x.reshape(M, C, P, J * m)
+    pad = ck_width(J * m) - J * m
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    return x.reshape(M, -1).contiguous()
+
+
+def rotate_decompose64_ck_plain(a, acc, *, l: int, bgbit: int, offset: int,
+                                m: int, planes: int = 1):
+    rot = poly.mul_by_xai_minus_one(a, acc) + T.signed64(offset)
+    B, kp1, N = acc.shape
+    digs = torch.stack([((rot >> (64 - (i + 1) * bgbit)) & ((1 << bgbit) - 1))
+                        - (1 << (bgbit - 1)) for i in range(l)], dim=-2)
+    digs = digs.reshape(B, kp1 * l, N)
+    if planes == 1:
+        pl = digs.to(torch.int8)[None]
+    else:
+        pl = T.signed_planes(digs, 7, planes)
+    return ck_layout(pl, m)
+
+
+def rotate_decompose64_ck(a, acc, *, l: int, bgbit: int, offset: int, m: int,
+                          planes: int = 1):
+    """Gadget digits of (X^a - 1) * acc for a 64-bit TRLWE batch, written in
+    ck_dot64p's chunk layout.
+
+    a: (B,) int32 exponents (taken mod 2N); acc: (B, k+1, N) int64; offset:
+    the 64-bit gadget offset (unsigned).  Digit j = u*l + lv of coefficient
+    n = c*m + s goes to byte (b, (c*P + p)*ckp + j*m + s) for its balanced
+    base-2^7 plane p (planes=2 splits 9-bit digits: d = p0 + 128 p1).
+    Returns (B, C*P*ckp) int8 with ckp = ck_width((k+1)*l*m).
+
+    Kernel: csrc/rotate_decompose64_ck.cu (replaces
+    pallas_kernels.rotate_decompose64_ck).  Bound by bytes (8 read and l*P
+    written per coefficient); one block per (batch row, polynomial), the row
+    in shared memory, each coefficient of X^a*x read directly at (n - a)
+    mod N with one sign flip per wrap, native uint64 arithmetic."""
+    _check(a, "rotate_decompose64_ck a", torch.int32, 1)
+    _check(acc, "rotate_decompose64_ck acc", torch.int64, 3)
+    B, kp1, N = acc.shape
+    _require(a.shape[0] == B,
+             "rotate_decompose64_ck: a must have one entry per row")
+    _require(_is_pow2(N) and N % m == 0,
+             "rotate_decompose64_ck: N must be a power of two and a multiple "
+             "of m")
+    _require(planes in (1, 2) and 1 <= bgbit <= (8 if planes == 1 else 14)
+             and l * bgbit <= 64,
+             "rotate_decompose64_ck: digits must fit their planes (bgbit <= 8 "
+             "for planes=1, <= 14 for planes=2) and l*bgbit <= 64")
+    if _on_cpu(a, acc):
+        return rotate_decompose64_ck_plain(a, acc, l=l, bgbit=bgbit,
+                                           offset=offset, m=m, planes=planes)
+    jm = kp1 * l * m
+    ckp = ck_width(jm)
+    shape = (B, (N // m) * planes * ckp)
+    out = (torch.empty if ckp == jm else torch.zeros)(
+        shape, dtype=torch.int8, device=acc.device)
+    rotate_decompose64_ck.launches += 1
+    _launch("rotate_decompose64_ck", a.data_ptr(), acc.data_ptr(),
+            out.data_ptr(), B, kp1, N, l, bgbit, offset & ((1 << 64) - 1), m,
+            planes, ckp)
+    return out
+
+
+rotate_decompose64_ck.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# ck_dot64p
+# ---------------------------------------------------------------------------
+
+def ck_dot64p_plain(x, wm, *, N: int, m: int, planes: int = 1):
+    UL, Jm, Npm = wm.shape
+    B = x.shape[0]
+    C = N // m
+    xr = x.reshape(B, C, planes, -1)[..., :Jm].to(torch.float64)
+    wf = wm.to(torch.float64)
+    ring = torch.zeros((UL, B, 2 * N), dtype=torch.int64, device=x.device)
+    for p in range(planes):
+        # (B, C, Jm) @ (UL, Jm, Npm): every dot is an integer below 2^53
+        y = torch.einsum("bck,gkq->gbcq", xr[:, :, p], wf).to(torch.int64)
+        y = y << (7 * p)
+        for c in range(C):
+            ring[..., c * m:c * m + Npm] += y[:, :, c]
+    return T.wrap32(ring[..., :N] - ring[..., N:])
+
+
+def ck_dot64p_exact(J: int, N: int, m: int, digit_bits: int) -> bool:
+    """Whether ck_dot64p's int32 sums are exact: a ring position adds
+    J*(N+m) products of a digit (|d| <= 2^(digit_bits-1), the planes
+    combined) and an int8 key limb (|w| <= 128)."""
+    return J * (N + m) * (1 << (digit_bits - 1)) * 128 < 2**31
+
+
+def ck_dot64p(x, wm, *, N: int, m: int, planes: int = 1,
+              digit_bits: int | None = None):
+    """Chunked-key negacyclic contraction with per-limb int32 outputs:
+
+        ring[g, b, c*m + q] += sum_p (x[b, (c*P+p)*ckp : +J*m] . wm[g, :, q]) << 7p
+        out[g, b, i] = ring[g, b, i] - ring[g, b, N + i]
+
+    x: (B, C*P*ckp) int8 (rotate_decompose64_ck's layout); wm: (U*L, J*m,
+    N+m) int8 (ChunkedEngine.prepare).  Returns (U*L, B, N) int32.  The sums
+    are exact in int32 when J*(N+m) * 2^(digit_bits-1) * 128 < 2^31
+    (digit_bits: the width of the digits the planes encode; 8 for one plane,
+    9 for two), which the wrapper asserts.
+
+    Kernel: csrc/ck_dot64p.cu (replaces pallas_kernels.ck_dot64p).  Bound by
+    int8 tensor-core MACs.  A block owns a 64 x 128 tile of the N folded
+    outputs of one or two limb groups and runs, per plane, the chunks whose
+    key window reaches its columns (added) or their X^N wrap (subtracted):
+    C + 2 chunk products of depth J*m, key columns outside [0, N+m) read as
+    zero.  The 2N ring never reaches memory."""
+    _check(x, "ck_dot64p x", torch.int8, 2)
+    _check(wm, "ck_dot64p wm", torch.int8, 3)
+    UL, Jm, Npm = wm.shape
+    B = x.shape[0]
+    _require(_is_pow2(N) and N % m == 0 and Npm == N + m,
+             "ck_dot64p: wm must be (U*L, J*m, N+m) with N a power of two "
+             "and a multiple of m")
+    _require(planes in (1, 2), "ck_dot64p: planes must be 1 or 2")
+    ckp = ck_width(Jm)
+    _require(x.shape[1] == (N // m) * planes * ckp,
+             "ck_dot64p: x must be (B, C*P*ckp)")
+    digit_bits = digit_bits or (8 if planes == 1 else 9)
+    _require(ck_dot64p_exact(Jm // m, N, m, digit_bits),
+             "ck_dot64p: int32 accumulation bound J*(N+m)*2^(digit_bits-1)"
+             "*128 < 2^31 exceeded")
+    if _on_cpu(x, wm):
+        return ck_dot64p_plain(x, wm, N=N, m=m, planes=planes)
+    _require(N % _BN == 0 and m % 4 == 0 and Jm % _BK == 0,
+             f"ck_dot64p: the kernel needs N % {_BN} == 0, m % 4 == 0 and "
+             f"J*m % {_BK} == 0")
+    out = torch.empty((UL, B, N), dtype=torch.int32, device=x.device)
+    ck_dot64p.launches += 1
+    _launch("ck_dot64p", x.data_ptr(), wm.data_ptr(), out.data_ptr(), B, N, m,
+            Jm, UL, planes, ckp)
+    return out
+
+
+ck_dot64p.launches = 0
+
 KERNELS = (materialize_w, rotate_decompose, mm_recombine_acc,
-           fused_cmux_step_v2)
+           fused_cmux_step_v2, rotate_decompose64_ck, ck_dot64p)
 
 
 def reset_launches():

@@ -3,8 +3,13 @@
 Torus32 values are int32 tensors: x stands for x / 2^32 mod 1.  PyTorch has
 no usable uint32 arithmetic on every device (the CPU lacks uint32 shifts), so
 every unsigned step is carried in int64 holding the value in [0, 2^32) and
-wrapped back to int32 with ``wrap32``.  Results are bit-identical to the
-uint32/uint64 formulations of ``tfhe_tpu.torus``.
+wrapped back to int32 with ``wrap32``.
+
+Torus64 values are int64 tensors.  Torch has no general uint64 arithmetic,
+but int64 addition, subtraction, negation and left shifts wrap mod 2^64, so
+they are the unsigned operations already; only the right shift differs
+(``>>`` is arithmetic), which ``srl64`` masks.  Results are bit-identical to
+the uint32/uint64 formulations of ``tfhe_tpu.torus``.
 
 Also hosts the limb-splitting utilities that map torus operands onto exact
 int8 operands for the tensor-core engines.
@@ -26,6 +31,33 @@ def u32(x) -> torch.Tensor:
 def wrap32(x) -> torch.Tensor:
     """int64 tensor -> int32 tensor, reduced mod 2^32 (two's complement)."""
     return (((x + (1 << 31)) & MASK32) - (1 << 31)).to(torch.int32)
+
+
+def add(x, y) -> torch.Tensor:
+    """x + y on the torus of x's dtype (int32 through int64, int64 wraps)."""
+    if x.dtype == torch.int32:
+        return wrap32(x.to(torch.int64) + y)
+    return x + y
+
+
+def sub(x, y) -> torch.Tensor:
+    """x - y on the torus of x's dtype."""
+    if x.dtype == torch.int32:
+        return wrap32(x.to(torch.int64) - y)
+    return x - y
+
+
+def srl64(x, s: int) -> torch.Tensor:
+    """Logical right shift of int64 torus values by 0 <= s < 64."""
+    if s == 0:
+        return x
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def signed64(v: int) -> int:
+    """An unsigned 64-bit constant as the int64 value with the same bits."""
+    v &= (1 << 64) - 1
+    return v - (1 << 64) if v >= 1 << 63 else v
 
 
 def _host_uint64(x):
@@ -71,33 +103,35 @@ def mod_switch_from_torus32(phase, msize: int):
 # ---------------------------------------------------------------------------
 
 def balanced_limbs(x, num_limbs: int, limb_bits: int = 8):
-    """Split int32 values into balanced signed limbs: x === sum_i l_i *
-    2^(limb_bits*i) (mod 2^(limb_bits*num_limbs)), every l_i in
+    """Split int32 or int64 torus values into balanced signed limbs: x ===
+    sum_i l_i * 2^(limb_bits*i) (mod 2^(limb_bits*num_limbs)), every l_i in
     [-2^(b-1), 2^(b-1)).  Returned stacked on a new leading axis, int8."""
     assert limb_bits <= 8
     x = torch.as_tensor(x)
-    if x.dtype != torch.int32:
-        raise NotImplementedError(
-            "balanced_limbs takes int32 torus values; 64-bit limbs come "
-            "with the circuit-bootstrap slice")
+    if x.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"balanced_limbs takes int32 or int64, got {x.dtype}")
     base = 1 << limb_bits
     half = base >> 1
-    u = u32(x)
+    wide = x.dtype == torch.int64
+    u = x if wide else u32(x)
     out = []
     for _ in range(num_limbs):
         limb = (((u & (base - 1)) + half) & (base - 1)) - half
         out.append(limb.to(torch.int8))
-        u = (u - limb) >> limb_bits          # u - limb >= 0: no wrap needed
+        # u - limb is a multiple of 2^limb_bits; at 64 bits it wraps mod
+        # 2^64 and the unsigned shift needs the mask
+        u = srl64(u - limb, limb_bits) if wide else (u - limb) >> limb_bits
     return torch.stack(out, dim=0)
 
 
-def recombine_limbs(parts, limb_bits: int):
+def recombine_limbs(parts, limb_bits: int, out_bits: int = 32):
     """Inverse of balanced_limbs on accumulated int32 results: parts has a
-    leading limb axis; returns sum_i parts[i] << (limb_bits*i) mod 2^32."""
+    leading limb axis; returns sum_i parts[i] << (limb_bits*i) mod
+    2^out_bits, int32 or int64."""
     acc = torch.zeros(parts.shape[1:], dtype=torch.int64, device=parts.device)
     for i in range(parts.shape[0]):
         acc = acc + (parts[i].to(torch.int64) << (limb_bits * i))
-    return wrap32(acc)
+    return acc if out_bits == 64 else wrap32(acc)
 
 
 def signed_planes(d, plane_bits: int, num_planes: int):
