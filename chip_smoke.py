@@ -7,14 +7,16 @@ Phases (each prints its own lines; any failure exits non-zero):
 
   1. device: the card's name and power limit (nvidia-smi), then the kernels'
      nvcc build (all sources in parallel) and its seconds;
-  2. kernels: every CUDA kernel of the gate-bootstrap path on seeded inputs
-     at the main path's shapes, required bit-identical (torch.equal) to its
-     plain PyTorch version run on a CPU copy; its time (CUDA events), the
-     plain version's time on the card, a one-call library yardstick where
-     one exists, and its bound on an H100 SXM (the fused step at the main
-     path's B=8192 and at B=1024); then the fused step's 64- and 128-row
-     batch tiles, forced and as chosen, checked and timed over a sweep of
-     batch sizes;
+  2. kernels: every CUDA kernel on seeded inputs at the shapes its paths
+     give it, required bit-identical (torch.equal) to its plain PyTorch
+     version run on a CPU copy (or on the card, where the host would take
+     too long); its time (CUDA events), the plain version's time on the
+     card, a one-call library yardstick where one exists, and its bound on
+     an H100 SXM: the fused step at GATE_FAST2 B=8192 and B=1024, the
+     64-bit kernels (and the fused-epilogue pair) at CB_MXU and CB_ACTIVE
+     B=256, ck_cmux_step32 at GATE_MXU B=8192, GATE_DEFAULT B=256 and tail
+     batches B=1, 3, 100, with the flat carry; then the fused step's 64-
+     and 128-row batch tiles, forced and as chosen, over a sweep of batches;
   3. main path: GATE_FAST2 (n=500, k=2, N=512) at B=8192 on the onthefly
      engine through CloudKey.generate / encrypt_bool / make_bootstrap_fn /
      decrypt_bool, one untimed launch, then a timed dependent chain of 2
@@ -32,7 +34,21 @@ Phases (each prints its own lines; any failure exits non-zero):
      each per launch: two 500-step rotations) and no 32-bit kernel; every
      TRGSW row phase, a CMux driven by each TRGSW and a 4-bit LUT over 64
      instances (lut.eval_lut_batch) must be right; then where one launch's
-     time goes (CUDA events) and the peak device memory.
+     time goes (CUDA events) and the peak device memory;
+  5b. the same launch with TFHE_CK64_PATH=acc on phase 5's keys: TRGSWs
+     bit-identical to phase 5's, 1,000 rotate_decompose64_ck_flat + 1,000
+     ck_dot64p_acc launches and no ck_dot64p;
+  6. the N=1024 gate path: GATE_MXU (n=630, k=1, N=1024, 3 key limbs) at
+     B=8192 on the chunked engine (630 ck_cmux_step32 per launch and no
+     other CMux kernel) and, from the same seed, on the onthefly engine
+     (materialize_w + fused_cmux_step_v2), each one untimed launch and a
+     timed chain of 2, every bit decrypted and the two chains' ciphertexts
+     equal bit for bit; then GATE_DEFAULT chunked at B=256, equal to phase
+     4's onthefly ciphertexts; ct/s, per-step breakdown, keygen seconds and
+     peak memory of each;
+  7. circuits: a 32-bit ripple-carry adder and a 32-bit comparator, each
+     over 256 instances, through runtime.scheduler.evaluate on the GATE_MXU
+     chunked keys; every sum and comparison must decode right.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero, with no result,
@@ -138,9 +154,11 @@ def _kernel_cases(seed: int = 0):
     library-call, plain-on-card); a kernel's first case is at the shape its
     path gives it.  The plain version runs on a CPU copy of the inputs, or
     on the card where plain-on-card is set (its float64 sums are exact
-    there too, and the 64-bit contraction is too slow on the host)."""
+    there too; the 64-bit contractions and the B=8192 chunked step are too
+    slow on the host)."""
     from tfhe_tpu_torch.ops import kernels as K
-    from tfhe_tpu_torch.params import CB_ACTIVE, CB_MXU, GATE_DEFAULT, GATE_FAST2
+    from tfhe_tpu_torch.params import (CB_ACTIVE, CB_MXU, GATE_DEFAULT,
+                                       GATE_FAST2, GATE_MXU)
     r = np.random.default_rng(seed)
     cases = []
 
@@ -237,12 +255,55 @@ def _kernel_cases(seed: int = 0):
                       (x, wm), dict(N=N, m=m, planes=P),
                       bound_ms(_nbytes(x, wm) + out_bytes, macs),
                       ("_int_mm", (x.reshape(B * C * P, Jm), wcat)), True))
+        # the fused-epilogue step's two kernels on the same shapes
+        acc_flat = acc.reshape(B, kp1 * N)
+        cases.append(("rotate_decompose64_ck_flat", f"{label} B={B}",
+                      "csrc/rotate_decompose64_ck.cu", f"{PALLAS}:782",
+                      K.rotate_decompose64_ck_flat,
+                      K.rotate_decompose64_ck_flat_plain, (a, acc_flat),
+                      dict(kw, N=N), bound_ms(_nbytes(a, acc) + B * C * P
+                                              * K.ck_width(Jm)),
+                      None, False))
+        cases.append(("ck_dot64p_acc", f"{label} B={B}",
+                      "csrc/ck_dot64p_acc.cu", f"{PALLAS}:1006",
+                      K.ck_dot64p_acc, K.ck_dot64p_acc_plain,
+                      (x, wm, acc_flat),
+                      dict(N=N, m=m, planes=P, kp1=kp1, key_shift=64 - 8 * L),
+                      bound_ms(_nbytes(x, wm, acc, acc), macs),
+                      ("_int_mm", (x.reshape(B * C * P, Jm), wcat)), True))
+
+    # ck_cmux_step32: GATE_MXU (k=1, N=1024, l=3, 3 key limbs, m=128) at the
+    # N=1024 path's B=8192, GATE_DEFAULT (4 key limbs) at B=256, then tail
+    # batches that fill no row tile
+    kp1, l, N, m = 2, 3, 1024, 128
+    C, Jm = N // m, kp1 * l * m
+    for label, p, L, B in (("GATE_MXU", GATE_MXU.tgsw, 3, 8192),
+                           ("GATE_DEFAULT", GATE_DEFAULT.tgsw, 4, 256),
+                           ("GATE_MXU", GATE_MXU.tgsw, 3, 1),
+                           ("GATE_MXU", GATE_MXU.tgsw, 3, 3),
+                           ("GATE_MXU", GATE_MXU.tgsw, 3, 100)):
+        acc = i32((B, kp1, N))
+        a = expo(B, N)
+        wm = i8((kp1 * L, Jm, N + m))
+        kw = dict(l=l, bgbit=p.bgbit, offset=p.offset, m=m,
+                  key_shift=32 - 8 * L)
+        macs = B * kp1 * N * (Jm // m) * N * L
+        digits = i8((B * C, Jm), -64, 64)
+        wcat = wm.permute(1, 0, 2).reshape(Jm, kp1 * L * (N + m))
+        cases.append(("ck_cmux_step32", f"{label} B={B}",
+                      "csrc/ck_cmux_step32.cu", f"{PALLAS}:1186",
+                      K.ck_cmux_step32, K.ck_cmux_step32_plain,
+                      (a, acc, wm), kw,
+                      bound_ms(_nbytes(a, acc, wm, acc), macs),
+                      ("_int_mm", (digits, wcat)) if B * C > 16 else None,
+                      B == 8192))
     return cases
 
 
 def phase_kernels(reps: int = 20):
     """One JSON entry per kernel, from its first case; the numbers of its
     other cases go under the entry's "other_shapes"."""
+    from tfhe_tpu_torch.ops import kernels as K
     results = {}
     for (name, shape, src, replaces, wrapper, plain, args, kw, (bnd, by),
          lib, plain_on_card) in _kernel_cases():
@@ -251,8 +312,8 @@ def phase_kernels(reps: int = 20):
         torch.cuda.synchronize()
         want = plain(*(dev_args if plain_on_card else args), **kw)
         err = _compare(name, got, want)
-        if name == "fused_cmux_step_v2":      # the flat (B, (k+1)N) layout
-            a, acc, w = dev_args
+        if name in ("fused_cmux_step_v2", "ck_cmux_step32"):
+            a, acc, w = dev_args               # the flat (B, (k+1)N) layout
             flat = wrapper(a, acc.reshape(acc.shape[0], -1), w, kp1=acc.shape[1],
                            **kw)
             _compare(name + " (flat)", flat, want.reshape(flat.shape))
@@ -262,9 +323,17 @@ def phase_kernels(reps: int = 20):
         if lib is not None:
             x, wcat = (t.cuda().contiguous() for t in lib[1])
             library_ms = cuda_ms(lambda: torch._int_mm(x, wcat), reps)
+            del x, wcat
         numbers = {"shape": shape, "max_abs_err": err, "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
                    "library_ms": library_ms}
+        if name == "ck_dot64p_acc":    # the two-kernel step it replaces
+            x, wm, acc = dev_args
+            kp1 = kw["kp1"]
+            numbers["two_kernel_ms"] = cuda_ms(lambda: acc + K.recombine(
+                K.ck_dot64p(x, wm, N=kw["N"], m=kw["m"], planes=kw["planes"]),
+                kp1, kw["key_shift"]).reshape(acc.shape), reps)
+        del dev_args, got, want
         if name in results:
             results[name].setdefault("other_shapes", []).append(numbers)
         else:
@@ -272,10 +341,14 @@ def phase_kernels(reps: int = 20):
                              "source": f"tfhe_tpu_torch/ops/{src}",
                              "replaces": replaces, **numbers}
         lib_txt = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
+        two = numbers.get("two_kernel_ms")
+        two_txt = "" if two is None else \
+            f", ck_dot64p + torch epilogue {two:.4f} ms"
         print(f"phase 2 kernel {name} at {shape}: bit-identical to plain, "
               f"{ms:.4f} ms (bound {bnd:.4f} ms by {by}, "
               f"{bnd / ms:.1%} of it), plain {plain_ms:.4f} ms, "
-              f"library {lib_txt}")
+              f"library {lib_txt}{two_txt}")
+    torch.cuda.empty_cache()
     return results
 
 
@@ -431,7 +504,7 @@ def phase_generic(smi: str, batch: int = 256):
           f"{batch / wall:.1f} ct/s ({wall:.3f} s for one launch), all "
           f"{batch} bits decrypt, launches {counts}, keygen {keygen_s:.1f} s "
           f"[{smi}]")
-    return counts
+    return counts, out
 
 
 # ---------------------------------------------------------------------------
@@ -591,10 +664,15 @@ def phase_circuit(smi: str):
     rot_ms = cuda_ms(lambda: K.rotate_decompose64_ck(a0, acc, **kw), 20)
     dot_ms = cuda_ms(lambda: K.ck_dot64p(x, wm0, N=P.n_lvl2, m=eng.m,
                                          planes=kw["planes"]), 10)
-    epi_ms = cuda_ms(lambda: acc + eng._recombine(y, k + 1), 20)
+    epi_ms = cuda_ms(lambda: acc + K.recombine(y, k + 1,
+                                               eng.cfg.key_shift), 20)
     step_ms = cuda_ms(lambda: eng.cmux_step(a0, acc, {"wm": wm0}, l=p2.l,
                                             bgbit=p2.bgbit,
                                             offset=p2.offset), 10)
+    accf = acc.reshape(batch, -1)
+    acc_step_ms = cuda_ms(lambda: eng.cmux_step_acc(
+        a0, accf, {"wm": wm0}, kp1=k + 1, l=p2.l, bgbit=p2.bgbit,
+        offset=p2.offset), 10)
     preks = lwe.KeySwitchKey(P.ks10, P.n_lvl1, P.n_lvl0, ck.data["preks"])
     pre_ms = cuda_ms(lambda: lwe.keyswitch(ct, preks), 5)
     ext = torch.randint(-2**63, 2**63 - 1, (batch, P.n_lvl2 + 1),
@@ -609,8 +687,254 @@ def phase_circuit(smi: str):
           f"{priv_ms:.3f} ms x {n_priv}; sum {total:.1f} ms vs "
           f"{wall * 1e3:.1f} ms per launch; peak device memory "
           f"{peak_gb:.2f} GB")
-    return counts, {"ct_per_s": batch / wall, "ms_per_ct": wall * 1e3 / batch,
-                    "keygen_s": keygen_s, "peak_gb": peak_gb}
+    state = {"ck": ck, "ct": ct, "gsw": gsw, "wall": wall,
+             "step_ms": step_ms, "acc_step_ms": acc_step_ms, "steps": steps}
+    return counts, state
+
+
+def phase_circuit_acc(smi: str, state: dict):
+    """Phase 5 again on its keys and inputs with TFHE_CK64_PATH=acc: the
+    TRGSWs must equal phase 5's bit for bit, every step must go through
+    rotate_decompose64_ck_flat + ck_dot64p_acc and nothing else."""
+    import os
+    from tfhe_tpu_torch.boot import circuit
+    from tfhe_tpu_torch.ops import kernels as K
+    from tfhe_tpu_torch.params import CB_MXU
+    ck, ct, steps = state["ck"], state["ct"], state["steps"]
+    batch = ct.shape[0]
+    cb = circuit.make_circuit_bootstrap_staged(CB_MXU, backend="chunked")
+    os.environ["TFHE_CK64_PATH"] = "acc"
+    try:
+        cb(ct, ck.data)                 # untimed: first-use set-up
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        gsw = cb(ct, ck.data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del os.environ["TFHE_CK64_PATH"]
+    counts = _launch_counts()
+    check(torch.equal(gsw, state["gsw"]),
+          "CB_MXU acc: the TRGSWs differ from the default step's")
+    for name in ("rotate_decompose64_ck_flat", "ck_dot64p_acc"):
+        check(counts[name] == steps, f"CB_MXU acc: {name} launched "
+              f"{counts[name]} times, want {steps}")
+    for name in ("rotate_decompose64_ck", "ck_dot64p", "ck_cmux_step32"):
+        check(counts[name] == 0, f"CB_MXU acc: {name} launched on the acc "
+              f"path")
+    print(f"phase 5b CB_MXU chunked TFHE_CK64_PATH=acc B={batch}: "
+          f"{wall * 1e3 / batch:.3f} ms per ciphertext ({wall:.3f} s for one "
+          f"launch) against phase 5's {state['wall'] * 1e3 / batch:.3f}; "
+          f"TRGSWs bit-identical to phase 5's; one step "
+          f"{state['acc_step_ms']:.4f} ms against the default "
+          f"{state['step_ms']:.4f} ms; launches {counts} [{smi}]")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phases 6 and 7
+# ---------------------------------------------------------------------------
+
+CMUX_KERNELS = ("materialize_w", "rotate_decompose", "mm_recombine_acc",
+                "fused_cmux_step_v2", "rotate_decompose64_ck",
+                "rotate_decompose64_ck_flat", "ck_dot64p", "ck_dot64p_acc",
+                "ck_cmux_step32")
+
+
+def _gate_run(P, backend, bits, chain, seed=0):
+    """Keys from ``seed``, ``bits`` encrypted, one untimed launch, then a
+    timed dependent chain of ``chain`` launches.  Returns the keys, the
+    chain's output, its wall seconds, the launch counts, keygen seconds and
+    peak device memory."""
+    from tfhe_tpu_torch.boot import gate
+    from tfhe_tpu_torch.ops import kernels as K
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rng, sk, ck, keygen_s = _keys(P, backend, seed)
+    ct = gate.encrypt_bool(sk, bits, rng)
+    boot = gate.make_bootstrap_fn(P, backend=backend)
+    boot(ck.data, ct)                   # untimed: first-use set-up
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    out = ct
+    for _ in range(chain):
+        out = boot(ck.data, out)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ok = gate.decrypt_bool(sk, out) == bits.astype(bool)
+    check(ok.all(), f"{backend}: {int((~ok).sum())} of {len(bits)} bits "
+          f"wrong")
+    return sk, ck, out, wall, _launch_counts(), keygen_s, peak_gb
+
+
+def _only(counts, allowed: dict, what: str):
+    """Exactly ``allowed[name]`` launches of each CMux kernel named there,
+    none of the others."""
+    for name in CMUX_KERNELS:
+        want = allowed.get(name, 0)
+        check(counts[name] == want, f"{what}: {name} launched {counts[name]} "
+              f"times, want {want}")
+
+
+def phase_n1024(smi: str, default_out, batch: int = 8192, chain: int = 2,
+                default_batch: int = 256):
+    """GATE_MXU at B=8192 on the chunked engine (ck_cmux_step32, 630 per
+    launch) and, from the same seed, on the onthefly engine (materialize_w
+    + fused_cmux_step_v2 at N=1024): every bit decrypts and the two chains
+    give the same ciphertexts bit for bit.  Then GATE_DEFAULT chunked at
+    B=256, which must give phase 4's onthefly ciphertexts.  Returns the
+    launch counts by path and the GATE_MXU chunked keys."""
+    from tfhe_tpu_torch import lwe
+    from tfhe_tpu_torch import torus as T
+    from tfhe_tpu_torch.ops import kernels as K
+    from tfhe_tpu_torch.params import GATE_DEFAULT, GATE_MXU
+    P, n = GATE_MXU, GATE_MXU.lwe.n
+    p = P.tgsw
+    bits = np.random.default_rng(6).integers(0, 2, batch)
+    by_path, outs = {}, {}
+    for backend, kernels in (
+            ("chunked", {"ck_cmux_step32": n * chain}),
+            ("onthefly", {"materialize_w": n * chain,
+                          "fused_cmux_step_v2": n * chain})):
+        sk, ck, out, wall, counts, keygen_s, peak_gb = _gate_run(
+            P, backend, bits, chain)
+        _only(counts, kernels, f"GATE_MXU {backend}")
+        outs[backend] = out
+        by_path[f"gate_mxu_{backend}"] = counts
+        rate = batch * chain / wall
+
+        # where one launch's time goes, from CUDA events at this batch
+        acc = torch.zeros((batch, 2, 1024), dtype=torch.int32, device="cuda")
+        acc.random_(-2**31, 2**31 - 1)
+        a0 = torch.randint(0, 2048, (batch,), dtype=torch.int32,
+                           device="cuda")
+        kw = dict(l=p.l, bgbit=p.bgbit, offset=p.offset, key_shift=8)
+        if backend == "chunked":
+            wm0 = ck.data["bk"]["wm"][0]
+            step_ms = cuda_ms(lambda: K.ck_cmux_step32(a0, acc, wm0, m=128,
+                                                       **kw), 5)
+            parts = f"ck_cmux_step32 {step_ms:.3f} ms x {n}"
+        else:
+            v0 = ck.data["bk"]["v"][0]
+            w0 = K.materialize_w(v0)
+            step_ms = cuda_ms(lambda: K.fused_cmux_step_v2(a0, acc, w0, **kw),
+                              5)
+            mat_ms = cuda_ms(lambda: K.materialize_w(v0), 20)
+            parts = (f"fused_cmux_step_v2 {step_ms:.3f} ms x {n}, "
+                     f"materialize_w {mat_ms:.4f} ms x {n}")
+            step_ms += mat_ms
+            del w0
+        u = torch.zeros((batch, 1024 + 1), dtype=torch.int32, device="cuda")
+        ksk = lwe.KeySwitchKey(P.ks, 1024, n, ck.data["ksw"])
+        ks_ms = cuda_ms(lambda: lwe.keyswitch(u, ksk), 3)
+        del acc, a0, u
+        print(f"phase 6 GATE_MXU {backend} B={batch}: {rate:.1f} ct/s "
+              f"({wall:.3f} s for {chain} dependent launches), all {batch} "
+              f"bits decrypt, launches {counts}, keygen {keygen_s:.1f} s, "
+              f"peak device memory {peak_gb:.2f} GB [{smi}]")
+        print(f"phase 6 breakdown GATE_MXU {backend} B={batch}: {parts}, "
+              f"keyswitch {ks_ms:.3f} ms; sum {step_ms * n + ks_ms:.1f} ms "
+              f"vs {wall / chain * 1e3:.1f} ms per launch")
+        if backend == "chunked":
+            keys = (sk, ck)
+        else:
+            del ck
+    check(torch.equal(outs["chunked"], outs["onthefly"]),
+          "GATE_MXU: the chunked and onthefly ciphertexts differ")
+    print(f"phase 6 GATE_MXU: chunked and onthefly give the same "
+          f"{batch} ciphertexts bit for bit")
+
+    # GATE_DEFAULT chunked against phase 4's onthefly ciphertexts
+    P, n, batch = GATE_DEFAULT, GATE_DEFAULT.lwe.n, default_batch
+    bits = np.random.default_rng(2).integers(0, 2, batch)
+    _, ck, out, wall, counts, keygen_s, peak_gb = _gate_run(P, "chunked",
+                                                            bits, 1)
+    del ck
+    _only(counts, {"ck_cmux_step32": n}, "GATE_DEFAULT chunked")
+    check(torch.equal(out, default_out),
+          "GATE_DEFAULT: the chunked ciphertexts differ from phase 4's")
+    by_path["gate_default_chunked"] = counts
+    print(f"phase 6 GATE_DEFAULT chunked B={batch}: {batch / wall:.1f} ct/s "
+          f"({wall:.3f} s for one launch), all {batch} bits decrypt and "
+          f"equal phase 4's onthefly ciphertexts bit for bit, launches "
+          f"{counts}, keygen {keygen_s:.1f} s, peak device memory "
+          f"{peak_gb:.2f} GB [{smi}]")
+    torch.cuda.empty_cache()
+    return by_path, keys
+
+
+def _encrypt_words(sk, words, nbits, rng):
+    """(nbits, instances, n+1): bit i of every instance's word."""
+    from tfhe_tpu_torch.boot import gate
+    bits = (words[None, :] >> np.arange(nbits, dtype=np.uint64)[:, None]) & 1
+    return torch.stack([gate.encrypt_bool(sk, b, rng) for b in bits])
+
+
+def _decode_words(sk, cts):
+    from tfhe_tpu_torch.boot import gate
+    bits = np.stack([gate.decrypt_bool(sk, c) for c in cts]).astype(np.uint64)
+    return (bits << np.arange(len(cts), dtype=np.uint64)[:, None]).sum(0)
+
+
+def phase_circuits(smi: str, keys, instances: int = 256):
+    """A 32-bit ripple-carry adder and a 32-bit comparator over
+    ``instances`` instances each, through runtime.scheduler.evaluate on the
+    GATE_MXU chunked keys: every output decodes to the plain sum or
+    comparison.  Returns the launch counts by path."""
+    from tfhe_tpu_torch.boot import gate
+    from tfhe_tpu_torch.ops import kernels as K
+    from tfhe_tpu_torch.params import GATE_MXU
+    from tfhe_tpu_torch.rng import TfheRng
+    from tfhe_tpu_torch.runtime import scheduler
+    from tfhe_tpu_torch.utils import observability as obs
+    sk, ck = keys
+    n = GATE_MXU.lwe.n
+    rng = TfheRng(7)
+    r = np.random.default_rng(7)
+    x = r.integers(0, 2**32, instances, dtype=np.uint64)
+    y = r.integers(0, 2**32, instances, dtype=np.uint64)
+    y[:8] = x[:8]                       # some equal pairs for the comparator
+    cts = torch.cat([_encrypt_words(sk, x, 32, rng),
+                     _encrypt_words(sk, y, 32, rng)])
+    by_path = {}
+    for name, build in (("adder", scheduler.ripple_carry_adder),
+                        ("comparator", scheduler.comparator)):
+        circ, outs = build(32)
+        torch.cuda.synchronize()
+        obs.reset()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        res = scheduler.evaluate(circ, cts, ck.data, GATE_MXU, outs,
+                                 backend="chunked")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _launch_counts()
+        rep = obs.report()["counters"]
+        if name == "adder":
+            got = _decode_words(sk, res)
+            check((got == x + y).all(), f"adder: {int((got != x + y).sum())} "
+                  f"of {instances} sums wrong")
+        else:
+            dec = np.stack([gate.decrypt_bool(sk, res[i]) for i in range(3)])
+            want = np.stack([x < y, x == y, x > y])
+            check((dec == want).all(), f"comparator: "
+                  f"{int((dec != want).any(0).sum())} of {instances} "
+                  f"comparisons wrong")
+        _only(counts, {"ck_cmux_step32": n * rep["bootstrap.launches"]},
+              f"circuit {name}")
+        boots = rep["bootstrap.ciphertexts"]
+        by_path[f"circuit_{name}"] = counts
+        print(f"phase 7 {name}32 GATE_MXU chunked x{instances}: "
+              f"{rep['circuit.gates']} gates, {rep['circuit.waves']} waves, "
+              f"{rep['bootstrap.launches']} launches, {boots} gate "
+              f"bootstraps ({boots // instances} per circuit) in "
+              f"{wall:.3f} s: {boots / wall:.1f} gate bootstraps/s; every "
+              f"output decodes right [{smi}]")
+    return by_path
+
 
 
 def main() -> int:
@@ -623,8 +947,14 @@ def main() -> int:
     phase_tiles(results["fused_cmux_step_v2"])
     by_path = {}
     by_path["gate_fast2"], _ = phase_main(smi)
-    by_path["gate_default"] = phase_generic(smi)
-    by_path["circuit_bootstrap"], _ = phase_circuit(smi)
+    by_path["gate_default"], default_out = phase_generic(smi)
+    by_path["circuit_bootstrap"], state = phase_circuit(smi)
+    by_path["circuit_bootstrap_acc"] = phase_circuit_acc(smi, state)
+    del state
+    torch.cuda.empty_cache()
+    paths, keys = phase_n1024(smi, default_out)
+    by_path.update(paths)
+    by_path.update(phase_circuits(smi, keys))
     for name, entry in results.items():
         entry["launches_by_path"] = {path: counts[name]
                                      for path, counts in by_path.items()}

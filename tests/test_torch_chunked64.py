@@ -233,9 +233,10 @@ def test_chunked_naive64_and_the_32_bit_rule():
     tn = engine.make_engine(cfg, "naive")
     _same(tn.accumulate(torch.from_numpy(x), tn.prepare(torch.from_numpy(key))),
           jn.accumulate(jnp.asarray(x), jn.prepare(jnp.asarray(key))))
-    with pytest.raises(NotImplementedError, match="ck_cmux_step32"):
-        engine.make_engine(engine.EngineConfig(N=64, out_bits=32,
-                                               digit_bits=7), "chunked")
+    # at 32 bits the chunked engine takes m = min(128, N), the JAX default
+    eng32 = engine.make_engine(engine.EngineConfig(N=64, out_bits=32,
+                                                   digit_bits=7), "chunked")
+    assert isinstance(eng32, engine.ChunkedEngine) and eng32.m == 64
 
 
 @pytest.mark.parametrize("N,k,l,bgbit,m", [(128, 1, 5, 8, 32),

@@ -175,6 +175,72 @@ def test_ck_dot64p_unsupported_shape_raises(cuda):
         K.ck_dot64p(x, wm, N=64, m=32)
 
 
+@pytest.mark.parametrize("B,k,N,l,bgbit,L,m,tile", [
+    (1, 1, 1024, 3, 7, 3, 128, 0), (3, 1, 1024, 3, 7, 4, 128, 0),
+    (100, 1, 1024, 3, 7, 3, 128, 64), (100, 1, 1024, 3, 7, 3, 128, 32),
+    (70, 2, 512, 3, 7, 3, 128, 0), (65, 1, 256, 2, 8, 2, 64, 64),
+    (33, 1, 128, 3, 7, 1, 32, 32)])
+def test_ck_cmux_step32(cuda, B, k, N, l, bgbit, L, m, tile):
+    """Batches that are not a multiple of the row tile (tail rows), both
+    tiles, m below the 128-column tile, every limb count; the 3-D and the
+    flat carry."""
+    r = np.random.default_rng(7)
+    acc = _i32(r, (B, k + 1, N))
+    a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
+    a[0] = N                                   # a pure sign flip
+    wm = _i8(r, ((k + 1) * L, (k + 1) * l * m, N + m))
+    kw = dict(l=l, bgbit=bgbit, offset=0x81020400, m=m,
+              key_shift=max(0, 32 - 8 * L))
+    got = K.ck_cmux_step32(a.to(cuda), acc.to(cuda), wm.to(cuda),
+                           tile_rows=tile, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), K.ck_cmux_step32_plain(a, acc, wm, **kw))
+    flat = dict(kw, kp1=k + 1)
+    _same_on_card(K.ck_cmux_step32, K.ck_cmux_step32_plain,
+                  (a, acc.reshape(B, -1), wm), flat, cuda)
+
+
+def test_ck_cmux_step32_unsupported_shape_raises(cuda):
+    """N = 64 is below the kernel's 128-column tile: the wrapper raises
+    instead of running the plain version on the card."""
+    acc = torch.zeros((2, 2, 64), dtype=torch.int32, device=cuda)
+    a = torch.zeros(2, dtype=torch.int32, device=cuda)
+    wm = torch.zeros((6, 2 * 3 * 64, 128), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="kernel"):
+        K.ck_cmux_step32(a, acc, wm, l=3, bgbit=7, offset=0, m=64)
+
+
+@pytest.mark.parametrize("B,N,l,kp1,L,m,P", [(256, 2048, 5, 2, 6, 64, 1),
+                                             (37, 2048, 4, 2, 8, 64, 2),
+                                             (1, 256, 2, 3, 3, 64, 1),
+                                             (70, 128, 4, 2, 5, 32, 2)])
+def test_ck_dot64p_acc(cuda, B, N, l, kp1, L, m, P):
+    r = np.random.default_rng(8)
+    ckp = K.ck_width(kp1 * l * m)
+    lo, hi = (-128, 128) if P == 1 else (-64, 65)
+    x = _i8(r, (B, (N // m) * P * ckp), lo, hi)
+    wm = _i8(r, (kp1 * L, kp1 * l * m, N + m))
+    acc = _i64(r, (B, kp1 * N))
+    _same_on_card(K.ck_dot64p_acc, K.ck_dot64p_acc_plain, (x, wm, acc),
+                  dict(N=N, m=m, planes=P, kp1=kp1,
+                       key_shift=max(0, 64 - 8 * L)), cuda)
+
+
+@pytest.mark.parametrize("B,k,N,l,bgbit,m", [(256, 1, 2048, 5, 8, 64),
+                                             (3, 1, 2048, 4, 9, 64)])
+def test_rotate_decompose64_ck_flat(cuda, B, k, N, l, bgbit, m):
+    r = np.random.default_rng(9)
+    acc = _i64(r, (B, (k + 1) * N))
+    a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
+    offset = sum(1 << (63 - i * bgbit) for i in range(l + 1)) % 2**64
+    kw = dict(N=N, l=l, bgbit=bgbit, offset=offset, m=m,
+              planes=1 if bgbit <= 8 else 2)
+    before = K.rotate_decompose64_ck.launches
+    _same_on_card(K.rotate_decompose64_ck_flat,
+                  K.rotate_decompose64_ck_flat_plain, (a, acc), kw, cuda)
+    assert K.rotate_decompose64_ck.launches == before
+
+
 def test_cb_toy_same_on_card_and_cpu(cuda):
     outs = {}
     bits = np.array([0, 1, 1, 0, 1])

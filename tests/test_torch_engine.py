@@ -187,6 +187,6 @@ def test_cmux_step_matches_jax_generic_step():
 def test_unported_backend_names_its_slice():
     cfg = engine.EngineConfig(N=64, out_bits=32, digit_bits=7)
     with pytest.raises(NotImplementedError, match="slice"):
-        engine.make_engine(cfg, "chunked")
+        engine.make_engine(cfg, "conv")
     with pytest.raises(ValueError):
         engine.make_engine(cfg, "no-such-backend")

@@ -6,15 +6,23 @@ advances through each step together, so every step is one large int8
 tensor-core contraction.  Each step takes, in order:
 
   * the engine's own step (``engine.cmux_step``) when it has one for these
-    parameters: at 32 bits the fused step (materialize the step's key, then
-    one ``fused_cmux_step_v2`` kernel: one digit plane, bgbit <= 8, at most
-    3 key limbs); at 64 bits the chunked engine's step
-    (``rotate_decompose64_ck`` + ``ck_dot64p`` + an int64 epilogue), with
-    the Torus64 accumulator carried natively as (B, k+1, N) int64;
+    parameters: on the onthefly and matmul engines at 32 bits the fused
+    step (materialize the step's key, then one ``fused_cmux_step_v2``
+    kernel: one digit plane, bgbit <= 8, at most 3 key limbs); on the
+    chunked engine at 32 bits one ``ck_cmux_step32`` kernel (one digit
+    plane, bgbit <= 8); on the chunked engine at 64 bits
+    ``rotate_decompose64_ck`` + ``ck_dot64p`` + an int64 epilogue, with the
+    Torus64 accumulator carried natively as (B, k+1, N) int64;
   * else the generic step: ``rotate_decompose`` (32 bits, bgbit <= 8) or the
     plain rotate + decompose, then ``engine.accumulate_into``
     (``materialize_w`` + ``mm_recombine_acc`` on the onthefly engine).  At
     64 bits the generic step is plain torch code and serves only the CPU.
+
+At 64 bits ``TFHE_CK64_PATH`` selects the JAX package's opt-in steps:
+``acc`` carries the accumulator flat, (B, (k+1)*N) int64, through the
+chunked engine's fused-epilogue step (``rotate_decompose64_ck_flat`` +
+``ck_dot64p_acc``); ``sacc`` (kernel ``ck_dot64p_sacc``) is not ported and
+raises.  Neither falls back to the default step.
 
 The decision is the same on the CPU and on the GPU; only the kernel
 wrappers choose between a plain version and a kernel.
@@ -22,11 +30,75 @@ wrappers choose between a plain version and a kernel.
 
 from __future__ import annotations
 
+import os
+
 from tfhe_tpu_torch import tgsw, tlwe
 from tfhe_tpu_torch.params import TGswParams
 from tfhe_tpu_torch.ops import kernels, poly
 from tfhe_tpu_torch.ops.decomp import decompose_tlwe
 from tfhe_tpu_torch.ops.engine import make_engine
+
+
+def _ck64_path(eng, p: TGswParams, backend: str) -> str:
+    """The 64-bit step chosen by TFHE_CK64_PATH: "" (default) or "acc"."""
+    path = os.environ.get("TFHE_CK64_PATH", "")
+    if p.tlwe.bits != 64 or not path:
+        return ""
+    if path == "sacc":
+        raise NotImplementedError(
+            "TFHE_CK64_PATH=sacc (kernel ck_dot64p_sacc) is not ported yet; "
+            "it comes with the opt-in 64-bit kernels slice (ROADMAP.md §2)")
+    if path != "acc":
+        raise ValueError(f"unknown TFHE_CK64_PATH {path!r}: '', 'acc' or "
+                         f"'sacc'")
+    if not hasattr(eng, "cmux_step_acc"):
+        raise ValueError(f"TFHE_CK64_PATH=acc runs on the 'chunked' "
+                         f"backend, not {backend!r}")
+    return path
+
+
+def cmux_step(eng, a, acc, prep, p: TGswParams):
+    """One CMux step of the loop: acc + (X^a - 1) acc (x) TRGSW, through the
+    engine's own step where it has one, else the generic step."""
+    fused = eng.cmux_step(a, acc, prep, l=p.l, bgbit=p.bgbit,
+                          offset=p.offset)
+    if fused is not None:
+        return fused
+    if p.tlwe.bits == 64 and acc.device.type != "cpu":
+        raise ValueError(
+            "this backend has no 64-bit step for the card; the 64-bit blind "
+            "rotation runs on the 'chunked' backend")
+    if p.tlwe.bits == 32 and p.bgbit <= 8:
+        digits = kernels.rotate_decompose(a, acc, l=p.l, bgbit=p.bgbit,
+                                          offset=p.offset)
+    else:
+        digits = decompose_tlwe(tlwe.mul_by_xai_minus_one(a, acc), p)
+    return eng.accumulate_into(acc, digits, prep)
+
+
+def rotate_steps(acc, bk_prepared, abar, p: TGswParams,
+                 backend: str = "matmul"):
+    """Run the n-step CMux loop, yielding (i, a_i, acc) after every step
+    (acc as (B, k+1, N)); ``blind_rotate`` and the decrypt probes
+    (``boot.probe``) share it, so both take the same dispatch."""
+    eng = make_engine(tgsw.engine_config(p), backend)
+    steps = abar.t().contiguous()                     # (n, B): rows contiguous
+    if _ck64_path(eng, p, backend) == "acc":
+        B, kp1, N = acc.shape
+        accf = acc.reshape(B, kp1 * N).contiguous()
+        for i in range(steps.shape[0]):
+            prep_i = {name: t[i] for name, t in bk_prepared.items()}
+            accf = eng.cmux_step_acc(steps[i], accf, prep_i, kp1=kp1, l=p.l,
+                                     bgbit=p.bgbit, offset=p.offset)
+            if accf is None:
+                raise ValueError("TFHE_CK64_PATH=acc: no fused-epilogue step "
+                                 "for these parameters")
+            yield i, steps[i], accf.view(B, kp1, N)
+        return
+    for i in range(steps.shape[0]):
+        prep_i = {name: t[i] for name, t in bk_prepared.items()}
+        acc = cmux_step(eng, steps[i], acc, prep_i, p)
+        yield i, steps[i], acc
 
 
 def blind_rotate(acc, bk_prepared, abar, p: TGswParams,
@@ -40,26 +112,8 @@ def blind_rotate(acc, bk_prepared, abar, p: TGswParams,
     abar:        (B, n) int32 rotation exponents in [0, 2N).
     Returns the rotated accumulator (B, k+1, N).
     """
-    eng = make_engine(tgsw.engine_config(p), backend)
-    steps = abar.t().contiguous()                     # (n, B): rows contiguous
-    for i in range(steps.shape[0]):
-        prep_i = {name: t[i] for name, t in bk_prepared.items()}
-        a_i = steps[i]
-        fused = eng.cmux_step(a_i, acc, prep_i, l=p.l, bgbit=p.bgbit,
-                              offset=p.offset)
-        if fused is not None:
-            acc = fused
-            continue
-        if p.tlwe.bits == 64 and acc.device.type != "cpu":
-            raise ValueError(
-                f"backend {backend!r} has no 64-bit step for the card; the "
-                f"64-bit blind rotation runs on the 'chunked' backend")
-        if p.tlwe.bits == 32 and p.bgbit <= 8:
-            digits = kernels.rotate_decompose(a_i, acc, l=p.l, bgbit=p.bgbit,
-                                              offset=p.offset)
-        else:
-            digits = decompose_tlwe(tlwe.mul_by_xai_minus_one(a_i, acc), p)
-        acc = eng.accumulate_into(acc, digits, prep_i)
+    for _, _, acc in rotate_steps(acc, bk_prepared, abar, p, backend):
+        pass
     return acc
 
 

@@ -168,15 +168,20 @@ class CircuitCloudKey:
     preks: lwe.KeySwitchKey          # lvl1 -> lvl0 (torus32)
     bk_prepared: dict                # stacked prepared TRGSW64 of key_lvl0
     privks: PrivKeySwitchKey
+    bk_raw: torch.Tensor | None = None   # host copy of the raw TRGSW64 bk
+                                         # (for serialization: 164 MB at
+                                         # CB_MXU against 8.1 GB of wm)
 
     @staticmethod
     def generate(sk: CircuitSecretKey, rng: TfheRng,
-                 backend: str = "chunked",
+                 backend: str = "chunked", keep_raw_bk: bool = False,
                  device=None) -> "CircuitCloudKey":
         """Consumes ``rng`` in the JAX package's order (preKS, bk, privKS).
         Per-stage spans keygen.circuit.{preks,bk_encrypt,privks,bk_prepare}
         (each synchronised on the card) attribute the cost; read them from
-        ``observability.report()["spans"]``."""
+        ``observability.report()["spans"]``.  ``keep_raw_bk`` keeps a host
+        copy of the raw TRGSW64 bootstrapping key, which
+        ``utils.serialization.save_circuit_key`` writes."""
         dev = _device.resolve(device)
         p = sk.params
         obs.count("keygen.circuit")
@@ -195,11 +200,12 @@ class CircuitCloudKey:
             with obs.span("keygen.circuit.privks"):
                 privks = PrivKeySwitchKey.generate(sk, rng, device=dev)
                 _sync(dev)
+            raw = gsw.cpu() if keep_raw_bk else None
             with obs.span("keygen.circuit.bk_prepare"):
                 prep = prepare_circuit_bk(gsw, p, backend)
                 del gsw
                 _sync(dev)
-        return CircuitCloudKey(p, backend, preks, prep, privks)
+        return CircuitCloudKey(p, backend, preks, prep, privks, bk_raw=raw)
 
     @property
     def data(self):

@@ -7,8 +7,10 @@ Both functions take plain numpy arrays (convert a JAX array with
   * the cloud key: ``key_data = {"bk": {...}, "ksw": ...}`` as in
     ``tfhe_tpu.boot.gate.CloudKey.data`` — ``bk`` is the engine-prepared
     bootstrapping key, ``{"v": (n, L, J, U, 2N) int8}`` for ``onthefly``,
-    ``{"w": (n, L, J*N, U*N) int8}`` for ``matmul``, ``{"mat": ...}`` for
-    ``naive``; ``ksw`` is (4, n_in*t*base, n_out+1) int8;
+    ``{"w": (n, L, J*N, U*N) int8}`` for ``matmul``, ``{"wm": (n, U*L, J*m,
+    N+m) int8}`` for ``chunked`` (m = 128, or N below that),
+    ``{"mat": ...}`` for ``naive``; ``ksw`` is (4, n_in*t*base, n_out+1)
+    int8;
   * the circuit-bootstrap keys: the three secret keys' bits, and
     ``key_data = {"preks", "bk", "privks"}`` as in
     ``tfhe_tpu.boot.circuit.CircuitCloudKey.data`` — ``preks`` (4,

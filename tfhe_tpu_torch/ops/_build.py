@@ -7,6 +7,10 @@ hash of its source, the shared header and the flags, so an edited source is
 rebuilt and an unchanged one is reused.  Outputs go to ``ops/build/``
 (ignored by git); ``-Xptxas -v`` reports (registers, spills) are kept there
 beside each library as ``<name>.ptxas.txt``.
+
+``host_library`` builds a host C++ source (the circuit scheduler,
+``native/circuit_sched.cpp``) the same way with ``g++``, so the port never
+loads a library built on another machine.
 """
 
 from __future__ import annotations
@@ -44,6 +48,11 @@ SIGNATURES = {
                                _I, _P]),
     "ck_dot64p": ("tfhe_ck_dot64p", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                      _P]),
+    "ck_dot64p_acc": ("tfhe_ck_dot64p_acc", [_P, _P, _P, _P, _I, _I, _I, _I,
+                                             _I, _I, _I, _I, _I, _P]),
+    "ck_cmux_step32": ("tfhe_ck_cmux_step32",
+                       [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _I,
+                        _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -109,6 +118,31 @@ def build_all() -> dict[str, ctypes.CDLL]:
             _libs[name] = lib
         build_seconds = time.perf_counter() - t0
         return _libs
+
+
+HOST_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
+
+
+def host_library(source: Path) -> ctypes.CDLL:
+    """Compile a host C++ source with g++ at first use into BUILD_DIR,
+    named by the hash of the source and the flags, and load it.  Raises
+    with g++'s output if the build fails."""
+    h = hashlib.sha256(source.read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    out = BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
+    with _lock:
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [os.environ.get("CXX", "g++"), *HOST_FLAGS, "-o", str(tmp),
+                 str(source)], capture_output=True, text=True)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"g++ failed on {source.name}:\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, out)
+        return ctypes.CDLL(str(out))
 
 
 def entry(name: str):

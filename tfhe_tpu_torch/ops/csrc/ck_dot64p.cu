@@ -18,61 +18,26 @@
 // never exists.  Each pass's sum is folded into out in uint32 (shifted by
 // 7p, negated for the subtracting pass); the block's threads own the same
 // elements in every pass, so the read-modify-write needs no barrier.  The
-// GEMM core is common.cuh's mma.sync m16n8k32 tile (B tiles transposed on
-// load, like mm_recombine_acc), with the column mask added to the W loader.
+// window pass and the masked key loader are chunked.cuh's (shared with
+// ck_dot64p_acc.cu and ck_cmux_step32.cu) around common.cuh's mma.sync
+// m16n8k32 tile (B tiles transposed on load, like mm_recombine_acc).
 // Exact: every int32 sum is bounded by J*(N+m)*|digit|*128 < 2^31, which
 // the wrapper asserts.  No cp.async / TMA pipelining and no wgmma yet.
-#include "common.cuh"
+#include "chunked.cuh"
 
 namespace {
 
 using namespace tfhe;
 
-constexpr int BM = 64, BK = 32, THREADS = 8 * BK;
-constexpr int SA_STRIDE = BK + 16;   // bytes; 12 words keeps A loads conflict-free
-
-// wm rows [krow, krow+BK) x columns [q0, q0+BN) of LG consecutive limb
-// groups -> sB[lg][col][k] (words of four consecutive k); a 4-column group
-// outside [0, npm) reads as zero (q0, npm and the groups are multiples of 4).
-template <int LG>
-__device__ __forceinline__ void load_wm_tiles(uint32_t* sB, const int8_t* w,
-                                              size_t gstride, int npm,
-                                              int krow, int q0, int tid) {
-  const int lane = tid & 31, warp = tid >> 5;
-  const int nb = (warp & 3) * 8 + (lane & 7);   // columns q0 + 4nb .. +3
-  const int kb = (warp >> 2) * 4 + (lane >> 3); // rows krow + 4kb .. +3
-  const int col = q0 + 4 * nb;
-  const bool inside = col >= 0 && col < npm;
-  constexpr int S = SB_WORDS<BK>;
-#pragma unroll
-  for (int lg = 0; lg < LG; ++lg) {
-    uint32_t r0 = 0, r1 = 0, r2 = 0, r3 = 0;
-    if (inside) {
-      const int8_t* p = w + lg * gstride + (size_t)(krow + 4 * kb) * npm + col;
-      r0 = *reinterpret_cast<const uint32_t*>(p);
-      r1 = *reinterpret_cast<const uint32_t*>(p + npm);
-      r2 = *reinterpret_cast<const uint32_t*>(p + 2 * npm);
-      r3 = *reinterpret_cast<const uint32_t*>(p + 3 * npm);
-    }
-    const uint32_t lo01 = __byte_perm(r0, r1, 0x5140);
-    const uint32_t lo23 = __byte_perm(r2, r3, 0x5140);
-    const uint32_t hi01 = __byte_perm(r0, r1, 0x7362);
-    const uint32_t hi23 = __byte_perm(r2, r3, 0x7362);
-    uint32_t* s = sB + (lg * BN + 4 * nb) * S + kb;
-    s[0 * S] = __byte_perm(lo01, lo23, 0x5410);
-    s[1 * S] = __byte_perm(lo01, lo23, 0x7632);
-    s[2 * S] = __byte_perm(hi01, hi23, 0x5410);
-    s[3 * S] = __byte_perm(hi01, hi23, 0x7632);
-  }
-}
+constexpr int BM = CK_BM, THREADS = 8 * CK_BK;
 
 template <int P, int LG>
 __global__ void __launch_bounds__(THREADS)
 ck_dot64p_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wm,
                  int32_t* __restrict__ out, int B, int N, int m, int Jm,
                  int ckp) {
-  __shared__ __align__(16) uint8_t sA[BM * SA_STRIDE];
-  __shared__ uint32_t sB[LG * BN * SB_WORDS<BK>];
+  __shared__ __align__(16) uint8_t sA[BM * CK_SA_STRIDE];
+  __shared__ uint32_t sB[LG * BN * SB_WORDS<CK_BK>];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int warp_m = warp >> 2, warp_n = warp & 3;
   const int i0 = blockIdx.x * BN, m0 = blockIdx.y * BM, g0 = blockIdx.z * LG;
@@ -87,37 +52,9 @@ ck_dot64p_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wm,
   for (int p = 0; p < P; ++p) {
     for (int sub = 0; sub < 2; ++sub) {
       zero<LG>(acc);
-      const int c_begin = sub ? sub_begin : 0, c_end = sub ? C : add_end;
-      for (int c = c_begin; c < c_end; ++c) {
-        const int q0 = (sub ? N : 0) + i0 - c * m;
-        const int8_t* xc = x + (size_t)(c * P + p) * ckp;
-        for (int k0 = 0; k0 < Jm; k0 += BK) {
-          if (tid < 2 * BM) {
-            const int row = tid >> 1, part = tid & 1;
-            const int b = m0 + row;
-            uint4 val = make_uint4(0, 0, 0, 0);
-            if (b < B)
-              val = *reinterpret_cast<const uint4*>(xc + b * xrow + k0 +
-                                                    16 * part);
-            *reinterpret_cast<uint4*>(sA + row * SA_STRIDE + 16 * part) = val;
-          }
-          load_wm_tiles<LG>(sB, w, gstride, npm, k0, q0, tid);
-          __syncthreads();
-          uint32_t a[2][4];
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            const uint8_t* r0 = sA + (warp_m * 32 + mi * 16 + (lane >> 2)) *
-                                         SA_STRIDE + 4 * (lane & 3);
-            const uint8_t* r8 = r0 + 8 * SA_STRIDE;
-            a[mi][0] = *reinterpret_cast<const uint32_t*>(r0);
-            a[mi][1] = *reinterpret_cast<const uint32_t*>(r8);
-            a[mi][2] = *reinterpret_cast<const uint32_t*>(r0 + 16);
-            a[mi][3] = *reinterpret_cast<const uint32_t*>(r8 + 16);
-          }
-          mma_chunk<LG, BK>(acc, a, sB, 0, warp_n, lane);
-          __syncthreads();
-        }
-      }
+      ck_window_pass<LG>(acc, sA, sB, x, xrow, w, gstride, npm, B, m0, Jm, m,
+                         P, p, ckp, sub ? sub_begin : 0, sub ? C : add_end,
+                         (sub ? N : 0) + i0, tid);
       // fold this pass into out: += (or -=) acc << 7p, mod 2^32
       const bool first = p == 0 && sub == 0;
       const int gr = lane >> 2, t = lane & 3;

@@ -1,5 +1,5 @@
-// Shared pieces of the int8 tensor-core GEMM used by mm_recombine_acc.cu
-// and fused_cmux_step.cu.
+// Shared pieces of the int8 tensor-core GEMM used by mm_recombine_acc.cu,
+// fused_cmux_step.cu and the chunked-key kernels (chunked.cuh).
 //
 // Block tile: BM rows x BN=128 output columns, K consumed BK at a time, with
 // THREADS = 8*BK threads = BM/32 x 4 warps; each warp owns a 32x32 output

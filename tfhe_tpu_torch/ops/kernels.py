@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels of the CMux step, their wrappers and their
 plain PyTorch versions (the counterpart of ``tfhe_tpu/ops/pallas_kernels.py``
-for the 32-bit gate-bootstrap path and the 64-bit circuit-bootstrap path).
+for the 32-bit gate-bootstrap paths and the 64-bit circuit-bootstrap path).
 
 Every wrapper takes its plain version when its tensors lie on the CPU and
 launches its kernel (``csrc/<name>.cu``, built by ``_build``) when they lie on
@@ -13,13 +13,16 @@ The plain versions are the same exact integer functions: int8 products are
 contracted in float64 (every dot is an integer below 2^53, so the BLAS sum is
 exact) and the mod-2^32 recombination runs in int64.
 
-  kernel                 replaces (pallas_kernels.py)  bound on the H100
-  materialize_w          materialize_w                 bytes written (L*J*U*N*N)
-  rotate_decompose       rotate_decompose              bytes moved (4 + l per coeff)
-  mm_recombine_acc       mm_recombine_acc              int8 MACs (W bytes at small B)
-  fused_cmux_step_v2     fused_cmux_step_v2            int8 MACs
-  rotate_decompose64_ck  rotate_decompose64_ck         bytes moved (8 + l*P per coeff)
-  ck_dot64p              ck_dot64p                     int8 MACs
+  kernel                      replaces (pallas_kernels.py)  bound on the H100
+  materialize_w               materialize_w                 bytes written (L*J*U*N*N)
+  rotate_decompose            rotate_decompose              bytes moved (4 + l per coeff)
+  mm_recombine_acc            mm_recombine_acc              int8 MACs (W bytes at small B)
+  fused_cmux_step_v2          fused_cmux_step_v2            int8 MACs
+  rotate_decompose64_ck       rotate_decompose64_ck         bytes moved (8 + l*P per coeff)
+  rotate_decompose64_ck_flat  rotate_decompose64_ck_flat    the same kernel, flat acc
+  ck_dot64p                   ck_dot64p                     int8 MACs
+  ck_dot64p_acc               ck_dot64p_acc                 int8 MACs
+  ck_cmux_step32              ck_cmux_step32                int8 MACs
 """
 
 from __future__ import annotations
@@ -307,6 +310,36 @@ def rotate_decompose64_ck_plain(a, acc, *, l: int, bgbit: int, offset: int,
     return ck_layout(pl, m)
 
 
+def _rotate_decompose64_ck(wrapper, a, acc, *, l, bgbit, offset, m, planes):
+    """Checks, then the plain version on the CPU or one launch of
+    csrc/rotate_decompose64_ck.cu counted on ``wrapper``; acc (B, k+1, N)."""
+    name = wrapper.__name__
+    _check(a, f"{name} a", torch.int32, 1)
+    _require(acc.dtype == torch.int64 and acc.is_contiguous(),
+             f"{name} acc: contiguous int64")
+    B, kp1, N = acc.shape
+    _require(a.shape[0] == B, f"{name}: a must have one entry per row")
+    _require(_is_pow2(N) and N % m == 0,
+             f"{name}: N must be a power of two and a multiple of m")
+    _require(planes in (1, 2) and 1 <= bgbit <= (8 if planes == 1 else 14)
+             and l * bgbit <= 64,
+             f"{name}: digits must fit their planes (bgbit <= 8 for "
+             f"planes=1, <= 14 for planes=2) and l*bgbit <= 64")
+    if _on_cpu(a, acc):
+        return rotate_decompose64_ck_plain(a, acc, l=l, bgbit=bgbit,
+                                           offset=offset, m=m, planes=planes)
+    jm = kp1 * l * m
+    ckp = ck_width(jm)
+    shape = (B, (N // m) * planes * ckp)
+    out = (torch.empty if ckp == jm else torch.zeros)(
+        shape, dtype=torch.int8, device=acc.device)
+    wrapper.launches += 1
+    _launch("rotate_decompose64_ck", a.data_ptr(), acc.data_ptr(),
+            out.data_ptr(), B, kp1, N, l, bgbit, offset & ((1 << 64) - 1), m,
+            planes, ckp)
+    return out
+
+
 def rotate_decompose64_ck(a, acc, *, l: int, bgbit: int, offset: int, m: int,
                           planes: int = 1):
     """Gadget digits of (X^a - 1) * acc for a 64-bit TRLWE batch, written in
@@ -323,34 +356,43 @@ def rotate_decompose64_ck(a, acc, *, l: int, bgbit: int, offset: int, m: int,
     written per coefficient); one block per (batch row, polynomial), the row
     in shared memory, each coefficient of X^a*x read directly at (n - a)
     mod N with one sign flip per wrap, native uint64 arithmetic."""
-    _check(a, "rotate_decompose64_ck a", torch.int32, 1)
-    _check(acc, "rotate_decompose64_ck acc", torch.int64, 3)
-    B, kp1, N = acc.shape
-    _require(a.shape[0] == B,
-             "rotate_decompose64_ck: a must have one entry per row")
-    _require(_is_pow2(N) and N % m == 0,
-             "rotate_decompose64_ck: N must be a power of two and a multiple "
-             "of m")
-    _require(planes in (1, 2) and 1 <= bgbit <= (8 if planes == 1 else 14)
-             and l * bgbit <= 64,
-             "rotate_decompose64_ck: digits must fit their planes (bgbit <= 8 "
-             "for planes=1, <= 14 for planes=2) and l*bgbit <= 64")
-    if _on_cpu(a, acc):
-        return rotate_decompose64_ck_plain(a, acc, l=l, bgbit=bgbit,
-                                           offset=offset, m=m, planes=planes)
-    jm = kp1 * l * m
-    ckp = ck_width(jm)
-    shape = (B, (N // m) * planes * ckp)
-    out = (torch.empty if ckp == jm else torch.zeros)(
-        shape, dtype=torch.int8, device=acc.device)
-    rotate_decompose64_ck.launches += 1
-    _launch("rotate_decompose64_ck", a.data_ptr(), acc.data_ptr(),
-            out.data_ptr(), B, kp1, N, l, bgbit, offset & ((1 << 64) - 1), m,
-            planes, ckp)
-    return out
+    _require(acc.ndim == 3, "rotate_decompose64_ck acc: (B, k+1, N)")
+    return _rotate_decompose64_ck(rotate_decompose64_ck, a, acc, l=l,
+                                  bgbit=bgbit, offset=offset, m=m,
+                                  planes=planes)
 
 
 rotate_decompose64_ck.launches = 0
+
+
+def rotate_decompose64_ck_flat_plain(a, acc, *, N: int, l: int, bgbit: int,
+                                     offset: int, m: int, planes: int = 1):
+    return rotate_decompose64_ck_plain(a, acc.reshape(acc.shape[0], -1, N),
+                                       l=l, bgbit=bgbit, offset=offset, m=m,
+                                       planes=planes)
+
+
+def rotate_decompose64_ck_flat(a, acc, *, N: int, l: int, bgbit: int,
+                               offset: int, m: int, planes: int = 1):
+    """rotate_decompose64_ck on the flat (B, (k+1)*N) int64 accumulator of
+    the fused-epilogue step; the same digits.
+
+    The JAX package needs a second Pallas kernel here because its Torus64
+    is an (lo, hi) int32 pair whose flat and U-major layouts differ; the
+    port's native int64 (B, k+1, N) tensor already is the flat layout byte
+    for byte, so this wrapper launches the same kernel,
+    csrc/rotate_decompose64_ck.cu (replaces
+    pallas_kernels.rotate_decompose64_ck_flat), and counts its own
+    launches."""
+    _require(acc.ndim == 2 and acc.shape[1] % N == 0,
+             "rotate_decompose64_ck_flat acc: (B, (k+1)*N)")
+    return _rotate_decompose64_ck(rotate_decompose64_ck_flat, a,
+                                  acc.view(acc.shape[0], -1, N), l=l,
+                                  bgbit=bgbit, offset=offset, m=m,
+                                  planes=planes)
+
+
+rotate_decompose64_ck_flat.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -378,6 +420,12 @@ def ck_dot64p_exact(J: int, N: int, m: int, digit_bits: int) -> bool:
     J*(N+m) products of a digit (|d| <= 2^(digit_bits-1), the planes
     combined) and an int8 key limb (|w| <= 128)."""
     return J * (N + m) * (1 << (digit_bits - 1)) * 128 < 2**31
+
+
+def _ck_exact_check(name, Jm, N, m, digit_bits):
+    _require(ck_dot64p_exact(Jm // m, N, m, digit_bits),
+             f"{name}: int32 accumulation bound J*(N+m)*2^(digit_bits-1)"
+             f"*128 < 2^31 exceeded")
 
 
 def ck_dot64p(x, wm, *, N: int, m: int, planes: int = 1,
@@ -410,10 +458,8 @@ def ck_dot64p(x, wm, *, N: int, m: int, planes: int = 1,
     ckp = ck_width(Jm)
     _require(x.shape[1] == (N // m) * planes * ckp,
              "ck_dot64p: x must be (B, C*P*ckp)")
-    digit_bits = digit_bits or (8 if planes == 1 else 9)
-    _require(ck_dot64p_exact(Jm // m, N, m, digit_bits),
-             "ck_dot64p: int32 accumulation bound J*(N+m)*2^(digit_bits-1)"
-             "*128 < 2^31 exceeded")
+    _ck_exact_check("ck_dot64p", Jm, N, m,
+                    digit_bits or (8 if planes == 1 else 9))
     if _on_cpu(x, wm):
         return ck_dot64p_plain(x, wm, N=N, m=m, planes=planes)
     _require(N % _BN == 0 and m % 4 == 0 and Jm % _BK == 0,
@@ -428,8 +474,208 @@ def ck_dot64p(x, wm, *, N: int, m: int, planes: int = 1,
 
 ck_dot64p.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# ck_dot64p_acc
+# ---------------------------------------------------------------------------
+
+def recombine(y, kp1: int, shift_base: int = 0):
+    """Per-limb folded products (kp1*L, B, N) int32 -> (B, kp1, N) int64:
+    sum_l y[u*L + l] << (8l + shift_base), wrapping mod 2^64 (so mod 2^32
+    too): ck_dot64p's outputs recombined."""
+    UL, B, N = y.shape
+    y = y.reshape(kp1, UL // kp1, B, N)
+    out = 0
+    for lm in range(UL // kp1):
+        out = out + (y[:, lm].to(torch.int64) << (8 * lm + shift_base))
+    return out.permute(1, 0, 2)
+
+
+def ck_dot64p_acc_plain(x, wm, acc, *, N: int, m: int, key_shift: int,
+                        planes: int = 1, kp1: int):
+    y = ck_dot64p_plain(x, wm, N=N, m=m, planes=planes)
+    return acc + recombine(y, kp1, key_shift).reshape(acc.shape)
+
+
+def ck_dot64p_acc(x, wm, acc, *, N: int, m: int, key_shift: int,
+                  planes: int = 1, kp1: int, digit_bits: int | None = None):
+    """ck_dot64p with the 64-bit limb recombination and the accumulator add
+    inside:
+
+        out = acc + sum_l ck_dot64p(x, wm)[u*L + l] << (8l + key_shift)
+
+    mod 2^64.  x: (B, C*P*ckp) int8 (rotate_decompose64_ck's layout); wm:
+    (kp1*L, J*m, N+m) int8; acc: (B, kp1*N) int64, the flat accumulator.
+    Returns acc's shape.  The same int32 bound as ck_dot64p is asserted.
+
+    Kernel: csrc/ck_dot64p_acc.cu (replaces pallas_kernels.ck_dot64p_acc).
+    Bound by int8 tensor-core MACs, as ck_dot64p; a block owns a 64 x 128
+    output tile of one polynomial, loops over its limb groups and keeps
+    the 64-bit sums in registers, so the (U*L, B, N) int32 products never
+    reach device memory."""
+    _check(x, "ck_dot64p_acc x", torch.int8, 2)
+    _check(wm, "ck_dot64p_acc wm", torch.int8, 3)
+    _check(acc, "ck_dot64p_acc acc", torch.int64, 2)
+    UL, Jm, Npm = wm.shape
+    B = x.shape[0]
+    _require(_is_pow2(N) and N % m == 0 and Npm == N + m,
+             "ck_dot64p_acc: wm must be (kp1*L, J*m, N+m) with N a power of "
+             "two and a multiple of m")
+    _require(planes in (1, 2), "ck_dot64p_acc: planes must be 1 or 2")
+    _require(UL % kp1 == 0 and acc.shape == (B, kp1 * N),
+             "ck_dot64p_acc: acc must be (B, kp1*N) and wm (kp1*L, ...)")
+    ckp = ck_width(Jm)
+    _require(x.shape[1] == (N // m) * planes * ckp,
+             "ck_dot64p_acc: x must be (B, C*P*ckp)")
+    _ck_exact_check("ck_dot64p_acc", Jm, N, m,
+                    digit_bits or (8 if planes == 1 else 9))
+    if _on_cpu(x, wm, acc):
+        return ck_dot64p_acc_plain(x, wm, acc, N=N, m=m, key_shift=key_shift,
+                                   planes=planes, kp1=kp1)
+    _require(N % _BN == 0 and m % 4 == 0 and Jm % _BK == 0,
+             f"ck_dot64p_acc: the kernel needs N % {_BN} == 0, m % 4 == 0 "
+             f"and J*m % {_BK} == 0")
+    out = torch.empty_like(acc)
+    ck_dot64p_acc.launches += 1
+    _launch("ck_dot64p_acc", x.data_ptr(), wm.data_ptr(), acc.data_ptr(),
+            out.data_ptr(), B, N, m, Jm, kp1, UL // kp1, planes, ckp,
+            key_shift)
+    return out
+
+
+ck_dot64p_acc.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# launch configuration (the role of tfhe_tpu/ops/tiles.py for these kernels)
+# ---------------------------------------------------------------------------
+
+_SM_COUNT: dict = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the card ``device`` lies on."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
+def choose_tile_rows(blocks, smem, sms: int, tiles=(64, 32)):
+    """The batch tile of a kernel whose blocks own ``rows`` batch rows:
+    the largest of ``tiles`` (descending) that fits the shared memory a
+    block may use and still gives every one of ``sms`` SMs a block, else
+    the smallest that fits, else None.  ``blocks(rows)`` and ``smem(rows)``
+    are the kernel's grid size and shared memory per block.  The TPU
+    package chooses from its VMEM budget instead (tiles.py); on the card a
+    grid smaller than the SM count leaves SMs idle, and a smaller tile
+    costs more key traffic and barriers per multiply-add."""
+    fitting = [t for t in tiles if smem(t) <= MAX_SMEM]
+    if not fitting:
+        return None
+    for t in fitting:
+        if blocks(t) >= sms:
+            return t
+    return fitting[-1]
+
+
+# ---------------------------------------------------------------------------
+# ck_cmux_step32
+# ---------------------------------------------------------------------------
+
+def ck_cmux_step32_smem(tile_rows: int, Jm: int, L: int) -> int:
+    """Shared memory of one ck_cmux_step32 block: one chunk window's digits
+    (tile_rows x (J*m + 16) bytes) and the L key tiles."""
+    return tile_rows * (Jm + 16) + L * _BN * _SB_WORDS * 4
+
+
+def ck_cmux_step32_plain(a, acc, wm, *, l: int, bgbit: int, offset: int,
+                         m: int, key_shift: int = 0, kp1: int | None = None):
+    B = acc.shape[0]
+    kp1 = kp1 if acc.ndim == 2 else acc.shape[1]
+    N = wm.shape[2] - m
+    acc3 = acc.reshape(B, kp1, N)
+    digits = rotate_decompose_plain(a, acc3, l=l, bgbit=bgbit, offset=offset)
+    y = ck_dot64p_plain(ck_layout(digits[None], m), wm, N=N, m=m)
+    return T.wrap32(acc3.to(torch.int64)
+                    + recombine(y, kp1, key_shift)).reshape(acc.shape)
+
+
+def ck_cmux_step32(a, acc, wm, *, l: int, bgbit: int, offset: int, m: int,
+                   key_shift: int = 0, kp1: int | None = None,
+                   tile_rows: int = 0):
+    """One 32-bit blind-rotation step on chunked pre-shifted keys:
+
+        out = acc + recombine(decompose((X^a - 1) * acc) @ wm)   mod 2^32
+
+    with the product folded as in ck_dot64p and limb l shifted by
+    8l + key_shift.  a: (B,) int32 exponents (taken mod 2N); acc: (B, k+1,
+    N) int32, or the flat (B, (k+1)*N) layout with kp1 given (the same
+    bytes); wm: ((k+1)*L, (k+1)*l*m, N+m) int8 (ChunkedEngine.prepare).
+    Returns acc's layout.
+
+    Kernel: csrc/ck_cmux_step32.cu (replaces pallas_kernels.ck_cmux_step32).
+    Bound by int8 tensor-core MACs.  A block owns a 128-column tile of one
+    output polynomial, builds the digits one chunk window at a time in
+    shared memory straight from acc, and recombines its L limbs in
+    registers.  The batch tile (64 or 32 rows) comes from choose_tile_rows;
+    ``tile_rows`` 64 or 32 forces one (0 chooses).  Any B >= 1."""
+    _require(tile_rows in (0, 32, 64),
+             "ck_cmux_step32: tile_rows must be 0, 32 or 64")
+    _check(a, "ck_cmux_step32 a", torch.int32, 1)
+    _require(acc.dtype == torch.int32 and acc.is_contiguous(),
+             "ck_cmux_step32 acc: contiguous int32")
+    _check(wm, "ck_cmux_step32 wm", torch.int8, 3)
+    UL, Jm, Npm = wm.shape
+    N = Npm - m
+    if acc.ndim == 2:
+        _require(kp1 is not None and acc.shape[1] == kp1 * N,
+                 "ck_cmux_step32: flat acc needs kp1, (B, kp1*N)")
+    else:
+        _require(acc.ndim == 3 and acc.shape[2] == N,
+                 "ck_cmux_step32 acc: (B, k+1, N)")
+        kp1 = acc.shape[1]
+    B = acc.shape[0]
+    _require(a.shape[0] == B, "ck_cmux_step32: a must have B entries")
+    _require(_is_pow2(N) and N % m == 0 and Jm == kp1 * l * m
+             and UL % kp1 == 0,
+             "ck_cmux_step32: wm must be ((k+1)*L, (k+1)*l*m, N+m) with N a "
+             "power of two and a multiple of m")
+    _require(1 <= bgbit <= 8 and l * bgbit <= 32,
+             "ck_cmux_step32: digits must fit int8 (bgbit <= 8, l*bgbit <= 32)")
+    L = UL // kp1
+    if _on_cpu(a, acc, wm):
+        return ck_cmux_step32_plain(a, acc, wm, l=l, bgbit=bgbit,
+                                    offset=offset, m=m, key_shift=key_shift,
+                                    kp1=kp1)
+    _require(1 <= L <= 4 and N % _BN == 0 and m % 4 == 0 and Jm % _BK == 0,
+             f"ck_cmux_step32: the kernel needs 1 to 4 key limbs, "
+             f"N % {_BN} == 0, m % 4 == 0 and J*m % {_BK} == 0")
+    if not tile_rows:
+        tile_rows = choose_tile_rows(
+            lambda t: (N // _BN) * -(-B // t) * kp1,
+            lambda t: ck_cmux_step32_smem(t, Jm, L), sm_count(acc.device))
+    _require(tile_rows is not None
+             and ck_cmux_step32_smem(tile_rows, Jm, L) <= MAX_SMEM,
+             f"ck_cmux_step32: the kernel's digit window needs "
+             f"{ck_cmux_step32_smem(32, Jm, L)} bytes of shared memory or "
+             f"more, above {MAX_SMEM}")
+    out = torch.empty_like(acc)
+    ck_cmux_step32.launches += 1
+    _launch("ck_cmux_step32", a.data_ptr(), acc.data_ptr(), wm.data_ptr(),
+            out.data_ptr(), B, kp1, N, m, l, L, bgbit, offset & T.MASK32,
+            key_shift, tile_rows)
+    return out
+
+
+ck_cmux_step32.launches = 0
+
 KERNELS = (materialize_w, rotate_decompose, mm_recombine_acc,
-           fused_cmux_step_v2, rotate_decompose64_ck, ck_dot64p)
+           fused_cmux_step_v2, rotate_decompose64_ck,
+           rotate_decompose64_ck_flat, ck_dot64p, ck_dot64p_acc,
+           ck_cmux_step32)
 
 
 def reset_launches():

@@ -2,16 +2,18 @@
 (the port's copy of ``tfhe_tpu.utils.observability``).
 
 Process-local metrics recorded at the library's operation boundaries — key
-generation (``keygen.gate`` span and counter) and bootstrap launches
-(``bootstrap.launches`` / ``bootstrap.ciphertexts`` counters) — that
-embedders can scrape.  Spans measure host wall time; GPU work is
+generation (``keygen.gate`` / ``keygen.circuit`` spans and counters),
+bootstrap launches (``bootstrap.launches`` / ``bootstrap.ciphertexts``
+counters) and circuit waves (``circuit.*`` in ``runtime/scheduler.py``) —
+that embedders can scrape or reset.  Spans measure host wall time; GPU work is
 asynchronous, so a span around a launch measures the enqueue unless the
 caller synchronises inside it.
 
   with span("bootstrap"):          # wall-clock timer, nestable
       ...
   count("gates", 128)              # monotonic counters
-  report() -> {"spans": {...}, "counters": {...}}
+  observe("wave_width", 64)        # value distributions (min/max/mean)
+  report() -> {"spans": {...}, "counters": {...}, "observations": {...}}
 
 Set TFHE_TPU_LOG=1 to also print one line per closed span.
 """
@@ -26,6 +28,7 @@ import time
 _lock = threading.Lock()
 _spans: dict[str, dict] = {}
 _counters: dict[str, int] = {}
+_obs: dict[str, dict] = {}
 _LOG = os.environ.get("TFHE_TPU_LOG", "") not in ("", "0")
 
 
@@ -51,9 +54,30 @@ def count(name: str, n: int = 1):
         _counters[name] = _counters.get(name, 0) + int(n)
 
 
+def observe(name: str, value: float):
+    v = float(value)
+    with _lock:
+        o = _obs.setdefault(name, {"count": 0, "sum": 0.0,
+                                   "min": v, "max": v})
+        o["count"] += 1
+        o["sum"] += v
+        o["min"] = min(o["min"], v)
+        o["max"] = max(o["max"], v)
+
+
 def report() -> dict:
     with _lock:
         spans = {k: dict(v, mean_s=v["total_s"] / max(1, v["count"]))
                  for k, v in _spans.items()}
-        return {"spans": spans, "counters": dict(_counters)}
+        obs = {k: dict(v, mean=v["sum"] / max(1, v["count"]))
+               for k, v in _obs.items()}
+        return {"spans": spans, "counters": dict(_counters),
+                "observations": obs}
+
+
+def reset():
+    with _lock:
+        _spans.clear()
+        _counters.clear()
+        _obs.clear()
 
