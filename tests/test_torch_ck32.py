@@ -3,8 +3,8 @@ CPU: the 32-bit chunked engine (prepare, accumulate, the step on the 3-D and
 the flat carry), the plain versions of ck_cmux_step32, ck_dot64p_acc and
 rotate_decompose64_ck_flat against the Pallas kernels in interpret mode (at
 the cases of tests/test_chunked64.py), the fused-epilogue 64-bit blind
-rotation (TFHE_CK64_PATH=acc), and the gate bootstrap on backend="chunked":
-same seed -> same keys, and the same ciphertexts as JAX's chunked gates, the
+rotation (TFHE_CK64_PATH=acc and sacc), and the gate bootstrap on
+backend="chunked": same seed -> same keys, and the same ciphertexts as JAX's chunked gates, the
 port's onthefly gates and the port on converted JAX keys.
 
 Tolerance 0: every path is exact integer arithmetic mod 2^32 or 2^64.
@@ -248,8 +248,9 @@ def test_acc_kernels_plain_match_pallas(N, k, l, bgbit, klimbs, m, tm):
 
 
 def test_acc_path_blind_rotation(monkeypatch):
-    """A 6-step lvl2 rotation at CB_TOY's gadget: TFHE_CK64_PATH=acc equals
-    the default step and JAX's rotation; sacc raises naming its kernel."""
+    """A 6-step lvl2 rotation at CB_TOY's gadget: TFHE_CK64_PATH=acc and
+    sacc equal the default step and JAX's rotation; acc on a backend
+    without the step raises."""
     p, tp = CB_TOY.tgsw_lvl2, T_CB_TOY.tgsw_lvl2
     r = np.random.default_rng(4)
     n, B, N, k = 6, 3, p.tlwe.N, p.tlwe.k
@@ -273,8 +274,7 @@ def test_acc_path_blind_rotation(monkeypatch):
                         {"mat": torch.zeros((n, 1))}, torch.from_numpy(abar),
                         tp, "naive")
     monkeypatch.setenv("TFHE_CK64_PATH", "sacc")
-    with pytest.raises(NotImplementedError, match="ck_dot64p_sacc"):
-        br.blind_rotate(*args)
+    _same(br.blind_rotate(*args), want)
 
 
 # ---------------------------------------------------------------------------

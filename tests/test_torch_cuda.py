@@ -6,8 +6,9 @@ Marked ``cuda``: skipped where no GPU is present.  On a machine with one:
 
 Small and ragged shapes (batches that do not fill a 64-row tile, every limb
 count, both key shifts, one and two digit planes), plus one GATE_TOY
-bootstrap and one CB_TOY circuit bootstrap that must give the same
-ciphertexts on the card as on the CPU.  Imports nothing of JAX.
+bootstrap and CB_TOY circuit bootstraps (on each of the four 64-bit steps)
+that must give the same ciphertexts on the card as on the CPU.  Imports
+nothing of JAX.
 """
 
 import numpy as np
@@ -241,14 +242,127 @@ def test_rotate_decompose64_ck_flat(cuda, B, k, N, l, bgbit, m):
     assert K.rotate_decompose64_ck.launches == before
 
 
+def _cb_toy(dev):
+    rng = TfheRng(7)
+    sk = circuit.CircuitSecretKey.generate(CB_TOY, rng)
+    ck = circuit.CircuitCloudKey.generate(sk, rng, device=dev)
+    bits = np.array([0, 1, 1, 0, 1])
+    msgs = np.where(bits.astype(bool), -(1 << 31), 0).astype(np.int32)
+    ct = lwe.encrypt(sk.lwe_lvl1, msgs, rng, 2.0**-20, device=dev)
+    return ck, ct
+
+
 def test_cb_toy_same_on_card_and_cpu(cuda):
     outs = {}
-    bits = np.array([0, 1, 1, 0, 1])
     for dev in ("cpu", cuda):
-        rng = TfheRng(7)
-        sk = circuit.CircuitSecretKey.generate(CB_TOY, rng)
-        ck = circuit.CircuitCloudKey.generate(sk, rng, device=dev)
-        msgs = np.where(bits.astype(bool), -(1 << 31), 0).astype(np.int32)
-        ct = lwe.encrypt(sk.lwe_lvl1, msgs, rng, 2.0**-20, device=dev)
+        ck, ct = _cb_toy(dev)
         outs[str(dev)] = circuit.circuit_bootstrap(ct, ck.data, CB_TOY).cpu()
     assert torch.equal(outs["cpu"], outs["cuda"])
+
+
+@pytest.mark.parametrize("env,kernels", [
+    ({}, ("rotate_decompose64_ck", "ck_dot64p")),
+    ({"TFHE_CK64_PATH": "acc"}, ("rotate_decompose64_ck_flat",
+                                 "ck_dot64p_acc")),
+    ({"TFHE_CK64_PATH": "sacc"}, ("rotate_decompose64_ck_flat",
+                                  "ck_dot64p_sacc")),
+    ({"TFHE_CK64_FUSED": "1"}, ("ck_cmux_step64",))])
+def test_cb_toy_each_64_bit_step(cuda, monkeypatch, env, kernels):
+    """A CB_TOY circuit bootstrap on the card through each 64-bit step
+    equals the CPU's default step bit for bit, and launches that step's
+    kernels and no other 64-bit kernel."""
+    ck, ct = _cb_toy("cpu")
+    want = circuit.circuit_bootstrap(ct, ck.data, CB_TOY)
+    ck, ct = _cb_toy(cuda)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    K.reset_launches()
+    got = circuit.circuit_bootstrap(ct, ck.data, CB_TOY).cpu()
+    assert torch.equal(got, want)
+    steps = {k.__name__: k.launches for k in K.KERNELS
+             if k.__name__ in ("rotate_decompose64_ck", "ck_dot64p",
+                               "rotate_decompose64_ck_flat", "ck_dot64p_acc",
+                               "ck_dot64p_sacc", "ck_cmux_step64")}
+    assert {k for k, v in steps.items() if v} == set(kernels)
+    assert len({steps[k] for k in kernels}) == 1
+
+
+@pytest.mark.parametrize("B,k,N,L,key_shift", [(3, 2, 512, 3, 8),
+                                               (130, 1, 1024, 3, 8),
+                                               (64, 1, 128, 3, 0)])
+def test_fused_cmux_step_v1(cuda, B, k, N, L, key_shift):
+    """The v1 kernel against its plain version and against v2's kernel."""
+    r = np.random.default_rng(10)
+    l = 3
+    acc = _i32(r, (B, k + 1, N))
+    a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
+    a[0] = N
+    w = _i8(r, (L, (k + 1) * l * N, (k + 1) * N))
+    kw = dict(l=l, bgbit=7, offset=0x81020400, key_shift=key_shift)
+    _same_on_card(K.fused_cmux_step, K.fused_cmux_step_v2_plain, (a, acc, w),
+                  kw, cuda)
+    dev = [t.to(cuda) for t in (a, acc, w)]
+    assert torch.equal(K.fused_cmux_step(*dev, **kw),
+                       K.fused_cmux_step_v2(*dev, **kw))
+
+
+@pytest.mark.parametrize("B,k,N,l,bgbit", [(256, 1, 2048, 5, 8),
+                                           (3, 1, 2048, 4, 9),
+                                           (7, 2, 256, 4, 9),
+                                           (5, 1, 128, 5, 8)])
+def test_rotate_decompose64(cuda, B, k, N, l, bgbit):
+    """The plain-layout emitter against its plain version; re-laid out, it
+    is rotate_decompose64_ck's kernel output."""
+    r = np.random.default_rng(11)
+    acc = _i64(r, (B, k + 1, N))
+    acc.view(-1)[:3] = torch.tensor([-2**63, 2**63 - 1, 0])
+    a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
+    a[0] = N
+    offset = sum(1 << (63 - i * bgbit) for i in range(l + 1)) % 2**64
+    P = 1 if bgbit <= 8 else 2
+    kw = dict(l=l, bgbit=bgbit, offset=offset, planes=P)
+    _same_on_card(K.rotate_decompose64, K.rotate_decompose64_plain, (a, acc),
+                  kw, cuda)
+    da, dacc = a.to(cuda), acc.to(cuda)
+    planes = K.rotate_decompose64(da, dacc, **kw).reshape(
+        B, k + 1, l, P, N).permute(3, 0, 1, 2, 4).reshape(P, B, -1, N)
+    assert torch.equal(K.ck_layout(planes, 64),
+                       K.rotate_decompose64_ck(da, dacc, m=64, **kw))
+
+
+@pytest.mark.parametrize("B,N,l,kp1,L,m,P", [(256, 2048, 5, 2, 6, 64, 1),
+                                             (37, 2048, 4, 2, 8, 64, 2),
+                                             (1, 256, 2, 3, 3, 64, 1),
+                                             (70, 128, 4, 2, 5, 32, 2)])
+def test_ck_dot64p_sacc(cuda, B, N, l, kp1, L, m, P):
+    r = np.random.default_rng(12)
+    ckp = K.ck_width(kp1 * l * m)
+    lo, hi = (-128, 128) if P == 1 else (-64, 65)
+    x = _i8(r, (B, (N // m) * P * ckp), lo, hi)
+    wm = _i8(r, (kp1 * L, kp1 * l * m, N + m))
+    acc = _i64(r, (B, kp1 * N))
+    _same_on_card(K.ck_dot64p_sacc, K.ck_dot64p_acc_plain, (x, wm, acc),
+                  dict(N=N, m=m, planes=P, kp1=kp1,
+                       key_shift=max(0, 64 - 8 * L)), cuda)
+
+
+@pytest.mark.parametrize("B,kp1,N,l,bgbit,L,m,tile", [
+    (256, 2, 2048, 5, 8, 6, 64, 0), (37, 2, 2048, 4, 9, 8, 64, 0),
+    (1, 2, 256, 2, 8, 3, 64, 0), (3, 2, 128, 3, 8, 8, 32, 0),
+    (100, 2, 256, 2, 9, 3, 64, 64), (100, 2, 256, 2, 9, 3, 64, 32),
+    (70, 3, 256, 3, 8, 4, 64, 32)])
+def test_ck_cmux_step64(cuda, B, kp1, N, l, bgbit, L, m, tile):
+    """Tail rows, both tiles, odd and even limb counts, one and two digit
+    planes, k = 1 and 2."""
+    r = np.random.default_rng(13)
+    acc = _i64(r, (B, kp1 * N))
+    a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
+    a[0] = N                                   # a pure sign flip
+    wm = _i8(r, (kp1 * L, kp1 * l * m, N + m))
+    offset = sum(1 << (63 - i * bgbit) for i in range(l + 1)) % 2**64
+    kw = dict(l=l, bgbit=bgbit, offset=offset, m=m, kp1=kp1,
+              key_shift=max(0, 64 - 8 * L), planes=1 if bgbit <= 8 else 2)
+    got = K.ck_cmux_step64(a.to(cuda), acc.to(cuda), wm.to(cuda),
+                           tile_rows=tile, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), K.ck_cmux_step64_plain(a, acc, wm, **kw))

@@ -18,11 +18,15 @@ tensor-core contraction.  Each step takes, in order:
     (``materialize_w`` + ``mm_recombine_acc`` on the onthefly engine).  At
     64 bits the generic step is plain torch code and serves only the CPU.
 
-At 64 bits ``TFHE_CK64_PATH`` selects the JAX package's opt-in steps:
-``acc`` carries the accumulator flat, (B, (k+1)*N) int64, through the
-chunked engine's fused-epilogue step (``rotate_decompose64_ck_flat`` +
-``ck_dot64p_acc``); ``sacc`` (kernel ``ck_dot64p_sacc``) is not ported and
-raises.  Neither falls back to the default step.
+At 64 bits two environment variables select the JAX package's opt-in
+steps, with its precedence: ``TFHE_CK64_PATH`` first (``acc``: the chunked
+engine's fused-epilogue step, ``rotate_decompose64_ck_flat`` +
+``ck_dot64p_acc``; ``sacc``: the same with the limb axis in the grid,
+``rotate_decompose64_ck_flat`` + ``ck_dot64p_sacc``), then
+``TFHE_CK64_FUSED`` when set and not ``"0"`` (the whole step in one
+``ck_cmux_step64`` kernel), then the default step.  The opt-in steps carry
+the accumulator flat, (B, (k+1)*N) int64, through the loop.  None falls back
+to another step: a selected step that does not apply raises.
 
 The decision is the same on the CPU and on the GPU; only the kernel
 wrappers choose between a plain version and a kernel.
@@ -39,21 +43,29 @@ from tfhe_tpu_torch.ops.decomp import decompose_tlwe
 from tfhe_tpu_torch.ops.engine import make_engine
 
 
+_CK64_STEPS = {"acc": "cmux_step_acc", "sacc": "cmux_step_sacc",
+               "fused": "cmux_step_flat"}
+
+
 def _ck64_path(eng, p: TGswParams, backend: str) -> str:
-    """The 64-bit step chosen by TFHE_CK64_PATH: "" (default) or "acc"."""
-    path = os.environ.get("TFHE_CK64_PATH", "")
-    if p.tlwe.bits != 64 or not path:
+    """The 64-bit step chosen by the environment, in the JAX package's
+    order: TFHE_CK64_PATH ("acc" or "sacc"), then TFHE_CK64_FUSED ("fused"),
+    else "" (the default step)."""
+    if p.tlwe.bits != 64:
         return ""
-    if path == "sacc":
-        raise NotImplementedError(
-            "TFHE_CK64_PATH=sacc (kernel ck_dot64p_sacc) is not ported yet; "
-            "it comes with the opt-in 64-bit kernels slice (ROADMAP.md §2)")
-    if path != "acc":
-        raise ValueError(f"unknown TFHE_CK64_PATH {path!r}: '', 'acc' or "
-                         f"'sacc'")
-    if not hasattr(eng, "cmux_step_acc"):
-        raise ValueError(f"TFHE_CK64_PATH=acc runs on the 'chunked' "
-                         f"backend, not {backend!r}")
+    path = os.environ.get("TFHE_CK64_PATH", "")
+    if path:
+        if path not in ("acc", "sacc"):
+            raise ValueError(f"unknown TFHE_CK64_PATH {path!r}: '', 'acc' or "
+                             f"'sacc'")
+        what = f"TFHE_CK64_PATH={path}"
+    elif os.environ.get("TFHE_CK64_FUSED", "") not in ("", "0"):
+        path, what = "fused", "TFHE_CK64_FUSED"
+    else:
+        return ""
+    if not hasattr(eng, _CK64_STEPS[path]):
+        raise ValueError(f"{what} runs on the 'chunked' backend, not "
+                         f"{backend!r}")
     return path
 
 
@@ -83,16 +95,18 @@ def rotate_steps(acc, bk_prepared, abar, p: TGswParams,
     (``boot.probe``) share it, so both take the same dispatch."""
     eng = make_engine(tgsw.engine_config(p), backend)
     steps = abar.t().contiguous()                     # (n, B): rows contiguous
-    if _ck64_path(eng, p, backend) == "acc":
+    path = _ck64_path(eng, p, backend)
+    if path:
+        step = getattr(eng, _CK64_STEPS[path])
         B, kp1, N = acc.shape
         accf = acc.reshape(B, kp1 * N).contiguous()
         for i in range(steps.shape[0]):
             prep_i = {name: t[i] for name, t in bk_prepared.items()}
-            accf = eng.cmux_step_acc(steps[i], accf, prep_i, kp1=kp1, l=p.l,
-                                     bgbit=p.bgbit, offset=p.offset)
+            accf = step(steps[i], accf, prep_i, kp1=kp1, l=p.l,
+                        bgbit=p.bgbit, offset=p.offset)
             if accf is None:
-                raise ValueError("TFHE_CK64_PATH=acc: no fused-epilogue step "
-                                 "for these parameters")
+                raise ValueError(f"the 64-bit {path} step does not apply to "
+                                 f"these parameters")
             yield i, steps[i], accf.view(B, kp1, N)
         return
     for i in range(steps.shape[0]):

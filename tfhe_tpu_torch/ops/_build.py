@@ -32,8 +32,8 @@ FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _U64 = ctypes.c_uint64
-# C entry point of every source: (symbol, argtypes); each returns the
-# cudaError_t of its launch.
+# Every C entry point: name -> (symbol, argtypes[, source]); the source is
+# csrc/<name>.cu unless named.  Each returns the cudaError_t of its launch.
 SIGNATURES = {
     "materialize_w": ("tfhe_materialize_w", [_P, _P, _I, _I, _I, _I, _P]),
     "rotate_decompose": ("tfhe_rotate_decompose",
@@ -53,7 +53,24 @@ SIGNATURES = {
     "ck_cmux_step32": ("tfhe_ck_cmux_step32",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _I,
                         _I, _P]),
+    "fused_cmux_step_v1": ("tfhe_fused_cmux_step_v1",
+                           [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _P]),
+    "rotate_decompose64": ("tfhe_rotate_decompose64",
+                           [_P, _P, _P, _I, _I, _I, _I, _I, _U64, _I, _P],
+                           "rotate_decompose64_ck"),
+    "ck_dot64p_sacc": ("tfhe_ck_dot64p_sacc", [_P, _P, _P, _P, _I, _I, _I,
+                                               _I, _I, _I, _I, _I, _I, _P]),
+    "ck_cmux_step64": ("tfhe_ck_cmux_step64",
+                       [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _U64,
+                        _I, _I, _P]),
 }
+
+
+def _source(name: str) -> str:
+    return SIGNATURES[name][2] if len(SIGNATURES[name]) > 2 else name
+
+
+SOURCES = sorted({_source(name) for name in SIGNATURES})
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -90,7 +107,7 @@ def build_all() -> dict[str, ctypes.CDLL]:
         t0 = time.perf_counter()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         jobs = []
-        for name in SIGNATURES:
+        for name in SOURCES:
             out = _lib_path(name)
             if out.exists():
                 continue
@@ -110,12 +127,12 @@ def build_all() -> dict[str, ctypes.CDLL]:
                 os.replace(tmp, out)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-        for name, (sym, argtypes) in SIGNATURES.items():
-            lib = ctypes.CDLL(str(_lib_path(name)))
-            fn = getattr(lib, sym)
+        for name in SOURCES:
+            _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+        for name, (sym, argtypes, *_) in SIGNATURES.items():
+            fn = getattr(_libs[_source(name)], sym)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _libs[name] = lib
         build_seconds = time.perf_counter() - t0
         return _libs
 
@@ -146,5 +163,6 @@ def host_library(source: Path) -> ctypes.CDLL:
 
 
 def entry(name: str):
-    """The ctypes function of source ``name`` (building at first use)."""
-    return getattr(build_all()[name], SIGNATURES[name][0])
+    """The ctypes function of entry point ``name`` (building at first
+    use)."""
+    return getattr(build_all()[_source(name)], SIGNATURES[name][0])

@@ -337,32 +337,65 @@ class ChunkedEngine(_EngineBase):
                               digit_bits=cfg.digit_bits)
         return acc + kernels.recombine(y, kp1, cfg.key_shift)
 
+    def _flat64_planes(self, acc_flat):
+        """The digit planes of the 64-bit steps on the flat accumulator (the
+        JAX package's predicate: a 64-bit result, P in (1, 2)), or None."""
+        pb, P = self.cfg.plane_split
+        if self.cfg.out_bits != 64 or acc_flat.ndim != 2 or P > 2:
+            return None
+        return P
+
     def cmux_step_flat(self, a, acc_flat, prepared, *, kp1, l, bgbit,
                        offset):
-        """The 32-bit step on the flat (B, (k+1)*N) layout (the same
-        kernel), or None when ineligible."""
+        """One step in one kernel on the flat (B, (k+1)*N) layout, or None
+        when ineligible: at 32 bits ck_cmux_step32 (the same kernel as
+        cmux_step), at 64 bits ck_cmux_step64 on the int64 accumulator (the
+        JAX package's TFHE_CK64_FUSED step, cmux_pair_step_flat)."""
+        cfg = self.cfg
+        if cfg.out_bits == 64:
+            P = self._flat64_planes(acc_flat)
+            if P is None:
+                return None
+            return kernels.ck_cmux_step64(a, acc_flat, prepared["wm"], l=l,
+                                          bgbit=bgbit, offset=offset,
+                                          m=self.m, key_shift=cfg.key_shift,
+                                          planes=P, kp1=kp1)
         if acc_flat.ndim != 2 or not self._ck32(bgbit):
             return None
         return kernels.ck_cmux_step32(a, acc_flat, prepared["wm"], l=l,
                                       bgbit=bgbit, offset=offset, m=self.m,
-                                      key_shift=self.cfg.key_shift, kp1=kp1)
+                                      key_shift=cfg.key_shift, kp1=kp1)
+
+    def _two_kernel_step(self, dot, a, acc_flat, prepared, *, kp1, l, bgbit,
+                         offset):
+        P = self._flat64_planes(acc_flat)
+        if P is None:
+            return None
+        cfg = self.cfg
+        x = kernels.rotate_decompose64_ck_flat(a, acc_flat, N=cfg.N, l=l,
+                                               bgbit=bgbit, offset=offset,
+                                               m=self.m, planes=P)
+        return dot(x, prepared["wm"], acc_flat, N=cfg.N, m=self.m,
+                   key_shift=cfg.key_shift, planes=P, kp1=kp1,
+                   digit_bits=cfg.digit_bits)
 
     def cmux_step_acc(self, a, acc_flat, prepared, *, kp1, l, bgbit, offset):
         """The 64-bit step with the epilogue fused into the contraction, on
         the flat (B, (k+1)*N) int64 accumulator: rotate_decompose64_ck_flat
         -> ck_dot64p_acc (the JAX package's TFHE_CK64_PATH=acc step).  None
         when ineligible."""
-        cfg = self.cfg
-        pb, P = cfg.plane_split
-        if cfg.out_bits != 64 or acc_flat.ndim != 2 or P > 2:
-            return None
-        x = kernels.rotate_decompose64_ck_flat(a, acc_flat, N=cfg.N, l=l,
-                                               bgbit=bgbit, offset=offset,
-                                               m=self.m, planes=P)
-        return kernels.ck_dot64p_acc(x, prepared["wm"], acc_flat, N=cfg.N,
-                                     m=self.m, key_shift=cfg.key_shift,
-                                     planes=P, kp1=kp1,
-                                     digit_bits=cfg.digit_bits)
+        return self._two_kernel_step(kernels.ck_dot64p_acc, a, acc_flat,
+                                     prepared, kp1=kp1, l=l, bgbit=bgbit,
+                                     offset=offset)
+
+    def cmux_step_sacc(self, a, acc_flat, prepared, *, kp1, l, bgbit,
+                       offset):
+        """cmux_step_acc with the limb axis in the contraction's grid:
+        rotate_decompose64_ck_flat -> ck_dot64p_sacc (the JAX package's
+        TFHE_CK64_PATH=sacc step).  None when ineligible."""
+        return self._two_kernel_step(kernels.ck_dot64p_sacc, a, acc_flat,
+                                     prepared, kp1=kp1, l=l, bgbit=bgbit,
+                                     offset=offset)
 
 
 _LATER = {"conv": "the engines slice",

@@ -17,12 +17,19 @@ exact) and the mod-2^32 recombination runs in int64.
   materialize_w               materialize_w                 bytes written (L*J*U*N*N)
   rotate_decompose            rotate_decompose              bytes moved (4 + l per coeff)
   mm_recombine_acc            mm_recombine_acc              int8 MACs (W bytes at small B)
+  fused_cmux_step             fused_cmux_step (v1)          int8 MACs
   fused_cmux_step_v2          fused_cmux_step_v2            int8 MACs
+  rotate_decompose64          rotate_decompose64            bytes moved (8 + l*P per coeff)
   rotate_decompose64_ck       rotate_decompose64_ck         bytes moved (8 + l*P per coeff)
   rotate_decompose64_ck_flat  rotate_decompose64_ck_flat    the same kernel, flat acc
   ck_dot64p                   ck_dot64p                     int8 MACs
+  ck_dot64p_sacc              ck_dot64p_sacc                int8 MACs
   ck_dot64p_acc               ck_dot64p_acc                 int8 MACs
   ck_cmux_step32              ck_cmux_step32                int8 MACs
+  ck_cmux_step64              ck_cmux_step64                int8 MACs
+
+fused_cmux_step (v1) and rotate_decompose64 run on no path of the port, as
+in the JAX package, where only its tests call them.
 """
 
 from __future__ import annotations
@@ -271,6 +278,52 @@ def fused_cmux_step_v2(a, acc, w, *, l: int, bgbit: int, offset: int,
 
 fused_cmux_step_v2.launches = 0
 
+
+def fused_cmux_step(a, acc, w, *, l: int, bgbit: int, offset: int,
+                    key_shift: int = 0):
+    """fused_cmux_step_v2's function on the (B, k+1, N) accumulator with the
+    v1 schedule: acc + recombine(decompose((X^a - 1) * acc) @ w), mod 2^32.
+
+    a: (B,) int32; acc: (B, k+1, N) int32; w: (3, (k+1)*l*N, (k+1)*N) int8
+    (materialize_w's layout; three key limbs, as the JAX kernel is
+    specialized).  Returns (B, k+1, N) int32.  Its plain version is
+    fused_cmux_step_v2_plain.
+
+    Kernel: csrc/fused_cmux_step_v1.cu (replaces
+    pallas_kernels.fused_cmux_step).  Bound by int8 tensor-core MACs; a
+    block owns (128 output columns of one polynomial, 64 batch rows) and
+    builds one digit row j at a time in shared memory (64 x N bytes), then
+    multiplies it by the (N, 128) W block of (j, u) of every limb."""
+    _check(a, "fused_cmux_step a", torch.int32, 1)
+    _check(acc, "fused_cmux_step acc", torch.int32, 3)
+    _check(w, "fused_cmux_step w", torch.int8, 3)
+    B, kp1, N = acc.shape
+    L, K, UN = w.shape
+    _require(a.shape[0] == B, "fused_cmux_step: a must have B entries")
+    _require(K == kp1 * l * N and UN == kp1 * N,
+             "fused_cmux_step: w must be (L, (k+1)*l*N, (k+1)*N)")
+    _require(L == 3, "fused_cmux_step (v1) takes exactly 3 key limbs, as the "
+             "JAX kernel is specialized")
+    _require(_is_pow2(N), "fused_cmux_step: N must be a power of two")
+    _require(1 <= bgbit <= 8 and l * bgbit <= 32,
+             "fused_cmux_step: digits must fit int8")
+    if _on_cpu(a, acc, w):
+        return fused_cmux_step_v2_plain(a, acc, w, l=l, bgbit=bgbit,
+                                        offset=offset, key_shift=key_shift)
+    smem = _BM * (N + 16) + L * _BN * _SB_WORDS * 4
+    _require(N % _BN == 0 and smem <= MAX_SMEM,
+             f"fused_cmux_step: the kernel needs N % {_BN} == 0 and {smem} "
+             f"<= {MAX_SMEM} bytes of shared memory")
+    out = torch.empty_like(acc)
+    fused_cmux_step.launches += 1
+    _launch("fused_cmux_step_v1", a.data_ptr(), acc.data_ptr(), w.data_ptr(),
+            out.data_ptr(), B, kp1, N, l, bgbit, offset & T.MASK32, key_shift)
+    return out
+
+
+fused_cmux_step.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # rotate_decompose64_ck
 # ---------------------------------------------------------------------------
@@ -296,18 +349,31 @@ def ck_layout(planes, m: int):
     return x.reshape(M, -1).contiguous()
 
 
-def rotate_decompose64_ck_plain(a, acc, *, l: int, bgbit: int, offset: int,
-                                m: int, planes: int = 1):
+def _digit_planes64(a, acc, *, l: int, bgbit: int, offset: int,
+                    planes: int):
+    """The gadget digits of (X^a - 1) * acc, acc (B, k+1, N) int64, as
+    (P, B, (k+1)*l, N) int8 planes (balanced base-2^7 where P = 2)."""
     rot = poly.mul_by_xai_minus_one(a, acc) + T.signed64(offset)
     B, kp1, N = acc.shape
     digs = torch.stack([((rot >> (64 - (i + 1) * bgbit)) & ((1 << bgbit) - 1))
                         - (1 << (bgbit - 1)) for i in range(l)], dim=-2)
     digs = digs.reshape(B, kp1 * l, N)
     if planes == 1:
-        pl = digs.to(torch.int8)[None]
-    else:
-        pl = T.signed_planes(digs, 7, planes)
-    return ck_layout(pl, m)
+        return digs.to(torch.int8)[None]
+    return T.signed_planes(digs, 7, planes)
+
+
+def rotate_decompose64_ck_plain(a, acc, *, l: int, bgbit: int, offset: int,
+                                m: int, planes: int = 1):
+    return ck_layout(_digit_planes64(a, acc, l=l, bgbit=bgbit, offset=offset,
+                                     planes=planes), m)
+
+
+def _check_digits64(name, planes, bgbit, l):
+    _require(planes in (1, 2) and 1 <= bgbit <= (8 if planes == 1 else 14)
+             and l * bgbit <= 64,
+             f"{name}: digits must fit their planes (planes 1 or 2; bgbit <= "
+             f"8 for planes=1, <= 14 for planes=2) and l*bgbit <= 64")
 
 
 def _rotate_decompose64_ck(wrapper, a, acc, *, l, bgbit, offset, m, planes):
@@ -321,10 +387,7 @@ def _rotate_decompose64_ck(wrapper, a, acc, *, l, bgbit, offset, m, planes):
     _require(a.shape[0] == B, f"{name}: a must have one entry per row")
     _require(_is_pow2(N) and N % m == 0,
              f"{name}: N must be a power of two and a multiple of m")
-    _require(planes in (1, 2) and 1 <= bgbit <= (8 if planes == 1 else 14)
-             and l * bgbit <= 64,
-             f"{name}: digits must fit their planes (bgbit <= 8 for "
-             f"planes=1, <= 14 for planes=2) and l*bgbit <= 64")
+    _check_digits64(name, planes, bgbit, l)
     if _on_cpu(a, acc):
         return rotate_decompose64_ck_plain(a, acc, l=l, bgbit=bgbit,
                                            offset=offset, m=m, planes=planes)
@@ -393,6 +456,51 @@ def rotate_decompose64_ck_flat(a, acc, *, N: int, l: int, bgbit: int,
 
 
 rotate_decompose64_ck_flat.launches = 0
+
+
+def rotate_decompose64_plain(a, acc, *, l: int, bgbit: int, offset: int,
+                             planes: int = 1):
+    B, kp1, N = acc.shape
+    pl = _digit_planes64(a, acc, l=l, bgbit=bgbit, offset=offset,
+                         planes=planes).reshape(planes, B, kp1, l, N)
+    return pl.permute(1, 2, 3, 0, 4).reshape(B * kp1, l * planes, N)
+
+
+def rotate_decompose64(a, acc, *, l: int, bgbit: int, offset: int,
+                       planes: int = 1):
+    """Gadget digits of (X^a - 1) * acc for a 64-bit TRLWE batch in the
+    plain layout: a (B,) int32 exponents (taken mod 2N); acc (B, k+1, N)
+    int64; offset the 64-bit gadget offset (unsigned).  Returns
+    (B*(k+1), l*P, N) int8, row b*(k+1) + u, level-major then plane
+    (planes=2 splits each digit into balanced base-2^7 planes, d = p0 +
+    128 p1).  kernels.ck_layout of the same planes is rotate_decompose64_ck's
+    chunk layout.
+
+    Kernel: csrc/rotate_decompose64_ck.cu, its second entry point (replaces
+    pallas_kernels.rotate_decompose64).  Bound by bytes (8 read and l*P
+    written per coefficient); one block per (batch row, polynomial) with
+    the row in shared memory, four coefficients per thread and item."""
+    _check(a, "rotate_decompose64 a", torch.int32, 1)
+    _check(acc, "rotate_decompose64 acc", torch.int64, 3)
+    B, kp1, N = acc.shape
+    _require(a.shape[0] == B, "rotate_decompose64: a must have one entry per "
+             "row")
+    _require(_is_pow2(N), "rotate_decompose64: N must be a power of two")
+    _check_digits64("rotate_decompose64", planes, bgbit, l)
+    if _on_cpu(a, acc):
+        return rotate_decompose64_plain(a, acc, l=l, bgbit=bgbit,
+                                        offset=offset, planes=planes)
+    _require(N >= 4, "rotate_decompose64: the kernel needs N >= 4")
+    out = torch.empty((B * kp1, l * planes, N), dtype=torch.int8,
+                      device=acc.device)
+    rotate_decompose64.launches += 1
+    _launch("rotate_decompose64", a.data_ptr(), acc.data_ptr(),
+            out.data_ptr(), B, kp1, N, l, bgbit, offset & ((1 << 64) - 1),
+            planes)
+    return out
+
+
+rotate_decompose64.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -497,6 +605,40 @@ def ck_dot64p_acc_plain(x, wm, acc, *, N: int, m: int, key_shift: int,
     return acc + recombine(y, kp1, key_shift).reshape(acc.shape)
 
 
+def _ck_dot64p_acc(wrapper, x, wm, acc, *, N, m, key_shift, planes, kp1,
+                   digit_bits):
+    """The contract ck_dot64p_acc and ck_dot64p_sacc share: checks, then the
+    plain version on the CPU or one launch of csrc/<wrapper name>.cu
+    counted on ``wrapper``."""
+    name = wrapper.__name__
+    _check(x, f"{name} x", torch.int8, 2)
+    _check(wm, f"{name} wm", torch.int8, 3)
+    _check(acc, f"{name} acc", torch.int64, 2)
+    UL, Jm, Npm = wm.shape
+    B = x.shape[0]
+    _require(_is_pow2(N) and N % m == 0 and Npm == N + m,
+             f"{name}: wm must be (kp1*L, J*m, N+m) with N a power of two and "
+             f"a multiple of m")
+    _require(planes in (1, 2), f"{name}: planes must be 1 or 2")
+    _require(UL % kp1 == 0 and acc.shape == (B, kp1 * N),
+             f"{name}: acc must be (B, kp1*N) and wm (kp1*L, ...)")
+    ckp = ck_width(Jm)
+    _require(x.shape[1] == (N // m) * planes * ckp,
+             f"{name}: x must be (B, C*P*ckp)")
+    _ck_exact_check(name, Jm, N, m, digit_bits or (8 if planes == 1 else 9))
+    if _on_cpu(x, wm, acc):
+        return ck_dot64p_acc_plain(x, wm, acc, N=N, m=m, key_shift=key_shift,
+                                   planes=planes, kp1=kp1)
+    _require(N % _BN == 0 and m % 4 == 0 and Jm % _BK == 0,
+             f"{name}: the kernel needs N % {_BN} == 0, m % 4 == 0 and "
+             f"J*m % {_BK} == 0")
+    out = torch.empty_like(acc)
+    wrapper.launches += 1
+    _launch(name, x.data_ptr(), wm.data_ptr(), acc.data_ptr(), out.data_ptr(),
+            B, N, m, Jm, kp1, UL // kp1, planes, ckp, key_shift)
+    return out
+
+
 def ck_dot64p_acc(x, wm, acc, *, N: int, m: int, key_shift: int,
                   planes: int = 1, kp1: int, digit_bits: int | None = None):
     """ck_dot64p with the 64-bit limb recombination and the accumulator add
@@ -513,37 +655,32 @@ def ck_dot64p_acc(x, wm, acc, *, N: int, m: int, key_shift: int,
     output tile of one polynomial, loops over its limb groups and keeps
     the 64-bit sums in registers, so the (U*L, B, N) int32 products never
     reach device memory."""
-    _check(x, "ck_dot64p_acc x", torch.int8, 2)
-    _check(wm, "ck_dot64p_acc wm", torch.int8, 3)
-    _check(acc, "ck_dot64p_acc acc", torch.int64, 2)
-    UL, Jm, Npm = wm.shape
-    B = x.shape[0]
-    _require(_is_pow2(N) and N % m == 0 and Npm == N + m,
-             "ck_dot64p_acc: wm must be (kp1*L, J*m, N+m) with N a power of "
-             "two and a multiple of m")
-    _require(planes in (1, 2), "ck_dot64p_acc: planes must be 1 or 2")
-    _require(UL % kp1 == 0 and acc.shape == (B, kp1 * N),
-             "ck_dot64p_acc: acc must be (B, kp1*N) and wm (kp1*L, ...)")
-    ckp = ck_width(Jm)
-    _require(x.shape[1] == (N // m) * planes * ckp,
-             "ck_dot64p_acc: x must be (B, C*P*ckp)")
-    _ck_exact_check("ck_dot64p_acc", Jm, N, m,
-                    digit_bits or (8 if planes == 1 else 9))
-    if _on_cpu(x, wm, acc):
-        return ck_dot64p_acc_plain(x, wm, acc, N=N, m=m, key_shift=key_shift,
-                                   planes=planes, kp1=kp1)
-    _require(N % _BN == 0 and m % 4 == 0 and Jm % _BK == 0,
-             f"ck_dot64p_acc: the kernel needs N % {_BN} == 0, m % 4 == 0 "
-             f"and J*m % {_BK} == 0")
-    out = torch.empty_like(acc)
-    ck_dot64p_acc.launches += 1
-    _launch("ck_dot64p_acc", x.data_ptr(), wm.data_ptr(), acc.data_ptr(),
-            out.data_ptr(), B, N, m, Jm, kp1, UL // kp1, planes, ckp,
-            key_shift)
-    return out
+    return _ck_dot64p_acc(ck_dot64p_acc, x, wm, acc, N=N, m=m,
+                          key_shift=key_shift, planes=planes, kp1=kp1,
+                          digit_bits=digit_bits)
 
 
 ck_dot64p_acc.launches = 0
+
+
+def ck_dot64p_sacc(x, wm, acc, *, N: int, m: int, key_shift: int,
+                   planes: int = 1, kp1: int, digit_bits: int | None = None):
+    """ck_dot64p_acc's function and contract (its plain version is
+    ck_dot64p_acc_plain) with the limb axis in the grid.
+
+    Kernel: csrc/ck_dot64p_sacc.cu (replaces pallas_kernels.ck_dot64p_sacc).
+    Bound by int8 tensor-core MACs.  A block owns one (64-row tile,
+    128-column tile, polynomial, limb) cell and adds its limb's shifted
+    folded product into the output with 64-bit atomicAdd, after acc is
+    copied there on the same stream; the additions commute mod 2^64, so the
+    result is the same bits whatever the order.  L times ck_dot64p_acc's
+    grid."""
+    return _ck_dot64p_acc(ck_dot64p_sacc, x, wm, acc, N=N, m=m,
+                          key_shift=key_shift, planes=planes, kp1=kp1,
+                          digit_bits=digit_bits)
+
+
+ck_dot64p_sacc.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -672,10 +809,99 @@ def ck_cmux_step32(a, acc, wm, *, l: int, bgbit: int, offset: int, m: int,
 
 ck_cmux_step32.launches = 0
 
-KERNELS = (materialize_w, rotate_decompose, mm_recombine_acc,
-           fused_cmux_step_v2, rotate_decompose64_ck,
-           rotate_decompose64_ck_flat, ck_dot64p, ck_dot64p_acc,
-           ck_cmux_step32)
+
+# ---------------------------------------------------------------------------
+# ck_cmux_step64
+# ---------------------------------------------------------------------------
+
+def ck_cmux_step64_smem(tile_rows: int, Jm: int, planes: int, L: int) -> int:
+    """Shared memory of one ck_cmux_step64 block: one chunk window's digit
+    planes (tile_rows x (P*J*m + 16) bytes) and the key tiles of one limb
+    group (two limbs for one plane and an even L, else one)."""
+    lg = 2 if planes == 1 and L % 2 == 0 else 1
+    return tile_rows * (planes * Jm + 16) + lg * _BN * _SB_WORDS * 4
+
+
+def ck_cmux_step64_plain(a, acc, wm, *, l: int, bgbit: int, offset: int,
+                         m: int, key_shift: int, planes: int, kp1: int):
+    B = acc.shape[0]
+    N = wm.shape[2] - m
+    x = rotate_decompose64_ck_flat_plain(a, acc, N=N, l=l, bgbit=bgbit,
+                                         offset=offset, m=m, planes=planes)
+    return ck_dot64p_acc_plain(x, wm, acc.reshape(B, kp1 * N), N=N, m=m,
+                               key_shift=key_shift, planes=planes, kp1=kp1)
+
+
+def ck_cmux_step64(a, acc, wm, *, l: int, bgbit: int, offset: int, m: int,
+                   key_shift: int, planes: int, kp1: int,
+                   tile_rows: int = 0):
+    """One 64-bit blind-rotation step on chunked pre-shifted keys:
+
+        out = acc + recombine64(decompose64((X^a - 1) * acc) @ wm)  mod 2^64
+
+    a: (B,) int32 exponents (taken mod 2N); acc: (B, kp1*N) int64, the flat
+    accumulator; offset the 64-bit gadget offset (unsigned); wm: (kp1*L,
+    kp1*l*m, N+m) int8 (ChunkedEngine.prepare); digits split into ``planes``
+    balanced base-2^7 planes where planes=2.  Returns acc's shape: the
+    function of rotate_decompose64_ck_flat then ck_dot64p_acc, whose plain
+    versions are its plain version.  The int32 bound of ck_dot64p is
+    asserted for bgbit-bit digits.
+
+    Kernel: csrc/ck_cmux_step64.cu (replaces pallas_kernels.ck_cmux_step64).
+    Bound by int8 tensor-core MACs.  A block owns a 128-column tile of one
+    output polynomial, builds the digit planes one chunk window at a time
+    in shared memory straight from acc (each chunk once, for both signs and
+    every limb) and folds each (limb, plane, sign) pass into uint64
+    registers.  The batch tile (64 or 32 rows) comes from choose_tile_rows;
+    ``tile_rows`` 64 or 32 forces one (0 chooses).  Any B >= 1."""
+    _require(tile_rows in (0, 32, 64),
+             "ck_cmux_step64: tile_rows must be 0, 32 or 64")
+    _check(a, "ck_cmux_step64 a", torch.int32, 1)
+    _check(acc, "ck_cmux_step64 acc", torch.int64, 2)
+    _check(wm, "ck_cmux_step64 wm", torch.int8, 3)
+    UL, Jm, Npm = wm.shape
+    N = Npm - m
+    B = acc.shape[0]
+    _require(a.shape[0] == B, "ck_cmux_step64: a must have B entries")
+    _require(N > 0 and _is_pow2(N) and N % m == 0 and acc.shape[1] == kp1 * N
+             and Jm == kp1 * l * m and UL % kp1 == 0,
+             "ck_cmux_step64: acc must be (B, kp1*N) and wm (kp1*L, "
+             "kp1*l*m, N+m) with N a power of two and a multiple of m")
+    _check_digits64("ck_cmux_step64", planes, bgbit, l)
+    _ck_exact_check("ck_cmux_step64", Jm, N, m, bgbit)
+    L = UL // kp1
+    if _on_cpu(a, acc, wm):
+        return ck_cmux_step64_plain(a, acc, wm, l=l, bgbit=bgbit,
+                                    offset=offset, m=m, key_shift=key_shift,
+                                    planes=planes, kp1=kp1)
+    _require(N % _BN == 0 and m % 4 == 0 and Jm % _BK == 0,
+             f"ck_cmux_step64: the kernel needs N % {_BN} == 0, m % 4 == 0 "
+             f"and J*m % {_BK} == 0")
+    if not tile_rows:
+        tile_rows = choose_tile_rows(
+            lambda t: (N // _BN) * -(-B // t) * kp1,
+            lambda t: ck_cmux_step64_smem(t, Jm, planes, L),
+            sm_count(acc.device))
+    _require(tile_rows is not None
+             and ck_cmux_step64_smem(tile_rows, Jm, planes, L) <= MAX_SMEM,
+             f"ck_cmux_step64: the kernel's digit window needs "
+             f"{ck_cmux_step64_smem(32, Jm, planes, L)} bytes of shared "
+             f"memory or more, above {MAX_SMEM}")
+    out = torch.empty_like(acc)
+    ck_cmux_step64.launches += 1
+    _launch("ck_cmux_step64", a.data_ptr(), acc.data_ptr(), wm.data_ptr(),
+            out.data_ptr(), B, kp1, N, m, l, L, planes, bgbit,
+            offset & ((1 << 64) - 1), key_shift, tile_rows)
+    return out
+
+
+ck_cmux_step64.launches = 0
+
+# in the order of pallas_kernels.py (PERF.md's kernel table)
+KERNELS = (materialize_w, rotate_decompose, fused_cmux_step,
+           fused_cmux_step_v2, rotate_decompose64, rotate_decompose64_ck,
+           rotate_decompose64_ck_flat, ck_dot64p, ck_dot64p_sacc,
+           ck_dot64p_acc, ck_cmux_step32, ck_cmux_step64, mm_recombine_acc)
 
 
 def reset_launches():
