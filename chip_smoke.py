@@ -18,9 +18,13 @@ Phases (each prints its own lines; any failure exits non-zero):
      limb-grid contraction and the plain-layout digits, which re-laid out
      must equal the chunk-layout kernel's) at CB_MXU and CB_ACTIVE B=256,
      the one-kernel 64-bit step there and at CB_MXU tails B=1, 3, 100,
-     ck_cmux_step32 at GATE_MXU B=8192, GATE_DEFAULT B=256 and tail
-     batches B=1, 3, 100, with the flat carry; then the fused step's 64-
-     and 128-row batch tiles, forced and as chosen, over a sweep of batches;
+     ck_cmux_step32 at GATE_MXU B=8192, GATE_DEFAULT B=256, GATE_MXU
+     B=256 and 512 (the adder's narrow launches) and tail batches B=1, 3,
+     100, with the flat carry; the two kernels whose reduction is split over
+     blocks (mm_recombine_acc, ck_cmux_step32) also with split=1 forced,
+     equal to the chosen (tile_rows, S) plan; then the fused step's 64-
+     and 128-row batch tiles, forced and as chosen, over a sweep of
+     batches, and the split kernels over forced (tile_rows, S) plans;
   3. main path: GATE_FAST2 (n=500, k=2, N=512) at B=8192 on the onthefly
      engine through CloudKey.generate / encrypt_bool / make_bootstrap_fn /
      decrypt_bool, one untimed launch, then a timed dependent chain of 2
@@ -135,7 +139,7 @@ def phase_device():
           f"(count {torch.cuda.device_count()}), torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
     _build.build_all()
-    print(f"phase 1 build: {len(_build.SIGNATURES)} kernels in "
+    print(f"phase 1 build: {len(_build.SOURCES)} sources in "
           f"{_build.build_seconds:.1f} s")
     for path in sorted(_build.BUILD_DIR.glob("*.ptxas.txt")):
         for line in path.read_text().splitlines():
@@ -339,12 +343,15 @@ def _kernel_cases(seed: int = 0):
                       ("_int_mm", (digits, wcat)), True))
 
     # ck_cmux_step32: GATE_MXU (k=1, N=1024, l=3, 3 key limbs, m=128) at the
-    # N=1024 path's B=8192, GATE_DEFAULT (4 key limbs) at B=256, then tail
-    # batches that fill no row tile
+    # N=1024 path's B=8192, GATE_DEFAULT (4 key limbs) at B=256, the
+    # adder's narrow launches (GATE_MXU B=256 and 512), then tail batches
+    # that fill no row tile
     kp1, l, N, m = 2, 3, 1024, 128
     C, Jm = N // m, kp1 * l * m
     for label, p, L, B in (("GATE_MXU", GATE_MXU.tgsw, 3, 8192),
                            ("GATE_DEFAULT", GATE_DEFAULT.tgsw, 4, 256),
+                           ("GATE_MXU", GATE_MXU.tgsw, 3, 256),
+                           ("GATE_MXU", GATE_MXU.tgsw, 3, 512),
                            ("GATE_MXU", GATE_MXU.tgsw, 3, 1),
                            ("GATE_MXU", GATE_MXU.tgsw, 3, 3),
                            ("GATE_MXU", GATE_MXU.tgsw, 3, 100)):
@@ -394,8 +401,19 @@ def phase_kernels(reps: int = 20):
             _compare(name + " (re-laid out, against rotate_decompose64_ck)",
                      K.ck_layout(planes.reshape(P, B, kp1 * l, N), CB_M),
                      K.rotate_decompose64_ck(a, acc, m=CB_M, **kw))
+        split_txt = ""
+        if name in SPLIT_KERNELS:              # the chosen plan against S = 1
+            plan = _plan(name, dev_args, kw)
+            forced = dict(kw, split=1)
+            if name == "ck_cmux_step32":
+                forced["tile_rows"] = plan[0]
+            _compare(f"{name} split=1", wrapper(*dev_args, **forced), got)
+            split1_ms = cuda_ms(lambda: wrapper(*dev_args, **forced), reps)
         ms = cuda_ms(lambda: wrapper(*dev_args, **kw), reps)
         plain_ms = cuda_ms(lambda: plain(*dev_args, **kw), 3, warmup=1)
+        if name in SPLIT_KERNELS:
+            split_txt = (f", chosen (tile_rows, S) = {plan}; S = 1 "
+                         f"{split1_ms:.4f} ms, bit-identical")
         library_ms = None
         if lib is not None:
             x, wcat = (t.cuda().contiguous() for t in lib[1])
@@ -404,6 +422,9 @@ def phase_kernels(reps: int = 20):
         numbers = {"shape": shape, "max_abs_err": err, "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
                    "library_ms": library_ms}
+        if name in SPLIT_KERNELS:
+            numbers.update(tile_rows=plan[0], split=plan[1],
+                           split1_ms=split1_ms)
         if name in ("ck_dot64p_acc", "ck_dot64p_sacc"):
             x, wm, acc = dev_args              # the two-kernel step's dot
             kp1 = kw["kp1"]
@@ -430,9 +451,90 @@ def phase_kernels(reps: int = 20):
         print(f"phase 2 kernel {name} at {shape}: bit-identical to plain, "
               f"{ms:.4f} ms (bound {bnd:.4f} ms by {by}, "
               f"{bnd / ms:.1%} of it), plain {plain_ms:.4f} ms, "
-              f"library {lib_txt}{two_txt}")
+              f"library {lib_txt}{two_txt}{split_txt}")
     torch.cuda.empty_cache()
     return results
+
+
+# the kernels whose reduction is split over blocks (K slices, chunk windows)
+SPLIT_KERNELS = ("mm_recombine_acc", "ck_cmux_step32")
+
+
+def _plan(name, dev_args, kw):
+    """(tile_rows, S) the wrapper of ``name`` chooses for these inputs."""
+    from tfhe_tpu_torch.ops import kernels as K
+    if name == "mm_recombine_acc":
+        x, w, _ = dev_args
+        L, Kd, UN = w.shape
+        return 64, K.mm_recombine_acc_split(x.shape[0], Kd, UN, L, x.device)
+    a, acc, wm = dev_args
+    B, kp1, N = acc.shape
+    return K.ck_cmux_step32_plan(B, kp1, N, kw["m"], wm.shape[1],
+                                 wm.shape[0] // kp1, acc.device)
+
+
+def phase_splits(results, reps: int = 10):
+    """The two split kernels over forced plans at their path shapes: every
+    (tile_rows, S) bit-identical to the plain version (run on the card) and
+    timed.  Adds "splits" to each kernel's entry."""
+    from tfhe_tpu_torch.ops import kernels as K
+    from tfhe_tpu_torch.params import GATE_DEFAULT, GATE_MXU
+    r = np.random.default_rng(4)
+
+    def i8(shape, lo=-128, hi=128):
+        return torch.from_numpy(
+            r.integers(lo, hi, shape).astype(np.int8)).cuda()
+
+    def i32(shape):
+        return torch.from_numpy(
+            r.integers(-2**31, 2**31, shape).astype(np.int32)).cuda()
+
+    rows = []
+    B, K_, UN, L = 256, 6144, 2048, 4          # GATE_DEFAULT's generic step
+    x, w, acc = i8((B, K_), -64, 64), i8((L, K_, UN)), i32((B, UN))
+    want = K.mm_recombine_acc_plain(x, w, acc)
+    row = {"shape": f"GATE_DEFAULT B={B}", "ms": {}}
+    for S in (1, 2, 3, 4, 6, 8, 12):
+        def run():
+            return K.mm_recombine_acc(x, w, acc, split=S)
+        _compare(f"mm_recombine_acc split={S}", run(), want)
+        row["ms"][f"64x{S}"] = cuda_ms(run, reps)
+    rows.append(row)
+    print(f"phase 2 splits mm_recombine_acc {row['shape']} (64-row tile x "
+          f"S: ms): {row['ms']}")
+    results["mm_recombine_acc"]["splits"] = rows
+    del x, w, acc, want
+
+    rows = []
+    kp1, l, N, m = 2, 3, 1024, 128
+    for label, p, L, B in (("GATE_DEFAULT", GATE_DEFAULT.tgsw, 4, 256),
+                           ("GATE_MXU", GATE_MXU.tgsw, 3, 256),
+                           ("GATE_MXU", GATE_MXU.tgsw, 3, 512),
+                           ("GATE_MXU", GATE_MXU.tgsw, 3, 1),
+                           ("GATE_MXU", GATE_MXU.tgsw, 3, 100),
+                           ("GATE_MXU", GATE_MXU.tgsw, 3, 8192)):
+        acc = i32((B, kp1, N))
+        a = torch.randint(0, 2 * N, (B,), dtype=torch.int32, device="cuda")
+        wm = i8((kp1 * L, kp1 * l * m, N + m))
+        kw = dict(l=l, bgbit=p.bgbit, offset=p.offset, m=m,
+                  key_shift=32 - 8 * L)
+        want = K.ck_cmux_step32_plain(a, acc, wm, **kw)
+        row = {"shape": f"{label} B={B}", "chosen": _plan(
+            "ck_cmux_step32", (a, acc, wm), kw), "ms": {}}
+        splits = (1, 2) if B == 8192 else (1, 2, 3, 4, 5, 8, 9)
+        for t in (64, 32):
+            for S in splits:
+                def run():
+                    return K.ck_cmux_step32(a, acc, wm, tile_rows=t, split=S,
+                                            **kw)
+                _compare(f"ck_cmux_step32 {label} B={B} {t}x{S}", run(), want)
+                row["ms"][f"{t}x{S}"] = cuda_ms(run, 3 if B == 8192 else reps)
+        rows.append(row)
+        print(f"phase 2 splits ck_cmux_step32 {row['shape']} chosen "
+              f"{row['chosen']} (tile_rows x S: ms): {row['ms']}")
+        del acc, a, wm, want
+    results["ck_cmux_step32"]["splits"] = rows
+    torch.cuda.empty_cache()
 
 
 def _default_step64(a, acc, wm, *, l, bgbit, offset, m, planes, kp1,
@@ -1048,6 +1150,7 @@ def main() -> int:
     smi = phase_device()
     results = phase_kernels()
     phase_tiles(results["fused_cmux_step_v2"])
+    phase_splits(results)
     by_path = {}
     by_path["gate_fast2"], _ = phase_main(smi)
     by_path["gate_default"], default_out = phase_generic(smi)

@@ -25,7 +25,7 @@ from tfhe_tpu.ops import pallas_kernels as pk
 from tfhe_tpu.params import (CB_TOY, GATE_FAST2, GATE_TOY, GateParams,
                              LweParams, TGswParams, TLweParams)
 from tfhe_tpu.rng import TfheRng as JRng
-from tfhe_tpu_torch import convert, tgsw
+from tfhe_tpu_torch import convert, tgsw, torus as T
 from tfhe_tpu_torch.boot import blind_rotate as br, gate
 from tfhe_tpu_torch.ops import engine, kernels as K
 from tfhe_tpu_torch.params import (CB_TOY as T_CB_TOY,
@@ -184,6 +184,10 @@ def test_ck_cmux_step32_wrapper_rules():
     with pytest.raises(ValueError, match="flat acc"):
         K.ck_cmux_step32(a, acc.reshape(2, -1), wm, l=3, bgbit=7, offset=0,
                          m=64)
+    for bad in (-1, K.ck_work(64, 64) + 1):      # a tile has 2 windows here
+        with pytest.raises(ValueError, match="split"):
+            K.ck_cmux_step32(a, acc, wm, l=3, bgbit=7, offset=0, m=64,
+                             split=bad)
 
 
 def test_choose_tile_rows():
@@ -199,6 +203,97 @@ def test_choose_tile_rows():
     assert K.choose_tile_rows(blocks(256), smem, 132) == 32
     assert K.choose_tile_rows(blocks(1), smem, 132) == 32
     assert K.choose_tile_rows(blocks(8192), lambda t: 10**6, 132) is None
+
+
+def _slice_partial(digits, wm, acc, *, i0, windows, N, m, kp1, key_shift):
+    """A Python mirror of one ck_cmux_step32 block's slice: for the output
+    tile of folded columns [i0, i0+128) of every polynomial, the signed sum
+    of its ``windows`` (chunk, sign) key products, limbs recombined mod
+    2^32; acc where ``acc`` is given (the one-slice epilogue).  Key columns
+    outside [0, N+m) read as zero."""
+    B = digits.shape[0]
+    L = wm.shape[0] // kp1
+    x = K.ck_layout(digits[None], m).reshape(B, N // m, -1).to(torch.float64)
+    wpad = torch.nn.functional.pad(wm.to(torch.float64), (N, N))
+    cols = torch.arange(i0, min(i0 + 128, N))
+    out = torch.zeros((B, kp1, len(cols)), dtype=torch.int64)
+    for u in range(kp1):
+        for lm in range(L):
+            y = torch.zeros((B, len(cols)), dtype=torch.int64)
+            for c, sign in windows:
+                q = (0 if sign > 0 else N) + cols - c * m
+                y += sign * (x[:, c, :wm.shape[1]]
+                             @ wpad[u * L + lm][:, q + N]).to(torch.int64)
+            sh = 8 * lm + key_shift
+            if sh < 32:
+                out[:, u] += y << sh
+    if acc is not None:
+        out += acc[:, :, cols].to(torch.int64)
+    return out
+
+
+@pytest.mark.parametrize("N,m,L,split", [
+    (256, 128, 3, 1), (256, 128, 3, 2), (256, 128, 4, 3), (256, 64, 2, 4),
+    (256, 64, 3, 6), (128, 32, 1, 8), (128, 32, 2, 5)])
+def test_ck_cmux_step32_window_partition(N, m, L, split):
+    """The kernel's window split (ck_windows, window_slice): every window of
+    every column tile falls in exactly one slice, and
+    the slices' partial sums, added mod 2^32 onto acc as the atomics do,
+    give ck_cmux_step32_plain bit for bit."""
+    r = np.random.default_rng(11)
+    B, kp1, l, bgbit = 5, 2, 3, 7
+    acc = torch.from_numpy(_i32(r, (B, kp1, N)))
+    a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
+    a[0] = N
+    wm = torch.from_numpy(r.integers(-128, 128, (kp1 * L, kp1 * l * m, N + m))
+                          .astype(np.int8))
+    offset = 0x81020400
+    key_shift = max(0, 32 - 8 * L)
+    digits = K.rotate_decompose_plain(a, acc, l=l, bgbit=bgbit, offset=offset)
+    want = K.ck_cmux_step32_plain(a, acc, wm, l=l, bgbit=bgbit, offset=offset,
+                                  m=m, key_shift=key_shift)
+    got = torch.zeros((B, kp1, N), dtype=torch.int64)
+    for i0 in range(0, N, 128):
+        wins = K.ck_windows(i0, N, m)
+        assert len(wins) <= K.ck_work(N, m)
+        seen = []
+        for s in range(split):
+            part = [wins[w] for w in K.window_slice(len(wins), split, s)]
+            seen += part
+            got[:, :, i0:i0 + 128] += _slice_partial(
+                digits, wm, acc if split == 1 else None, i0=i0, windows=part,
+                N=N, m=m, kp1=kp1, key_shift=key_shift)
+        assert seen == wins                     # each window exactly once
+        if split > 1:                           # the copy of acc
+            got[:, :, i0:i0 + 128] += acc[:, :, i0:i0 + 128].to(torch.int64)
+    np.testing.assert_array_equal(T.wrap32(got).numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("resident,plans", [
+    # ck_cmux_step32 at L=4: one 64-row or two 32-row blocks per SM, a tie
+    # in warps, so the larger tile
+    ({64: 1, 32: 2}, {1: (64, 5), 3: (64, 5), 100: (64, 3), 256: (64, 2),
+                      512: (64, 1), 8192: (64, 1)}),
+    # at L=3 three 32-row blocks (12 warps) beat one 64-row block (8)
+    ({64: 1, 32: 3}, {1: (32, 9), 3: (32, 9), 100: (32, 5), 256: (32, 3),
+                      512: (32, 3), 8192: (32, 1)})])
+def test_choose_split(resident, plans):
+    """The wrapper's plan on 132 SMs for GATE's N=1024, k=1 (9 windows a
+    tile): S = 1 at B=8192, whose grid fills the card many times; narrow
+    batches cut until their blocks fill the resident slots, within one
+    round at B <= 256."""
+    def blocks(B):
+        return lambda t: 8 * -(-B // t) * 2
+
+    for B, want in plans.items():
+        t, S = K.choose_split(blocks(B), resident.get, 132, 9)
+        assert (t, S) == want, B
+        if B <= 256:
+            assert S > 1 and blocks(B)(t) * S <= 132 * resident[t]
+    assert K.choose_split(blocks(256), lambda t: 0, 132, 9) == (None, 0)
+    # mm_recombine_acc at GATE_DEFAULT B=256: 64 tiles of 192 K steps
+    assert K.choose_split(lambda t: 64, lambda t: 1, 132, 192, tiles=(64,),
+                          overhead=16) == (64, 2)
 
 
 # ---------------------------------------------------------------------------

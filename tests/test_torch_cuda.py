@@ -64,14 +64,32 @@ def test_rotate_decompose(cuda, B, k, N, l, bgbit):
                   cuda)
 
 
-@pytest.mark.parametrize("B", [1, 70, 256])
+_PLAIN: dict = {}
+
+
+def _plain_once(key, plain, args, kw):
+    """The plain version's output for one parametrised case, computed once
+    for all its forced splits."""
+    if key not in _PLAIN:
+        _PLAIN[key] = plain(*args, **kw)
+    return _PLAIN[key]
+
+
+@pytest.mark.parametrize("split", [1, 2, 3, 0])
+@pytest.mark.parametrize("B", [1, 3, 70, 100, 256, 512])
 @pytest.mark.parametrize("L,shift", [(1, 24), (2, 16), (3, 8), (4, 0)])
-def test_mm_recombine_acc(cuda, B, L, shift):
+def test_mm_recombine_acc(cuda, B, L, shift, split):
+    """Every forced K split and the chosen one; K = 25 steps of 32, so
+    slices of 13 and 12 (S = 2) and 9, 9, 7 (S = 3) are ragged."""
     r = np.random.default_rng(2)
-    K_, UN = 6 * 128, 2 * 128
+    K_, UN = 25 * 32, 2 * 128
     args = (_i8(r, (B, K_), -64, 65), _i8(r, (L, K_, UN)), _i32(r, (B, UN)))
-    _same_on_card(K.mm_recombine_acc, K.mm_recombine_acc_plain, args,
-                  {"shift_base": shift}, cuda)
+    kw = {"shift_base": shift}
+    want = _plain_once(("mm", B, L, shift), K.mm_recombine_acc_plain, args,
+                       kw)
+    got = K.mm_recombine_acc(*(t.to(cuda) for t in args), split=split, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("B,k,N,L,key_shift", [(3, 2, 512, 3, 8),
@@ -113,6 +131,10 @@ def test_unsupported_shape_raises_instead_of_falling_back(cuda):
     acc = torch.zeros((8, 64), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="kernel"):
         K.mm_recombine_acc(x, w, acc)
+    with pytest.raises(ValueError, match="kernel"):
+        K.mm_recombine_acc(x, w, acc, split=2)
+    with pytest.raises(ValueError, match="split"):
+        K.mm_recombine_acc(x, w, acc, split=-1)
     with pytest.raises(ValueError, match="CPU or on one CUDA device"):
         K.mm_recombine_acc(x.cpu(), w, acc)
 
@@ -176,15 +198,19 @@ def test_ck_dot64p_unsupported_shape_raises(cuda):
         K.ck_dot64p(x, wm, N=64, m=32)
 
 
+@pytest.mark.parametrize("split", [1, 2, 3, 0])
 @pytest.mark.parametrize("B,k,N,l,bgbit,L,m,tile", [
     (1, 1, 1024, 3, 7, 3, 128, 0), (3, 1, 1024, 3, 7, 4, 128, 0),
     (100, 1, 1024, 3, 7, 3, 128, 64), (100, 1, 1024, 3, 7, 3, 128, 32),
+    (256, 1, 1024, 3, 7, 4, 128, 0), (512, 1, 1024, 3, 7, 3, 128, 0),
     (70, 2, 512, 3, 7, 3, 128, 0), (65, 1, 256, 2, 8, 2, 64, 64),
-    (33, 1, 128, 3, 7, 1, 32, 32)])
-def test_ck_cmux_step32(cuda, B, k, N, l, bgbit, L, m, tile):
+    (33, 1, 128, 3, 7, 1, 32, 32), (9, 2, 256, 3, 7, 2, 32, 0)])
+def test_ck_cmux_step32(cuda, B, k, N, l, bgbit, L, m, tile, split):
     """Batches that are not a multiple of the row tile (tail rows), both
-    tiles, m below the 128-column tile, every limb count; the 3-D and the
-    flat carry."""
+    tiles, m below the 128-column tile (C + 2 windows, some slices without
+    a subtracted or an added window), every limb count, every forced window
+    split and the chosen one, 64-deep steps and (J*m = 288 at k=2, l=3,
+    m=32) 32-deep ones; the 3-D and the flat carry."""
     r = np.random.default_rng(7)
     acc = _i32(r, (B, k + 1, N))
     a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
@@ -192,13 +218,16 @@ def test_ck_cmux_step32(cuda, B, k, N, l, bgbit, L, m, tile):
     wm = _i8(r, ((k + 1) * L, (k + 1) * l * m, N + m))
     kw = dict(l=l, bgbit=bgbit, offset=0x81020400, m=m,
               key_shift=max(0, 32 - 8 * L))
-    got = K.ck_cmux_step32(a.to(cuda), acc.to(cuda), wm.to(cuda),
-                           tile_rows=tile, **kw)
+    want = _plain_once(("ck32", B, k, N, l, bgbit, L, m),
+                       K.ck_cmux_step32_plain, (a, acc, wm), kw)
+    da, dacc, dwm = a.to(cuda), acc.to(cuda), wm.to(cuda)
+    got = K.ck_cmux_step32(da, dacc, dwm, tile_rows=tile, split=split, **kw)
     torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), K.ck_cmux_step32_plain(a, acc, wm, **kw))
-    flat = dict(kw, kp1=k + 1)
-    _same_on_card(K.ck_cmux_step32, K.ck_cmux_step32_plain,
-                  (a, acc.reshape(B, -1), wm), flat, cuda)
+    assert torch.equal(got.cpu(), want)
+    flat = K.ck_cmux_step32(da, dacc.reshape(B, -1), dwm, kp1=k + 1,
+                            tile_rows=tile, split=split, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(flat.cpu(), want.reshape(B, -1))
 
 
 def test_ck_cmux_step32_unsupported_shape_raises(cuda):
@@ -209,6 +238,8 @@ def test_ck_cmux_step32_unsupported_shape_raises(cuda):
     wm = torch.zeros((6, 2 * 3 * 64, 128), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="kernel"):
         K.ck_cmux_step32(a, acc, wm, l=3, bgbit=7, offset=0, m=64)
+    with pytest.raises(ValueError, match="kernel"):
+        K.ck_cmux_step32(a, acc, wm, l=3, bgbit=7, offset=0, m=64, split=1)
 
 
 @pytest.mark.parametrize("B,N,l,kp1,L,m,P", [(256, 2048, 5, 2, 6, 64, 1),

@@ -15,6 +15,7 @@ import torch
 from tfhe_tpu.params import TGswParams, TLweParams
 from tfhe_tpu.ops import pallas_kernels as pk
 from tfhe_tpu.ops.engine import EngineConfig, OnTheFlyMatmulEngine
+from tfhe_tpu_torch import torus as T
 from tfhe_tpu_torch.ops import kernels as K
 
 
@@ -83,6 +84,47 @@ def test_mm_recombine_acc(L, shift, flat_acc):
     got = K.mm_recombine_acc(torch.from_numpy(x), torch.from_numpy(w),
                              torch.from_numpy(acc), shift_base=shift)
     _same(got, want)
+
+
+@pytest.mark.parametrize("steps,split,plan", [
+    (192, 1, (192, 1)), (192, 2, (96, 2)), (192, 5, (39, 5)),
+    (25, 3, (9, 3)), (10, 6, (2, 5)), (4, 9, (1, 4))])
+def test_mm_recombine_acc_k_slices(steps, split, plan):
+    """mm_recombine_acc's K split (split_plan): slices of ceil(steps / S)
+    32-deep steps cover K exactly once, the last one ragged and none empty;
+    their recombined partial products, added mod 2^32 onto acc_in as the
+    kernel's atomics do, give the plain version bit for bit."""
+    assert K.split_plan(steps, split) == plan
+    n, slices = plan
+    bounds = [(s * n, min(steps, (s + 1) * n)) for s in range(slices)]
+    assert bounds[-1][1] == steps and all(lo < hi for lo, hi in bounds)
+    if steps > 32:
+        return                               # the plan alone at path sizes
+    r = np.random.default_rng(5)
+    B, UN, L, shift = 5, 128, 4, 0
+    x = torch.from_numpy(r.integers(-64, 64, (B, 32 * steps)).astype(np.int8))
+    w = torch.from_numpy(r.integers(-128, 128, (L, 32 * steps, UN))
+                         .astype(np.int8))
+    acc = torch.from_numpy(_i32(r, (B, UN)))
+    got = acc.to(torch.int64)
+    for lo, hi in bounds:
+        ks = slice(32 * lo, 32 * hi)
+        zero = torch.zeros_like(acc)
+        got = got + K.mm_recombine_acc_plain(x[:, ks], w[:, ks], zero,
+                                             shift_base=shift)
+    want = pk.mm_recombine_acc(jnp.asarray(x.numpy()), jnp.asarray(w.numpy()),
+                               jnp.asarray(acc.numpy()), shift_base=shift,
+                               tm=B, tn=UN, tk=32, interpret=True)
+    _same(K.mm_recombine_acc(x, w, acc, shift_base=shift), want)
+    _same(T.wrap32(got), want)
+
+
+def test_mm_recombine_acc_rejects_a_bad_split():
+    x = torch.zeros((8, 256), dtype=torch.int8)
+    w = torch.zeros((3, 256, 128), dtype=torch.int8)
+    acc = torch.zeros((8, 128), dtype=torch.int32)
+    with pytest.raises(ValueError, match="split"):
+        K.mm_recombine_acc(x, w, acc, split=-1)
 
 
 @pytest.mark.parametrize("N,k,l,L,key_shift", [(128, 1, 3, 3, 8),

@@ -33,13 +33,16 @@ FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _U64 = ctypes.c_uint64
 # Every C entry point: name -> (symbol, argtypes[, source]); the source is
-# csrc/<name>.cu unless named.  Each returns the cudaError_t of its launch.
+# csrc/<name>.cu unless named.  Each returns the cudaError_t of its launch,
+# but the *_occupancy queries, which return blocks per SM (or -cudaError).
 SIGNATURES = {
     "materialize_w": ("tfhe_materialize_w", [_P, _P, _I, _I, _I, _I, _P]),
     "rotate_decompose": ("tfhe_rotate_decompose",
                          [_P, _P, _P, _I, _I, _I, _I, _I, _U, _P]),
     "mm_recombine_acc": ("tfhe_mm_recombine_acc",
-                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "mm_recombine_acc_occupancy": ("tfhe_mm_recombine_acc_occupancy", [_I],
+                                   "mm_recombine_acc"),
     "fused_cmux_step": ("tfhe_fused_cmux_step",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _I, _I,
                          _P]),
@@ -52,7 +55,9 @@ SIGNATURES = {
                                              _I, _I, _I, _I, _I, _P]),
     "ck_cmux_step32": ("tfhe_ck_cmux_step32",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _I,
-                        _I, _P]),
+                        _I, _I, _P]),
+    "ck_cmux_step32_occupancy": ("tfhe_ck_cmux_step32_occupancy",
+                                 [_I, _I, _I], "ck_cmux_step32"),
     "fused_cmux_step_v1": ("tfhe_fused_cmux_step_v1",
                            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _P]),
     "rotate_decompose64": ("tfhe_rotate_decompose64",

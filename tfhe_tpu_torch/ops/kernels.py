@@ -34,6 +34,8 @@ in the JAX package, where only its tests call them.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from tfhe_tpu_torch import torus as T
@@ -170,7 +172,7 @@ def mm_recombine_acc_plain(x, w, acc_in, *, shift_base: int = 0):
     return T.wrap32(out).reshape(acc_in.shape)
 
 
-def mm_recombine_acc(x, w, acc_in, *, shift_base: int = 0):
+def mm_recombine_acc(x, w, acc_in, *, shift_base: int = 0, split: int = 0):
     """acc_in + sum_l (x @ w[l]) << (8l + shift_base), mod 2^32.
 
     x: (B, K) int8; w: (L, K, U*N) int8 (materialize_w layout); acc_in:
@@ -178,14 +180,21 @@ def mm_recombine_acc(x, w, acc_in, *, shift_base: int = 0):
 
     Kernel: csrc/mm_recombine_acc.cu (replaces
     pallas_kernels.mm_recombine_acc).  Bound by int8 tensor-core MACs at
-    large B and by the W stream at small B; mma.sync tiles keep every limb's
-    accumulator in registers, so recombination and the add are one
-    epilogue."""
+    large B and by the W stream at small B; mma.sync tiles of 64 x 128 keep
+    every limb's accumulator in registers, so recombination is one
+    epilogue.  The K walk is cut into ``split`` slices on the grid
+    (split_plan; 0 lets choose_split pick from the SM count and the
+    kernel's occupancy), each added into the output with 32-bit atomics
+    after acc_in is copied there; with one slice the epilogue adds acc_in
+    and stores.  Each slice's 32-deep steps are pipelined: cp.async keeps
+    the x and W rows of the next three steps in flight while this step's
+    MMAs run."""
     _check(x, "mm_recombine_acc x", torch.int8, 2)
     _check(w, "mm_recombine_acc w", torch.int8, 3)
     _require(acc_in.dtype == torch.int32 and acc_in.ndim in (2, 3)
              and acc_in.is_contiguous(),
              "mm_recombine_acc acc_in: contiguous (B, U, N) or (B, U*N) int32")
+    _require(split >= 0, "mm_recombine_acc: split must be >= 0 (0 chooses)")
     B, K = x.shape
     L, Kw, UN = w.shape
     _require(K == Kw, "mm_recombine_acc: x and w disagree on K")
@@ -197,14 +206,31 @@ def mm_recombine_acc(x, w, acc_in, *, shift_base: int = 0):
     _require(K % _BK == 0 and UN % _BN == 0,
              f"mm_recombine_acc: the kernel needs K % {_BK} == 0 and "
              f"U*N % {_BN} == 0")
+    split = split or mm_recombine_acc_split(B, K, UN, L, x.device)
     out = torch.empty_like(acc_in)
     mm_recombine_acc.launches += 1
     _launch("mm_recombine_acc", x.data_ptr(), w.data_ptr(), acc_in.data_ptr(),
-            out.data_ptr(), B, K, UN, L, shift_base)
+            out.data_ptr(), B, K, UN, L, shift_base, split)
     return out
 
 
 mm_recombine_acc.launches = 0
+
+
+def mm_recombine_acc_split(B: int, K: int, UN: int, L: int, device) -> int:
+    """The K split mm_recombine_acc's kernel takes for these shapes on the
+    card ``device`` lies on (choose_split over its 64-row tiles; one K step
+    of 32 is the unit of work, a block's fixed cost ~16 of them).  Memoized:
+    the steps of a rotation ask again with the same shapes."""
+    return _mm_split(B, K, UN, L, _device_index(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _mm_split(B, K, UN, L, dev):
+    return choose_split(
+        lambda t: (UN // _BN) * -(-B // t),
+        lambda t: _occupancy("mm_recombine_acc_occupancy", L),
+        sm_count(dev), K // _BK, tiles=(_BM,), overhead=16)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -690,10 +716,15 @@ ck_dot64p_sacc.launches = 0
 _SM_COUNT: dict = {}
 
 
-def sm_count(device) -> int:
-    """Streaming multiprocessors of the card ``device`` lies on."""
-    idx = device.index if device.index is not None \
+def _device_index(device) -> int:
+    return device.index if device.index is not None \
         else torch.cuda.current_device()
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the card ``device`` (a torch.device or
+    its index) lies on."""
+    idx = device if isinstance(device, int) else _device_index(device)
     if idx not in _SM_COUNT:
         _SM_COUNT[idx] = torch.cuda.get_device_properties(
             idx).multi_processor_count
@@ -718,14 +749,91 @@ def choose_tile_rows(blocks, smem, sms: int, tiles=(64, 32)):
     return fitting[-1]
 
 
+def split_plan(steps: int, split: int) -> tuple:
+    """(slice length, slices) of a reduction of ``steps`` steps cut
+    ``split`` ways, as mm_recombine_acc's kernel cuts its K walk
+    (csrc/mm_recombine_acc.cu): slices of ceil(steps / split) steps, the last one
+    ragged; a split that would leave a slice empty takes fewer slices."""
+    split = max(1, min(split, steps))
+    n = -(-steps // split)
+    return n, -(-steps // n)
+
+
+def ck_windows(i0: int, N: int, m: int) -> list:
+    """The chunk windows of ck_cmux_step32's output tile of folded columns
+    [i0, i0 + 128), in the kernel's order: (chunk, +1) for the chunks whose
+    key columns reach the tile, then (chunk, -1) for those whose X^N wrap
+    reaches it (chunked.cuh); C + 1 of them when m is a multiple of 128."""
+    C = N // m
+    add_end = min((i0 + _BN - 1) // m + 1, C)
+    return ([(c, 1) for c in range(add_end)]
+            + [(c, -1) for c in range(i0 // m, C)])
+
+
+@functools.lru_cache(maxsize=None)
+def ck_work(N: int, m: int) -> int:
+    """The most windows any 128-column output tile has (ck_windows)."""
+    return max(len(ck_windows(i0, N, m)) for i0 in range(0, N, _BN))
+
+
+def window_slice(nw: int, split: int, s: int) -> range:
+    """The windows of slice ``s`` of ``split``: [s*nw/S, (s+1)*nw/S), as
+    ck_cmux_step32's kernel cuts a tile's ``nw`` windows (empty where S >
+    nw)."""
+    return range(s * nw // split, (s + 1) * nw // split)
+
+
+def choose_split(blocks, resident, sms: int, work: int, tiles=(64, 32),
+                 overhead: float = 0.5):
+    """(tile_rows, S) of a kernel whose output tiles own ``tile_rows`` batch
+    rows (tile_rows / 8 warps a block) and whose reduction (``work``
+    windows or steps per tile) may be cut into S slices, one block each:
+    ``blocks(t)`` tiles, ``resident(t)`` blocks resident per SM (from the
+    kernel's registers and shared memory; 0 where the tile does not fit) on
+    ``sms`` SMs.
+
+    The tile is the one that keeps the most warps resident on an SM (the
+    steps are latency-bound, so warps in flight set the rate), the larger
+    on a tie (each key tile then serves more rows).  A block walks
+    ceil(work / S) of the reduction plus a fixed ``overhead`` (prologue,
+    epilogue and atomics, in the same units), and the card runs
+    ceil(blocks * S / (sms * resident)) rounds of resident blocks; S is the
+    smallest that minimizes rounds x (walk + overhead).  So a grid that
+    already fills the card many times (GATE_MXU B=8192) keeps S = 1, and a
+    narrow one is cut until its blocks fill the resident slots once.
+    Returns (None, 0) where no tile fits."""
+    fit = [(resident(t) * t, t) for t in tiles]
+    fit = [(warps, t) for warps, t in fit if warps > 0]
+    if not fit:
+        return None, 0
+    t = max(fit)[1]
+    slots, n = sms * resident(t), blocks(t)
+    return t, min(range(1, work + 1),
+                  key=lambda S: (-(-n * S // slots) * (-(-work // S)
+                                                       + overhead), S))
+
+
+@functools.lru_cache(maxsize=None)
+def _occupancy(entry: str, *args) -> int:
+    """Blocks of a kernel resident per SM, from its C occupancy query
+    (memoized per arguments)."""
+    n = _build.entry(entry)(*args)
+    if n < 0:
+        raise RuntimeError(f"{entry}: occupancy query failed with "
+                           f"cudaError {-n}")
+    return n
+
+
 # ---------------------------------------------------------------------------
 # ck_cmux_step32
 # ---------------------------------------------------------------------------
 
 def ck_cmux_step32_smem(tile_rows: int, Jm: int, L: int) -> int:
     """Shared memory of one ck_cmux_step32 block: one chunk window's digits
-    (tile_rows x (J*m + 16) bytes) and the L key tiles."""
-    return tile_rows * (Jm + 16) + L * _BN * _SB_WORDS * 4
+    (tile_rows x (J*m + 16) bytes) and two buffers of one step's L key
+    tiles (64 deep where J*m % 64 == 0, else 32)."""
+    depth = 64 if Jm % 64 == 0 else 32
+    return tile_rows * (Jm + 16) + 2 * L * _BN * depth
 
 
 def ck_cmux_step32_plain(a, acc, wm, *, l: int, bgbit: int, offset: int,
@@ -742,7 +850,7 @@ def ck_cmux_step32_plain(a, acc, wm, *, l: int, bgbit: int, offset: int,
 
 def ck_cmux_step32(a, acc, wm, *, l: int, bgbit: int, offset: int, m: int,
                    key_shift: int = 0, kp1: int | None = None,
-                   tile_rows: int = 0):
+                   tile_rows: int = 0, split: int = 0):
     """One 32-bit blind-rotation step on chunked pre-shifted keys:
 
         out = acc + recombine(decompose((X^a - 1) * acc) @ wm)   mod 2^32
@@ -754,11 +862,17 @@ def ck_cmux_step32(a, acc, wm, *, l: int, bgbit: int, offset: int, m: int,
     Returns acc's layout.
 
     Kernel: csrc/ck_cmux_step32.cu (replaces pallas_kernels.ck_cmux_step32).
-    Bound by int8 tensor-core MACs.  A block owns a 128-column tile of one
-    output polynomial, builds the digits one chunk window at a time in
-    shared memory straight from acc, and recombines its L limbs in
-    registers.  The batch tile (64 or 32 rows) comes from choose_tile_rows;
-    ``tile_rows`` 64 or 32 forces one (0 chooses).  Any B >= 1."""
+    Bound by int8 tensor-core MACs.  An output tile is 128 columns of one
+    output polynomial for 64 or 32 batch rows; its C + 1 chunk windows
+    (ck_windows) are cut into ``split`` contiguous slices (window_slice),
+    one block each, added into the output with 32-bit atomics after acc is
+    copied there (one slice: the epilogue adds acc and stores).  A block
+    builds the digits of its own chunks in shared memory straight from acc,
+    pipelines the key tiles (the next 64-deep step's key words load into
+    registers while this one's MMAs run; 32-deep where J*m % 64 != 0) and
+    recombines its L limbs in registers.  ``tile_rows`` (64 or 32) and
+    ``split`` (1 .. windows) force a plan; 0 lets choose_split pick from
+    the SM count and the kernel's occupancy.  Any B >= 1."""
     _require(tile_rows in (0, 32, 64),
              "ck_cmux_step32: tile_rows must be 0, 32 or 64")
     _check(a, "ck_cmux_step32 a", torch.int32, 1)
@@ -783,6 +897,8 @@ def ck_cmux_step32(a, acc, wm, *, l: int, bgbit: int, offset: int, m: int,
     _require(1 <= bgbit <= 8 and l * bgbit <= 32,
              "ck_cmux_step32: digits must fit int8 (bgbit <= 8, l*bgbit <= 32)")
     L = UL // kp1
+    _require(0 <= split <= ck_work(N, m), f"ck_cmux_step32: split must be "
+             f"0 .. the {ck_work(N, m)} windows of a tile")
     if _on_cpu(a, acc, wm):
         return ck_cmux_step32_plain(a, acc, wm, l=l, bgbit=bgbit,
                                     offset=offset, m=m, key_shift=key_shift,
@@ -790,24 +906,46 @@ def ck_cmux_step32(a, acc, wm, *, l: int, bgbit: int, offset: int, m: int,
     _require(1 <= L <= 4 and N % _BN == 0 and m % 4 == 0 and Jm % _BK == 0,
              f"ck_cmux_step32: the kernel needs 1 to 4 key limbs, "
              f"N % {_BN} == 0, m % 4 == 0 and J*m % {_BK} == 0")
-    if not tile_rows:
-        tile_rows = choose_tile_rows(
-            lambda t: (N // _BN) * -(-B // t) * kp1,
-            lambda t: ck_cmux_step32_smem(t, Jm, L), sm_count(acc.device))
-    _require(tile_rows is not None
-             and ck_cmux_step32_smem(tile_rows, Jm, L) <= MAX_SMEM,
-             f"ck_cmux_step32: the kernel's digit window needs "
-             f"{ck_cmux_step32_smem(32, Jm, L)} bytes of shared memory or "
-             f"more, above {MAX_SMEM}")
+    tile_rows, split = ck_cmux_step32_plan(B, kp1, N, m, Jm, L, acc.device,
+                                           tile_rows, split)
     out = torch.empty_like(acc)
     ck_cmux_step32.launches += 1
     _launch("ck_cmux_step32", a.data_ptr(), acc.data_ptr(), wm.data_ptr(),
             out.data_ptr(), B, kp1, N, m, l, L, bgbit, offset & T.MASK32,
-            key_shift, tile_rows)
+            key_shift, tile_rows, split)
     return out
 
 
 ck_cmux_step32.launches = 0
+
+
+def ck_cmux_step32_plan(B: int, kp1: int, N: int, m: int, Jm: int, L: int,
+                        device, tile_rows: int = 0, split: int = 0) -> tuple:
+    """(tile_rows, split) of ck_cmux_step32's kernel for these shapes on the
+    card ``device`` lies on: a forced value is kept (and checked), a 0 is
+    chosen by choose_split (a tile's chunk window is the unit of work, a
+    block's fixed cost about half of one).  Memoized: the 630 steps of a
+    rotation ask again with the same shapes, and at narrow batches the
+    host's time per launch is comparable to the kernel's."""
+    return _ck32_plan(B, kp1, N, m, Jm, L, _device_index(device), tile_rows,
+                      split)
+
+
+@functools.lru_cache(maxsize=None)
+def _ck32_plan(B, kp1, N, m, Jm, L, dev, tile_rows, split):
+    fits = [t for t in ((tile_rows,) if tile_rows else (64, 32))
+            if ck_cmux_step32_smem(t, Jm, L) <= MAX_SMEM]
+    _require(bool(fits), f"ck_cmux_step32: the kernel's digit window needs "
+             f"{ck_cmux_step32_smem(tile_rows or 32, Jm, L)} bytes "
+             f"of shared memory or more, above {MAX_SMEM}")
+    if tile_rows and split:
+        return tile_rows, split
+    t, S = choose_split(
+        lambda t: (N // _BN) * -(-B // t) * kp1,
+        lambda t: _occupancy("ck_cmux_step32_occupancy", L, t, Jm),
+        sm_count(dev), ck_work(N, m), tiles=fits)
+    _require(t is not None, "ck_cmux_step32: no row tile fits the card")
+    return tile_rows or t, split or S
 
 
 # ---------------------------------------------------------------------------
