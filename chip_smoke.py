@@ -12,9 +12,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      version run on a CPU copy (or on the card, where the host would take
      too long); its time (CUDA events), the plain version's time on the
      card, a one-call library yardstick where one exists, and its bound on
-     an H100 SXM: the fused step at GATE_FAST2 B=8192 and B=1024, the v1
-     fused step at GATE_FAST2 and GATE_MXU B=8192 (also equal to v2's
-     kernel), the 64-bit kernels (and the fused-epilogue pair, the
+     an H100 SXM: materialize_w and its K-packed entry materialize_wt, the
+     fused step (wgmma + TMA on the K-packed key) at GATE_FAST2 B=8192 and
+     B=1024 and GATE_MXU B=8192, the v1 fused step at GATE_FAST2 and
+     GATE_MXU B=8192 (also equal to v2's kernel), the 64-bit kernels (and the fused-epilogue pair, the
      limb-grid contraction and the plain-layout digits, which re-laid out
      must equal the chunk-layout kernel's) at CB_MXU and CB_ACTIVE B=256,
      the one-kernel 64-bit step there and at CB_MXU tails B=1, 3, 100,
@@ -23,13 +24,16 @@ Phases (each prints its own lines; any failure exits non-zero):
      100, with the flat carry; the two kernels whose reduction is split over
      blocks (mm_recombine_acc, ck_cmux_step32) also with split=1 forced,
      equal to the chosen (tile_rows, S) plan; then the fused step's 64-
-     and 128-row batch tiles, forced and as chosen, over a sweep of
-     batches, and the split kernels over forced (tile_rows, S) plans;
+     and 128-column plans, forced and as chosen, over a sweep of batches,
+     the parts of one fused step (key loads, digit build, wgmmas: stripped
+     builds of its kernel) at GATE_FAST2 B=8192, and the split kernels
+     over forced (tile_rows, S) plans;
   3. main path: GATE_FAST2 (n=500, k=2, N=512) at B=8192 on the onthefly
      engine through CloudKey.generate / encrypt_bool / make_bootstrap_fn /
      decrypt_bool, one untimed launch, then a timed dependent chain of 2
      launches; every bit must decrypt, every CMux step must go through
-     materialize_w + fused_cmux_step_v2 (500 of each per launch);
+     materialize_wt + fused_cmux_step_v2 (500 of each per launch) and no
+     other CMux kernel;
      gate_nand and gate_mux truth tables on a small batch;
   4. generic step: GATE_DEFAULT (N=1024, 4 key limbs, so the fused step is
      ineligible) at B=256: rotate_decompose + materialize_w +
@@ -53,7 +57,7 @@ Phases (each prints its own lines; any failure exits non-zero):
   6. the N=1024 gate path: GATE_MXU (n=630, k=1, N=1024, 3 key limbs) at
      B=8192 on the chunked engine (630 ck_cmux_step32 per launch and no
      other CMux kernel) and, from the same seed, on the onthefly engine
-     (materialize_w + fused_cmux_step_v2), each one untimed launch and a
+     (materialize_wt + fused_cmux_step_v2), each one untimed launch and a
      timed chain of 2, every bit decrypted and the two chains' ciphertexts
      equal bit for bit; then GATE_DEFAULT chunked at B=256, equal to phase
      4's onthefly ciphertexts; ct/s, per-step breakdown, keygen seconds and
@@ -143,7 +147,9 @@ def phase_device():
           f"{_build.build_seconds:.1f} s")
     for path in sorted(_build.BUILD_DIR.glob("*.ptxas.txt")):
         for line in path.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            # registers and spills of every kernel, and any wgmma that
+            # ptxas serialized (C7510)
+            if "Used" in line or "spill" in line or "wgmma" in line:
                 print(f"  ptxas {path.name.split('-')[0]}: {line.strip()}")
     return smi
 
@@ -193,25 +199,36 @@ def _kernel_cases(seed: int = 0):
     cases.append(("materialize_w", "v (3,9,3,1024)", "csrc/materialize_w.cu",
                   f"{PALLAS}:77", K.materialize_w, K.materialize_w_plain,
                   (v,), {}, bound_ms(v.numel() + out_bytes), None, False))
+    # materialize_wt, the K-packed entry: GATE_FAST2's key, then GATE_MXU's
+    # (L=3, J=6, U=2, 2N=2048)
+    for v in (v, i8((3, 6, 2, 2048))):
+        L, J, U, twoN = v.shape
+        out_bytes = L * J * U * (twoN // 2) ** 2
+        cases.append(("materialize_wt", f"v {tuple(v.shape)}",
+                      "csrc/materialize_w.cu", f"{PALLAS}:77",
+                      K.materialize_wt, K.materialize_wt_plain, (v,), {},
+                      bound_ms(v.numel() + out_bytes), None, False))
 
-    # fused_cmux_step_v2: GATE_FAST2 (k=2, l=3, L=3, key_shift=8) at the
-    # main path's B=8192, then at B=1024
-    p = GATE_FAST2.tgsw
-    kp1, l, L = 3, 3, 3
-    for B in (8192, 1024):
+    # fused_cmux_step_v2 on the K-packed key: GATE_FAST2 (k=2, l=3, L=3,
+    # key_shift=8) at the main path's B=8192, then at B=1024, then GATE_MXU
+    # (k=1, N=1024) at the onthefly N=1024 path's B=8192
+    for label, p, kp1, N, B in (("GATE_FAST2", GATE_FAST2.tgsw, 3, 512, 8192),
+                                ("GATE_FAST2", GATE_FAST2.tgsw, 3, 512, 1024),
+                                ("GATE_MXU", GATE_MXU.tgsw, 2, 1024, 8192)):
+        l, L = 3, 3
         acc = i32((B, kp1, N))
         a = expo(B, N)
-        w = i8((L, kp1 * l * N, kp1 * N))
+        wt = i8((L, kp1 * N, kp1 * l * N))
         kw = dict(l=l, bgbit=p.bgbit, offset=p.offset, key_shift=8)
         macs = B * kp1 * l * N * kp1 * N * L
-        wcat = w.permute(1, 0, 2).reshape(kp1 * l * N, L * kp1 * N)
+        wcat = wt.permute(2, 0, 1).reshape(kp1 * l * N, L * kp1 * N)
         digits = i8((B, kp1 * l * N), -64, 64)
-        cases.append(("fused_cmux_step_v2", f"GATE_FAST2 B={B}",
+        cases.append(("fused_cmux_step_v2", f"{label} B={B}",
                       "csrc/fused_cmux_step.cu", f"{PALLAS}:503",
                       K.fused_cmux_step_v2, K.fused_cmux_step_v2_plain,
-                      (a, acc, w), kw,
-                      bound_ms(_nbytes(a, acc, w, acc), macs),
-                      ("_int_mm", (digits, wcat)), False))
+                      (a, acc, wt), kw,
+                      bound_ms(_nbytes(a, acc, wt, acc), macs),
+                      ("_int_mm", (digits, wcat)), N == 1024))
 
     # fused_cmux_step (v1): v2's function with the v1 schedule, at
     # GATE_FAST2 (k=2, N=512) and GATE_MXU (k=1, N=1024), B=8192
@@ -227,7 +244,7 @@ def _kernel_cases(seed: int = 0):
         digits = i8((B, kp1 * l * N), -64, 64)
         cases.append(("fused_cmux_step", f"{label} B={B}",
                       "csrc/fused_cmux_step_v1.cu", f"{PALLAS}:338",
-                      K.fused_cmux_step, K.fused_cmux_step_v2_plain,
+                      K.fused_cmux_step, K.fused_cmux_step_plain,
                       (a, acc, w), kw,
                       bound_ms(_nbytes(a, acc, w, acc), macs),
                       ("_int_mm", (digits, wcat)), True))
@@ -391,8 +408,10 @@ def phase_kernels(reps: int = 20):
                            **kw)
             _compare(name + " (flat)", flat, want.reshape(flat.shape))
         if name == "fused_cmux_step":          # v1 against v2's kernel
+            a, acc, w = dev_args
             _compare(name + " (against fused_cmux_step_v2)", got,
-                     K.fused_cmux_step_v2(*dev_args, **kw))
+                     K.fused_cmux_step_v2(a, acc, w.transpose(1, 2)
+                                          .contiguous(), **kw))
         if name == "rotate_decompose64":       # re-laid out: the chunk layout
             a, acc = dev_args
             B, kp1, N = acc.shape
@@ -549,18 +568,19 @@ def _default_step64(a, acc, wm, *, l, bgbit, offset, m, planes, kp1,
     return acc + K.recombine(y, kp1, key_shift).reshape(acc.shape)
 
 
-def phase_tiles(entry, batches=(100, 256, 512, 704, 768, 1024, 8192),
-                reps: int = 10):
-    """The fused step's two batch tiles, each forced and as chosen, at
-    GATE_FAST2 shapes: each held bit-identical to the plain version (run on
-    the card; its float64 sums are exact) and timed.  Adds "tiles" to the
-    fused kernel's entry."""
+def phase_tiles(entry, batches=(1, 3, 64, 65, 100, 256, 512, 704, 768, 1024,
+                                2816, 8191, 8192), reps: int = 10):
+    """The fused step's plans (kernels.FUSED_COLS: 64 or 128 output columns
+    a block), each forced and as chosen (kernels.fused_cmux_step_v2_plan),
+    at GATE_FAST2 shapes: each held bit-identical to the plain version (run
+    on the card; its float64 sums are exact) and timed.  Adds "tiles" to
+    the fused kernel's entry."""
     from tfhe_tpu_torch.ops import kernels as K
     from tfhe_tpu_torch.params import GATE_FAST2
     p = GATE_FAST2.tgsw
     kp1, N, L = 3, 512, 3
     r = np.random.default_rng(3)
-    w = torch.from_numpy(r.integers(-128, 128, (L, kp1 * p.l * N, kp1 * N))
+    w = torch.from_numpy(r.integers(-128, 128, (L, kp1 * N, kp1 * p.l * N))
                          .astype(np.int8)).cuda()
     kw = dict(l=p.l, bgbit=p.bgbit, offset=p.offset, key_shift=8)
     rows = []
@@ -570,16 +590,59 @@ def phase_tiles(entry, batches=(100, 256, 512, 704, 768, 1024, 8192),
         a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32)).cuda()
         want = K.fused_cmux_step_v2_plain(a, acc, w, **kw)
         row = {"B": B}
-        for tile, key in ((64, "ms_64"), (128, "ms_128"), (0, "ms_chosen")):
+        for tile in (*K.FUSED_COLS, 0):
             def step():
-                return K.fused_cmux_step_v2(a, acc, w, tile_rows=tile, **kw)
-            _compare(f"fused_cmux_step_v2 B={B} tile_rows={tile}", step(), want)
-            row[key] = cuda_ms(step, reps)
+                return K.fused_cmux_step_v2(a, acc, w, tile_cols=tile, **kw)
+            _compare(f"fused_cmux_step_v2 B={B} tile_cols={tile}", step(), want)
+            row[f"ms_{tile or 'chosen'}"] = cuda_ms(step, reps)
         rows.append(row)
-        print(f"phase 2 tiles fused_cmux_step_v2 B={B}: 64-row "
-              f"{row['ms_64']:.4f} ms, 128-row {row['ms_128']:.4f} ms, "
-              f"chosen {row['ms_chosen']:.4f} ms, all bit-identical to plain")
+        print(f"phase 2 tiles fused_cmux_step_v2 B={B} (ms): " + ", ".join(
+            f"{k[3:]} {v:.4f}" for k, v in row.items() if k != "B")
+            + ", all bit-identical to plain")
     entry["tiles"] = rows
+
+
+PARTS = (("keys", "FCS_PART=1"), ("digits", "FCS_PART=2"),
+         ("mmas", "FCS_PART=3"))
+
+
+def phase_parts(entry, batch: int = 8192, reps: int = 10):
+    """Where one fused step's time goes at GATE_FAST2 B=8192: the kernel
+    built three more times with FCS_PART (csrc/fused_cmux_step.cu), each
+    variant keeping one part of the step (the key tiles' TMA loads, the
+    digit build, the wgmmas), timed beside the whole step on the same
+    inputs.  The variants' outputs are not compared.  Adds "parts" to the
+    fused kernel's entry."""
+    from tfhe_tpu_torch import torus as T
+    from tfhe_tpu_torch.ops import _build
+    from tfhe_tpu_torch.ops import kernels as K
+    from tfhe_tpu_torch.params import GATE_FAST2
+    p = GATE_FAST2.tgsw
+    kp1, N, L, B = 3, 512, 3, batch
+    r = np.random.default_rng(8)
+    wt = torch.from_numpy(r.integers(-128, 128, (L, kp1 * N, kp1 * p.l * N))
+                          .astype(np.int8)).cuda()
+    acc = torch.from_numpy(r.integers(-2**31, 2**31, (B, kp1, N))
+                           .astype(np.int32)).cuda()
+    a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32)).cuda()
+    out = torch.empty_like(acc)
+    tile = K.fused_cmux_step_v2_plan(N, p.l, L)
+    fns = _build.variants("fused_cmux_step", [(d,) for _, d in PARTS])
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(fn):
+        rc = fn(a.data_ptr(), acc.data_ptr(), wt.data_ptr(), out.data_ptr(), B,
+                kp1, N, p.l, L, p.bgbit, p.offset & T.MASK32, 8, tile, stream)
+        check(rc == 0, f"fused_cmux_step part variant: cudaError {rc}")
+
+    parts = {"whole": cuda_ms(lambda: K.fused_cmux_step_v2(
+        a, acc, wt, l=p.l, bgbit=p.bgbit, offset=p.offset, key_shift=8), reps)}
+    for (part, _), fn in zip(PARTS, fns):
+        parts[part] = cuda_ms(lambda: run(fn), reps)
+    entry["parts"] = dict(parts, shape=f"GATE_FAST2 B={B}", tile_cols=tile)
+    print(f"phase 2 parts fused_cmux_step_v2 GATE_FAST2 B={B} (tile_cols "
+          f"{tile}, ms): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                       parts.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -623,13 +686,8 @@ def phase_main(smi: str, batch: int = 8192, chain: int = 2):
     counts = _launch_counts()
     ok = gate.decrypt_bool(sk, out) == bits.astype(bool)
     check(ok.all(), f"GATE_FAST2: {int((~ok).sum())} of {batch} bits wrong")
-    for name in ("materialize_w", "fused_cmux_step_v2"):
-        check(counts[name] == n * chain,
-              f"GATE_FAST2: {name} launched {counts[name]} times, "
-              f"want {n * chain}")
-    for name in ("rotate_decompose", "mm_recombine_acc"):
-        check(counts[name] == 0, f"GATE_FAST2: {name} launched on the "
-              f"fused path")
+    _only(counts, {"materialize_wt": n * chain,
+                   "fused_cmux_step_v2": n * chain}, "GATE_FAST2")
     rate = batch * chain / wall
     print(f"phase 3 GATE_FAST2 onthefly B={batch}: {rate:.1f} ct/s "
           f"({wall:.3f} s for {chain} dependent launches), all "
@@ -639,19 +697,19 @@ def phase_main(smi: str, batch: int = 8192, chain: int = 2):
     # where one launch's time goes, from CUDA events at this batch
     from tfhe_tpu_torch import lwe, torus as T
     v0 = ck.data["bk"]["v"][0]
-    w0 = K.materialize_w(v0)
+    w0 = K.materialize_wt(v0)
     acc = torch.zeros((batch, 3, 512), dtype=torch.int32, device="cuda")
     acc.random_(-2**31, 2**31 - 1)
     a0 = T.mod_switch_from_torus32(ct[:, 0].contiguous(), 1024)
     p = P.tgsw
     step_ms = cuda_ms(lambda: K.fused_cmux_step_v2(
         a0, acc, w0, l=p.l, bgbit=p.bgbit, offset=p.offset, key_shift=8), 5)
-    mat_ms = cuda_ms(lambda: K.materialize_w(v0), 20)
+    mat_ms = cuda_ms(lambda: K.materialize_wt(v0), 20)
     u = torch.zeros((batch, 2 * 512 + 1), dtype=torch.int32, device="cuda")
     ksk = lwe.KeySwitchKey(P.ks, 1024, n, ck.data["ksw"])
     ks_ms = cuda_ms(lambda: lwe.keyswitch(u, ksk), 3)
     print(f"phase 3 breakdown B={batch}: fused step {step_ms:.3f} ms x {n}, "
-          f"materialize_w {mat_ms:.4f} ms x {n}, keyswitch {ks_ms:.3f} ms; "
+          f"materialize_wt {mat_ms:.4f} ms x {n}, keyswitch {ks_ms:.3f} ms; "
           f"sum {(step_ms + mat_ms) * n + ks_ms:.1f} ms vs "
           f"{wall / chain * 1e3:.1f} ms per launch")
 
@@ -669,7 +727,8 @@ def phase_main(smi: str, batch: int = 8192, chain: int = 2):
           "gate_mux truth table")
     print("phase 3 gates: gate_nand and gate_mux truth tables decrypt "
           "correctly")
-    return counts, {"ct_per_s": rate, "step_ms": step_ms}
+    return counts, {"ct_per_s": rate, "step_ms": step_ms, "mat_ms": mat_ms,
+                    "ks_ms": ks_ms, "launch_ms": wall / chain * 1e3}
 
 
 def phase_generic(smi: str, batch: int = 256):
@@ -695,8 +754,9 @@ def phase_generic(smi: str, batch: int = 256):
     for name in ("rotate_decompose", "materialize_w", "mm_recombine_acc"):
         check(counts[name] == n, f"GATE_DEFAULT: {name} launched "
               f"{counts[name]} times, want {n}")
-    check(counts["fused_cmux_step_v2"] == 0,
-          "GATE_DEFAULT: the fused step ran with 4 key limbs")
+    for name in ("fused_cmux_step_v2", "materialize_wt"):
+        check(counts[name] == 0,
+              f"GATE_DEFAULT: {name} ran with 4 key limbs")
     print(f"phase 4 GATE_DEFAULT onthefly B={batch}: "
           f"{batch / wall:.1f} ct/s ({wall:.3f} s for one launch), all "
           f"{batch} bits decrypt, launches {counts}, keygen {keygen_s:.1f} s "
@@ -813,8 +873,8 @@ def phase_circuit(smi: str):
     for name in ("rotate_decompose64_ck", "ck_dot64p"):
         check(counts[name] == steps, f"CB_MXU: {name} launched "
               f"{counts[name]} times, want {steps}")
-    for name in ("materialize_w", "rotate_decompose", "mm_recombine_acc",
-                 "fused_cmux_step_v2"):
+    for name in ("materialize_w", "materialize_wt", "rotate_decompose",
+                 "mm_recombine_acc", "fused_cmux_step_v2"):
         check(counts[name] == 0, f"CB_MXU: 32-bit kernel {name} launched "
               f"inside the circuit bootstrap")
     check(tuple(gsw.shape) == (batch, k + 1, ell1, k + 1, P.n_lvl1),
@@ -987,7 +1047,7 @@ def _only(counts, allowed: dict, what: str):
 def phase_n1024(smi: str, default_out, batch: int = 8192, chain: int = 2,
                 default_batch: int = 256):
     """GATE_MXU at B=8192 on the chunked engine (ck_cmux_step32, 630 per
-    launch) and, from the same seed, on the onthefly engine (materialize_w
+    launch) and, from the same seed, on the onthefly engine (materialize_wt
     + fused_cmux_step_v2 at N=1024): every bit decrypts and the two chains
     give the same ciphertexts bit for bit.  Then GATE_DEFAULT chunked at
     B=256, which must give phase 4's onthefly ciphertexts.  Returns the
@@ -1002,7 +1062,7 @@ def phase_n1024(smi: str, default_out, batch: int = 8192, chain: int = 2,
     by_path, outs = {}, {}
     for backend, kernels in (
             ("chunked", {"ck_cmux_step32": n * chain}),
-            ("onthefly", {"materialize_w": n * chain,
+            ("onthefly", {"materialize_wt": n * chain,
                           "fused_cmux_step_v2": n * chain})):
         sk, ck, out, wall, counts, keygen_s, peak_gb = _gate_run(
             P, backend, bits, chain)
@@ -1024,12 +1084,12 @@ def phase_n1024(smi: str, default_out, batch: int = 8192, chain: int = 2,
             parts = f"ck_cmux_step32 {step_ms:.3f} ms x {n}"
         else:
             v0 = ck.data["bk"]["v"][0]
-            w0 = K.materialize_w(v0)
+            w0 = K.materialize_wt(v0)
             step_ms = cuda_ms(lambda: K.fused_cmux_step_v2(a0, acc, w0, **kw),
                               5)
-            mat_ms = cuda_ms(lambda: K.materialize_w(v0), 20)
+            mat_ms = cuda_ms(lambda: K.materialize_wt(v0), 20)
             parts = (f"fused_cmux_step_v2 {step_ms:.3f} ms x {n}, "
-                     f"materialize_w {mat_ms:.4f} ms x {n}")
+                     f"materialize_wt {mat_ms:.4f} ms x {n}")
             step_ms += mat_ms
             del w0
         u = torch.zeros((batch, 1024 + 1), dtype=torch.int32, device="cuda")
@@ -1150,6 +1210,7 @@ def main() -> int:
     smi = phase_device()
     results = phase_kernels()
     phase_tiles(results["fused_cmux_step_v2"])
+    phase_parts(results["fused_cmux_step_v2"])
     phase_splits(results)
     by_path = {}
     by_path["gate_fast2"], _ = phase_main(smi)

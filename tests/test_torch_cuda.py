@@ -52,6 +52,18 @@ def test_materialize_w(cuda, L, J, U, N):
     _same_on_card(K.materialize_w, K.materialize_w_plain, (v,), {}, cuda)
 
 
+@pytest.mark.parametrize("L,J,U,N", [(3, 9, 3, 512), (3, 6, 2, 1024),
+                                     (1, 2, 1, 16), (2, 3, 1, 64)])
+def test_materialize_wt(cuda, L, J, U, N):
+    """The K-packed key at the paths' shapes (GATE_FAST2, GATE_MXU) and
+    small ones; equal to materialize_w's kernel transposed."""
+    v = _i8(np.random.default_rng(14), (L, J, U, 2 * N))
+    _same_on_card(K.materialize_wt, K.materialize_wt_plain, (v,), {}, cuda)
+    dv = v.to(cuda)
+    assert torch.equal(K.materialize_wt(dv),
+                       K.materialize_w(dv).transpose(1, 2).contiguous())
+
+
 @pytest.mark.parametrize("B,k,N,l,bgbit", [(5, 1, 64, 3, 7),
                                            (33, 2, 512, 3, 7),
                                            (16, 1, 1024, 2, 8)])
@@ -92,37 +104,125 @@ def test_mm_recombine_acc(cuda, B, L, shift, split):
     assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("B,k,N,L,key_shift", [(3, 2, 512, 3, 8),
-                                               (130, 2, 512, 3, 0),
-                                               (64, 1, 64, 2, 16),
-                                               (8, 1, 1024, 1, 24)])
+@pytest.mark.parametrize("B", [1, 3, 64, 65, 100, 8191, 8192])
+@pytest.mark.parametrize("L,key_shift", [(1, 0), (1, 8), (2, 0), (2, 8),
+                                         (3, 0), (3, 8)])
+@pytest.mark.parametrize("k,N", [(2, 512), (1, 1024)])
 def test_fused_cmux_step_v2(cuda, B, k, N, L, key_shift):
+    """GATE_FAST2's and GATE_MXU's rings, every limb count, both key
+    shifts, batches that fill no tile, one row tile and two, a ragged one
+    and the main path's; every forced plan and the chosen one, the 3-D and
+    the flat carry.  The plain version runs on the card (its float64 sums
+    are exact there)."""
     r = np.random.default_rng(3)
     l = 3
-    acc = _i32(r, (B, k + 1, N))
-    a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
-    w = _i8(r, (L, (k + 1) * l * N, (k + 1) * N))
+    acc = _i32(r, (B, k + 1, N)).to(cuda)
+    a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32)).to(cuda)
+    a[0] = N                                   # a pure sign flip
+    wt = _i8(r, (L, (k + 1) * N, (k + 1) * l * N)).to(cuda)
     kw = dict(l=l, bgbit=7, offset=0x81020400, key_shift=key_shift)
-    _same_on_card(K.fused_cmux_step_v2, K.fused_cmux_step_v2_plain,
-                  (a, acc, w), kw, cuda)
-    flat = dict(kw, kp1=k + 1)
-    _same_on_card(K.fused_cmux_step_v2, K.fused_cmux_step_v2_plain,
-                  (a, acc.reshape(B, -1), w), flat, cuda)
-
-
-@pytest.mark.parametrize("tile_rows", [64, 128])
-@pytest.mark.parametrize("B", [3, 100, 130, 800])
-def test_fused_cmux_step_v2_each_tile(cuda, B, tile_rows):
-    r = np.random.default_rng(4)
-    k, N, l, L = 2, 512, 3, 3
-    acc = _i32(r, (B, k + 1, N))
-    a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
-    w = _i8(r, (L, (k + 1) * l * N, (k + 1) * N))
-    kw = dict(l=l, bgbit=7, offset=0x81020400, key_shift=8)
-    got = K.fused_cmux_step_v2(a.to(cuda), acc.to(cuda), w.to(cuda),
-                               tile_rows=tile_rows, **kw)
+    want = K.fused_cmux_step_v2_plain(a, acc, wt, **kw)
+    for tile in (0, *K.FUSED_COLS):
+        got = K.fused_cmux_step_v2(a, acc, wt, tile_cols=tile, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), tile
+    flat = K.fused_cmux_step_v2(a, acc.reshape(B, -1), wt, kp1=k + 1, **kw)
     torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), K.fused_cmux_step_v2_plain(a, acc, w, **kw))
+    assert torch.equal(flat, want.reshape(B, -1))
+
+
+@pytest.mark.parametrize("tile_cols", K.FUSED_COLS)
+@pytest.mark.parametrize("B", [3, 100, 130, 800])
+def test_fused_cmux_step_v2_each_tile(cuda, B, tile_cols):
+    """Small rings (k=1, N=128 and 256; l=2 and 3) on each tile, against
+    the plain version on the CPU."""
+    r = np.random.default_rng(4)
+    for k, N, l, L in ((1, 128, 3, 3), (1, 256, 2, 2)):
+        acc = _i32(r, (B, k + 1, N))
+        a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
+        wt = _i8(r, (L, (k + 1) * N, (k + 1) * l * N))
+        kw = dict(l=l, bgbit=7, offset=0x81020400, key_shift=8)
+        got = K.fused_cmux_step_v2(a.to(cuda), acc.to(cuda), wt.to(cuda),
+                                   tile_cols=tile_cols, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(),
+                           K.fused_cmux_step_v2_plain(a, acc, wt, **kw))
+
+
+@pytest.mark.parametrize("k,N", [(2, 512), (1, 1024)])
+def test_fused_step_on_materialize_wt(cuda, k, N):
+    """The main path's step as a whole on the card: materialize_wt's key
+    into fused_cmux_step_v2, against materialize_w + the plain step."""
+    r = np.random.default_rng(15)
+    B, l, L = 300, 3, 3
+    v = _i8(r, (L, (k + 1) * l, k + 1, 2 * N)).to(cuda)
+    acc = _i32(r, (B, k + 1, N)).to(cuda)
+    a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32)).to(cuda)
+    kw = dict(l=l, bgbit=7, offset=0x81020400, key_shift=8)
+    got = K.fused_cmux_step_v2(a, acc, K.materialize_wt(v), **kw)
+    want = K.fused_cmux_step_plain(a, acc, K.materialize_w(v), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B", [3, 300])
+@pytest.mark.parametrize("L", [2, 3])
+@pytest.mark.parametrize("k,N", [(2, 512), (1, 1024)])
+def test_fused_cmux_step_v2_four_levels(cuda, B, k, N, L):
+    """l = 4: at L = 3 the 128-column ring holds no group, so the chosen
+    plan is 64 columns and a forced 128 raises; at L = 2 both run."""
+    r = np.random.default_rng(16)
+    l = 4
+    acc = _i32(r, (B, k + 1, N)).to(cuda)
+    a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32)).to(cuda)
+    wt = _i8(r, (L, (k + 1) * N, (k + 1) * l * N)).to(cuda)
+    kw = dict(l=l, bgbit=7, offset=0x81020408, key_shift=8)
+    want = K.fused_cmux_step_v2_plain(a, acc, wt, **kw)
+    for tile in (0, *K.FUSED_COLS):
+        if K.fused_cmux_step_v2_plan(N, l, L, tile) == 0:
+            assert (L, tile) == (3, 128)
+            with pytest.raises(ValueError, match="plan"):
+                K.fused_cmux_step_v2(a, acc, wt, tile_cols=tile, **kw)
+            continue
+        got = K.fused_cmux_step_v2(a, acc, wt, tile_cols=tile, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), tile
+
+
+@pytest.mark.parametrize("N,l,fused", [(512, 4, True), (64, 3, False)])
+def test_engine_routes_by_the_fused_kernels_domain(cuda, N, l, fused):
+    """On the card the onthefly engine takes the fused step only where its
+    kernel runs (l = 4 at N = 512 on the 64-column plan); at N = 64 it
+    returns None for the generic step instead of raising."""
+    from tfhe_tpu_torch.ops import engine
+    r = np.random.default_rng(17)
+    te = engine.make_engine(engine.EngineConfig(N=N, out_bits=32,
+                                                digit_bits=7, key_limbs=3),
+                            "onthefly")
+    prep = te.prepare(_i32(r, (3 * l, 3, N)).to(cuda))
+    acc = _i32(r, (100, 3, N)).to(cuda)
+    a = torch.from_numpy(r.integers(0, 2 * N, (100,)).astype(np.int32)).to(
+        cuda)
+    kw = dict(l=l, bgbit=7, offset=0x81020408)
+    before = K.fused_cmux_step_v2.launches
+    got = te.cmux_step(a, acc, prep, **kw)
+    assert (got is not None) is fused
+    assert K.fused_cmux_step_v2.launches == before + fused
+    if fused:
+        cpu = {name: t.cpu() for name, t in prep.items()}
+        want = te.cmux_step(a.cpu(), acc.cpu(), cpu, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+
+
+def test_fused_cmux_step_v2_unsupported_shape_raises(cuda):
+    """N = 64 is below the kernel's 128-byte K slice: the wrapper raises
+    instead of running the plain version on the card."""
+    a = torch.zeros(2, dtype=torch.int32, device=cuda)
+    acc = torch.zeros((2, 2, 64), dtype=torch.int32, device=cuda)
+    wt = torch.zeros((3, 2 * 64, 2 * 3 * 64), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="kernel"):
+        K.fused_cmux_step_v2(a, acc, wt, l=3, bgbit=7, offset=0)
 
 
 def test_unsupported_shape_raises_instead_of_falling_back(cuda):
@@ -330,11 +430,12 @@ def test_fused_cmux_step_v1(cuda, B, k, N, L, key_shift):
     a[0] = N
     w = _i8(r, (L, (k + 1) * l * N, (k + 1) * N))
     kw = dict(l=l, bgbit=7, offset=0x81020400, key_shift=key_shift)
-    _same_on_card(K.fused_cmux_step, K.fused_cmux_step_v2_plain, (a, acc, w),
+    _same_on_card(K.fused_cmux_step, K.fused_cmux_step_plain, (a, acc, w),
                   kw, cuda)
-    dev = [t.to(cuda) for t in (a, acc, w)]
-    assert torch.equal(K.fused_cmux_step(*dev, **kw),
-                       K.fused_cmux_step_v2(*dev, **kw))
+    da, dacc, dw = (t.to(cuda) for t in (a, acc, w))
+    assert torch.equal(K.fused_cmux_step(da, dacc, dw, **kw),
+                       K.fused_cmux_step_v2(da, dacc, dw.transpose(1, 2)
+                                            .contiguous(), **kw))
 
 
 @pytest.mark.parametrize("B,k,N,l,bgbit", [(256, 1, 2048, 5, 8),

@@ -52,6 +52,63 @@ def test_materialize_w(N, J, U, L):
     _same(K.materialize_w(torch.from_numpy(v)), want)
 
 
+@pytest.mark.parametrize("N,J,U,L", [(128, 4, 2, 3), (128, 2, 1, 1)])
+def test_materialize_wt(N, J, U, L):
+    """The K-packed key is the Pallas kernel's W transposed."""
+    v = np.random.default_rng(0).integers(-128, 128, (L, J, U, 2 * N)
+                                          ).astype(np.int8)
+    want = np.asarray(pk.materialize_w(jnp.asarray(v), rows=64,
+                                       interpret=True)).transpose(0, 2, 1)
+    _same(K.materialize_wt(torch.from_numpy(v)), want)
+
+
+def test_materialize_wt_reversed_runs():
+    """The kernel's addressing: row (l, u, i) of Wt over t, for fixed j, is
+    the run sr[t - i + N ..] of sr[m] = v[(N - m) mod 2N], read from the
+    aligned words (t - i + N) >> 2 .. + 4 with byte offset (t - i + N) & 3."""
+    N, J, U, L = 64, 3, 2, 2
+    v = np.random.default_rng(6).integers(-128, 128, (L, J, U, 2 * N)
+                                          ).astype(np.int8)
+    wt = K.materialize_wt(torch.from_numpy(v)).numpy()
+    m = np.arange(2 * N)
+    for l, j, u in np.ndindex(L, J, U):
+        sr = np.concatenate([v[l, j, u, (N - m) % (2 * N)],
+                             np.zeros(16, np.int8)])
+        for i in (0, 1, 17, N - 1):
+            for t0 in range(0, N, 16):
+                off = t0 - i + N
+                assert 1 <= off <= 2 * N - 16
+                words = sr[4 * (off >> 2):4 * (off >> 2) + 20]
+                run = words[(off & 3):(off & 3) + 16]
+                np.testing.assert_array_equal(
+                    wt[l, u * N + i, j * N + t0:j * N + t0 + 16], run)
+
+
+@pytest.mark.parametrize("bgbit,l", [(7, 3), (8, 3), (8, 4), (6, 5),
+                                     (1, 32)])
+def test_fused_digit_fields(bgbit, l):
+    """The kernel's digit extraction: digit lv of d, ((d >> s) & mask) -
+    half with s = 32 - (lv+1) bgbit, is the bgbit-bit field at s of
+    d ^ sum_lv (half << s), sign-extended: (int32)(that << lv bgbit) >>
+    (32 - bgbit); packed four coefficients to a word, low byte first."""
+    r = np.random.default_rng(7)
+    d = r.integers(0, 2**32, 4096, dtype=np.uint64)
+    d[:4] = [0, 2**32 - 1, 2**31, 2**31 - 1]
+    half, mask = 1 << (bgbit - 1), (1 << bgbit) - 1
+    xmask = sum(half << (32 - (lv + 1) * bgbit) for lv in range(l))
+    for lv in range(l):
+        s = 32 - (lv + 1) * bgbit
+        want = ((d >> s) & mask).astype(np.int64) - half
+        wide = ((d ^ xmask) << (lv * bgbit)) & 0xFFFFFFFF
+        got = wide.astype(np.uint32).view(np.int32).astype(np.int64) \
+            >> (32 - bgbit)
+        np.testing.assert_array_equal(got, want)
+        packed = (got & 0xFF).reshape(-1, 4) << np.array([0, 8, 16, 24])
+        np.testing.assert_array_equal(
+            packed.sum(1).astype(np.uint32).view(np.uint8).view(np.int8),
+            want.astype(np.int8))
+
+
 @pytest.mark.parametrize("N,k,l,bgbit", [(128, 1, 3, 7), (128, 2, 3, 7),
                                          (256, 1, 2, 8)])
 def test_rotate_decompose(N, k, l, bgbit):
@@ -140,8 +197,9 @@ def test_fused_cmux_step_v2(N, k, l, L, key_shift):
     kw = dict(l=l, bgbit=7, offset=_offset(N, k, l, 7), key_shift=key_shift)
     want = pk.fused_cmux_step_v2(jnp.asarray(a), jnp.asarray(acc),
                                  jnp.asarray(w), tm=B, interpret=True, **kw)
+    wt = torch.from_numpy(w.transpose(0, 2, 1).copy())      # K-packed
     got = K.fused_cmux_step_v2(torch.from_numpy(a), torch.from_numpy(acc),
-                               torch.from_numpy(w), **kw)
+                               wt, **kw)
     _same(got, want)
 
 
@@ -157,9 +215,30 @@ def test_fused_cmux_step_v2_flat_multi_tile():
               kp1=k + 1)
     want = pk.fused_cmux_step_v2(jnp.asarray(a), jnp.asarray(acc),
                                  jnp.asarray(w), tm=8, interpret=True, **kw)
+    wt = torch.from_numpy(w.transpose(0, 2, 1).copy())      # K-packed
     got = K.fused_cmux_step_v2(torch.from_numpy(a), torch.from_numpy(acc),
-                               torch.from_numpy(w), **kw)
+                               wt, **kw)
     _same(got, want)
+
+
+@pytest.mark.parametrize("N,k,L", [(128, 1, 3), (128, 2, 2)])
+def test_fused_cmux_step_v2_on_materialize_wt(N, k, L):
+    """The main path's step as a whole: materialize_wt's key into
+    fused_cmux_step_v2, against the Pallas pair materialize_w +
+    fused_cmux_step_v2."""
+    r = np.random.default_rng(8)
+    B, l = 8, 3
+    v = r.integers(-128, 128, (L, (k + 1) * l, k + 1, 2 * N)).astype(np.int8)
+    acc = _i32(r, (B, k + 1, N))
+    a = r.integers(0, 2 * N, (B,)).astype(np.int32)
+    a[:2] = [0, N]
+    kw = dict(l=l, bgbit=7, offset=_offset(N, k, l, 7), key_shift=8)
+    w = pk.materialize_w(jnp.asarray(v), rows=64, interpret=True)
+    want = pk.fused_cmux_step_v2(jnp.asarray(a), jnp.asarray(acc), w, tm=B,
+                                 interpret=True, **kw)
+    wt = K.materialize_wt(torch.from_numpy(v))
+    _same(K.fused_cmux_step_v2(torch.from_numpy(a), torch.from_numpy(acc),
+                               wt, **kw), want)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
@@ -184,11 +263,62 @@ def test_wrapper_rejects_bad_input(bad):
         K.mm_recombine_acc(x, w, acc)
 
 
-@pytest.mark.parametrize("tile_rows", [32, 256])
-def test_fused_rejects_an_unknown_tile(tile_rows):
+@pytest.mark.parametrize("tile_cols", [32, 192, 256])
+def test_fused_rejects_an_unknown_tile(tile_cols):
+    """The kernel's plans are 64 and 128 output columns a block (one or two
+    consumer warpgroups), or 0 to choose."""
     a = torch.zeros((4,), dtype=torch.int32)
-    acc = torch.zeros((4, 2, 64), dtype=torch.int32)
-    w = torch.zeros((1, 2 * 3 * 64, 2 * 64), dtype=torch.int8)
-    with pytest.raises(ValueError, match="tile_rows"):
-        K.fused_cmux_step_v2(a, acc, w, l=3, bgbit=7, offset=0,
-                             tile_rows=tile_rows)
+    acc = torch.zeros((4, 2, 128), dtype=torch.int32)
+    wt = torch.zeros((1, 2 * 128, 2 * 3 * 128), dtype=torch.int8)
+    with pytest.raises(ValueError, match="tile_cols"):
+        K.fused_cmux_step_v2(a, acc, wt, l=3, bgbit=7, offset=0,
+                             tile_cols=tile_cols)
+
+
+@pytest.mark.parametrize("L,cols,l,stages", [(3, 128, 3, 3), (3, 128, 4, 0),
+                                             (3, 64, 3, 7), (3, 64, 4, 6),
+                                             (2, 128, 4, 5), (1, 128, 3, 8)])
+def test_fused_ring_stages(L, cols, l, stages):
+    """The ring the kernel's shared memory holds (csrc ring_stages): 0
+    where fewer than one group's l stages fit."""
+    assert K.fused_ring_stages(L, cols, l) == stages
+
+
+@pytest.mark.parametrize("N,l,L,tile_cols,cols", [
+    (512, 3, 3, 0, 128),            # the main path
+    (1024, 3, 3, 0, 128),           # GATE_MXU onthefly
+    (512, 4, 3, 0, 64),             # the 128-column ring holds no group
+    (512, 4, 3, 128, 0),
+    (512, 4, 3, 64, 64),
+    (512, 4, 2, 0, 128),
+    (512, 3, 3, 64, 64),            # a forced plan is kept
+    (64, 3, 3, 0, 0),               # below the 128-deep K slice
+    (512, 5, 3, 0, 0),
+    (512, 3, 4, 0, 0)])
+def test_fused_plan(N, l, L, tile_cols, cols):
+    assert K.fused_cmux_step_v2_plan(N, l, L, tile_cols) == cols
+
+
+@pytest.mark.parametrize("N,l,fused", [(512, 3, True), (512, 4, True),
+                                       (64, 3, False), (512, 5, False)])
+def test_engine_takes_the_fused_step_only_in_its_kernel_domain(N, l, fused):
+    """Off the CPU the engine hands a step to fused_cmux_step_v2 only where
+    a plan of its kernel takes it (else the caller takes the generic step);
+    on the CPU the plain version takes any."""
+    from tfhe_tpu_torch.ops import engine
+    te = engine.make_engine(engine.EngineConfig(N=N, out_bits=32,
+                                                digit_bits=7, key_limbs=3),
+                            "onthefly")
+    card = torch.empty((8, 3, N), dtype=torch.int32, device="meta")
+    assert te._fused_ok(card, l, 7) is fused
+    assert te._fused_ok(torch.empty((8, 3, N), dtype=torch.int32), l, 7)
+
+
+def test_fused_rejects_the_jax_layout_key():
+    """The wrapper takes the K-packed key; materialize_w's layout (L, K,
+    U*N) is refused rather than read transposed."""
+    a = torch.zeros((4,), dtype=torch.int32)
+    acc = torch.zeros((4, 2, 128), dtype=torch.int32)
+    w = torch.zeros((1, 2 * 3 * 128, 2 * 128), dtype=torch.int8)
+    with pytest.raises(ValueError, match="wt must be"):
+        K.fused_cmux_step_v2(a, acc, w, l=3, bgbit=7, offset=0)

@@ -98,7 +98,8 @@ def test_fused_cmux_step_v1_matches_pallas(N, k, l, L):
                               tm=B, interpret=True, **kw)
     ta, tacc, tw = (torch.from_numpy(v) for v in (a, acc, w))
     _same(K.fused_cmux_step(ta, tacc, tw, **kw), want)
-    _same(K.fused_cmux_step_v2(ta, tacc, tw, **kw), want)
+    _same(K.fused_cmux_step_v2(ta, tacc, tw.transpose(1, 2).contiguous(),
+                               **kw), want)
 
 
 # ---------------------------------------------------------------------------

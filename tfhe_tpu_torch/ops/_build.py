@@ -37,6 +37,8 @@ _U64 = ctypes.c_uint64
 # but the *_occupancy queries, which return blocks per SM (or -cudaError).
 SIGNATURES = {
     "materialize_w": ("tfhe_materialize_w", [_P, _P, _I, _I, _I, _I, _P]),
+    "materialize_wt": ("tfhe_materialize_wt", [_P, _P, _I, _I, _I, _I, _P],
+                       "materialize_w"),
     "rotate_decompose": ("tfhe_rotate_decompose",
                          [_P, _P, _P, _I, _I, _I, _I, _I, _U, _P]),
     "mm_recombine_acc": ("tfhe_mm_recombine_acc",
@@ -94,12 +96,51 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(src: Path, defines: tuple = ()) -> Path:
+    """The library of source ``src`` built with ``defines``: named by the
+    hash of the source, the headers beside it and the flags."""
     h = hashlib.sha256()
-    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for f in sorted(src.parent.glob("*.cuh")) + [src]:
         h.update(f.read_bytes())
-    h.update(" ".join(FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(FLAGS + [f"-D{d}" for d in defines]).encode())
+    tag = "".join(f"-{d}" for d in defines)
+    return BUILD_DIR / f"{src.stem}{tag}-{h.hexdigest()[:16]}.so"
+
+
+def _compile(targets):
+    """Run one nvcc per (source path, defines) whose library is missing,
+    all in parallel; raises with nvcc's output if a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for src, defines in targets:
+        out = _lib_path(src, defines)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
+               str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((src, out, tmp, proc))
+    failed = []
+    for src, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        out.with_suffix(".ptxas.txt").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"--- {src} (exit {proc.returncode})\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
+def _bind(lib: ctypes.CDLL, name: str):
+    sym, argtypes, *_ = SIGNATURES[name]
+    fn = getattr(lib, sym)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def build_all() -> dict[str, ctypes.CDLL]:
@@ -110,36 +151,27 @@ def build_all() -> dict[str, ctypes.CDLL]:
         if _libs:
             return _libs
         t0 = time.perf_counter()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        jobs = []
+        _compile([(CSRC / f"{name}.cu", ()) for name in SOURCES])
         for name in SOURCES:
-            out = _lib_path(name)
-            if out.exists():
-                continue
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True)
-            jobs.append((name, out, tmp, proc))
-        failed = []
-        for name, out, tmp, proc in jobs:
-            log, _ = proc.communicate()
-            out.with_suffix(".ptxas.txt").write_text(log)
-            if proc.returncode != 0:
-                failed.append(f"--- {name} (exit {proc.returncode})\n{log}")
-                tmp.unlink(missing_ok=True)
-            else:
-                os.replace(tmp, out)
-        if failed:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-        for name in SOURCES:
-            _libs[name] = ctypes.CDLL(str(_lib_path(name)))
-        for name, (sym, argtypes, *_) in SIGNATURES.items():
-            fn = getattr(_libs[_source(name)], sym)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            _libs[name] = ctypes.CDLL(str(_lib_path(CSRC / f"{name}.cu")))
+        for name in SIGNATURES:
+            _bind(_libs[_source(name)], name)
         build_seconds = time.perf_counter() - t0
         return _libs
+
+
+def variants(name: str, defines: list, source: Path | None = None) -> list:
+    """Entry point ``name`` built once per tuple of ``defines`` (nvcc -D
+    flags, e.g. ("FCS_PART=1",); () for none), in parallel: the stripped
+    variants that time a kernel's parts.  ``source`` is another .cu file to
+    build instead of the entry's own (an edited copy, or an earlier tree's
+    kernel), compiled with the headers beside it.  Returns their ctypes
+    functions in order."""
+    src = Path(source) if source else CSRC / f"{_source(name)}.cu"
+    with _lock:
+        _compile([(src, tuple(d)) for d in defines])
+    return [_bind(ctypes.CDLL(str(_lib_path(src, tuple(d)))), name)
+            for d in defines]
 
 
 HOST_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]

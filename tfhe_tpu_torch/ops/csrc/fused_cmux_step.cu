@@ -1,196 +1,379 @@
 // fused_cmux_step_v2: one whole blind-rotation step,
-//   out = acc + sum_l (decompose((X^a - 1) * acc) @ w[l]) << (8 l + key_shift)
-// mod 2^32.  a (B,) int32, acc / out (B, (k+1)*N) int32 (the (B, k+1, N)
-// layout is the same bytes), w (L <= 3, (k+1)*l*N, (k+1)*N) int8.
+//   out = acc + sum_l (decompose((X^a - 1) * acc) @ W_l) << (8 l + key_shift)
+// mod 2^32, on the K-packed key wt (L <= 3, (k+1)*N, (k+1)*l*N) int8,
+// wt[l, (u,i), (j,t)] = W[l, (j,t), (u,i)] (materialize_w.cu's second entry).
+// a (B,) int32, acc / out (B, (k+1)*N) int32 (the (B, k+1, N) layout is the
+// same bytes).
 //
 // Replaces tfhe_tpu/ops/pallas_kernels.py:fused_cmux_step_v2.  Bound by the
-// int8 tensor-core rate: B * (k+1)^2 * l * N^2 * L multiply-adds per step
-// against (L*K*UN + 8*B*UN) bytes.  One block per (batch tile, 128-column
-// output tile).  For each accumulator polynomial u the block
-// builds the tile's l digit planes of (X^a - 1) * acc[:, u] in shared memory
-// (read straight from acc, rotated per row, offset-added in uint32), then
-// runs the mma.sync GEMM of common.cuh over them against the L limb
-// matrices.  The digits never reach device memory.  They are rebuilt once
-// per output column tile (UN/128 times), which makes the digit build a
-// large share of the step.  What keeps the step affordable:
-//   * each warp builds whole rows with eight independent loads in flight
-//     per lane (a loop with one dependent load per coefficient left the
-//     block stalled on memory latency);
-//   * the digit planes are stored unpadded with an XOR swizzle of the
-//     32-bit word index by (row & 7), which keeps the A-fragment loads free
-//     of bank conflicts in l*BM*N bytes;
-//   * a large batch takes the largest block tile that fits shared memory:
-//     128 rows, 512 threads, W staged 64 K-rows per barrier pair
-//     (l*128*N + 26 KB, 218 KB at N=512), which halves the W stream and the
-//     barriers per multiply-add against 64 rows / 256 threads / 32 K-rows.
-//     Small batches, and larger rings (N=1024), take the latter, at two
-//     blocks per SM (see launch_tile).
-#include "common.cuh"
+// int8 tensor-core rate: B * (k+1)^2 * l * N^2 * L multiply-adds per step.
+// A block owns 64 batch rows and CW * 64 output columns of every limb (CW = 1
+// or 2 consumer warpgroups, one per 64 columns: the tile_cols plan), and
+// walks K in groups (u, t0): 128 coefficients of input polynomial u at every
+// level, i.e. the l 128-deep K slices j = u*l + lv.
+//   * Key tiles by TMA: one producer warp loads each slice's CW boxes of
+//     L x 64 x 128 bytes of wt (a 3-D tensor map, 128-byte swizzle) into a
+//     ring of S stages (full/empty mbarriers).  No thread touches a key byte.
+//   * Tensor cores by wgmma: the L limbs' 64-column boxes are stacked along
+//     the instruction's N, so one m64n(64L)k32 per k32 step covers every limb
+//     (32 L int32 accumulators a thread, 96 at L = 3, which is why a
+//     warpgroup owns 64 columns, not 128).  Both operands are K-major, as
+//     int8 wgmma requires.
+//   * Digits one group at a time, shared: the block's 4 CW consumer warps
+//     build the next group's l digit tiles (64 x 128 bytes each, in the
+//     swizzled layout the wgmma descriptors read) straight from acc while
+//     the current group's wgmmas run, each warp 16 / CW rows; every
+//     warpgroup of the block multiplies the same tiles.  Per lane and row one
+//     16-byte load of acc[t..] and two of acc[(t - r) mod N] give all l
+//     levels' digits of four coefficients.  fence.proxy.async, then a block
+//     barrier of the consumers, hands them to the async proxy.  Digit rows
+//     past B are zero, and their outputs are not stored.
+//   * Epilogue: acc + sum_l C_l << (8 l + key_shift) in uint32.
+// Traffic per step at GATE_FAST2 B = 8192 (UN = 1,536, K = 4,608): key tiles
+// ceil(B / 64) * L * UN * K bytes from L2 (2.72 GB); the digits are rebuilt
+// UN / (64 CW) times (12 at CW = 2, 24 at CW = 1), reading acc about twice
+// each time (1.2 GB at CW = 2).  CW = 2 halves the rebuilds at the cost of
+// twice the key traffic of a 128-row block, and was the faster on the card
+// (PERF.md §6); the wrapper takes CW = 1 only where CW = 2's ring cannot
+// hold a group (l = 4 at L = 3).
+// At GATE_FAST2 the CW = 2 ring holds 3 stages, exactly one group: the
+// next group's key tiles load only once this group's wgmmas are done.
+//
+// FCS_PART (a build flag, default 0) strips the kernel to one part for
+// timing the parts of a step (chip_smoke.py's phase_parts): 1 keeps the key
+// loads (consumers only wait and release), 2 the digit build, 3 the wgmmas
+// (on whatever the buffers hold).  Their outputs are meaningless.
+#include "wgmma.cuh"
+
+#ifndef FCS_PART
+#define FCS_PART 0
+#endif
 
 namespace {
 
 using namespace tfhe;
 
-// Byte offset of digit (row, n) within one digit plane of BM rows x N.
-__device__ __forceinline__ int swz(int row, int n, int N) {
-  const int word = (n >> 2) ^ (((row & 7) << 2) & ((N >> 2) - 1));
-  return row * N + (word << 2) + (n & 3);
+constexpr bool KEYS = FCS_PART == 0 || FCS_PART == 1;
+constexpr bool DIGITS = FCS_PART == 0 || FCS_PART == 2;
+constexpr bool MMAS = FCS_PART == 0 || FCS_PART == 3;
+
+constexpr int BN = 64;                  // output columns of a warpgroup
+constexpr int BK = 128;                 // K bytes of a slice: one swizzled row
+constexpr int TILE = 64 * BK;           // one 64-row operand tile, 8 KB
+constexpr int MAX_LEVELS = 4;
+constexpr int MAX_STAGES = 8;
+constexpr size_t MAX_SMEM = 232448;
+constexpr int ROWS = 2;                 // rows whose loads are in flight
+
+struct Args {
+  const int32_t* expo;
+  const int32_t* acc;
+  int32_t* out;
+  int B, kp1, N, logN, l, bgbit, key_shift, stages;
+  uint32_t offset;
+};
+
+// Dynamic shared memory of a block: 1 KB of alignment slack, the key ring,
+// the two digit buffers, the barriers and the rows' exponents.
+constexpr size_t smem_bytes(int L, int CW, int l, int S) {
+  return 1024 + (size_t)S * CW * L * TILE + (size_t)2 * l * TILE
+         + (size_t)2 * S * sizeof(uint64_t) + 64 * sizeof(int);
 }
 
-template <int L, int THREADS>
-__global__ void __launch_bounds__(THREADS, THREADS == 256 ? 2 : 1)
-fused_cmux_kernel(const int32_t* __restrict__ expo,
-                  const int32_t* __restrict__ acc,
-                  const int8_t* __restrict__ w, int32_t* __restrict__ out,
-                  int B, int kp1, int N, int logN, int l, int bgbit,
-                  uint32_t offset, int key_shift) {
-  constexpr int BM = THREADS / 4, BK = THREADS / 8;
-  constexpr int ROWS = BM / (THREADS / 32);     // rows built per warp
-  constexpr int UNROLL = 8;                     // loads in flight per lane
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* sD = smem;                           // [l][BM x N], swizzled
-  uint32_t* sB = reinterpret_cast<uint32_t*>(smem + (size_t)l * BM * N);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int warp_m = warp >> 2, warp_n = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.y * BM, c0 = blockIdx.x * BN;
-  const int UN = kp1 * N, K = kp1 * l * N;
-  const uint32_t mask = (1u << bgbit) - 1;
-  const int half = 1 << (bgbit - 1);
-  const int gsw = ((g << 2) & ((N >> 2) - 1));  // this lane's A-row swizzle
+// The ring's stages: as many as fit, at most MAX_STAGES; 0 where fewer than
+// one group's l slices fit (the consumers hold a group's stages together).
+constexpr int ring_stages(int L, int CW, int l) {
+  const size_t room = MAX_SMEM - smem_bytes(L, CW, l, 0);
+  const size_t per = (size_t)CW * L * TILE + 2 * sizeof(uint64_t);
+  const int S = room / per < MAX_STAGES ? (int)(room / per) : MAX_STAGES;
+  return S >= l ? S : 0;
+}
 
-  int32_t C[L][2][4][4];
-  zero<L>(C);
-  for (int u = 0; u < kp1; ++u) {
-    // digits of (X^a - 1) * acc[b, u] for the tile's rows (rows past B are
-    // left as they are: their outputs are never stored)
-    for (int rr = 0; rr < ROWS; ++rr) {
-      const int row = warp * ROWS + rr;
-      const int b = m0 + row;
-      if (b >= B) continue;
-      const uint32_t* x =
-          reinterpret_cast<const uint32_t*>(acc) + (size_t)b * UN + u * N;
-      const int av = expo[b] & (2 * N - 1);
-      const int r = av & (N - 1);
-      const bool flip = (av >> logN) & 1;       // X^N = -1
-      for (int n0 = lane; n0 < N; n0 += 32 * UNROLL) {
-        uint32_t xv[UNROLL], yv[UNROLL];
+// The digits of group (u, t0) for rows [rlo, rhi) of the block: l swizzled
+// 64 x 128-byte tiles at dst, lane covering coefficients n0 = t0 + 4 lane ..
+// + 3.  rot holds the rows' exponents mod 2N.  ROWS rows at a time, every
+// load first: a row past B reads row B - 1 and stores zeros; acc[n0 ..] and
+// the two aligned vectors that hold acc[(n0 - r) mod N ..] (a vector never
+// wraps: N is a multiple of 4), from which a select network by
+// q = (n0 - r) & 3, the same for the whole warp, takes the four rotated
+// coefficients.  Two rows in flight measured faster than one, four or eight
+// (PERF.md §6).
+__device__ __forceinline__ void build_digits(uint8_t* dst, const Args p,
+                                             const int* rot, int b0, int u,
+                                             int t0, int lane, uint32_t xmask,
+                                             int rlo, int rhi) {
+  const int N = p.N, UN = p.kp1 * N, n0 = t0 + 4 * lane;
+  const uint32_t* accu = reinterpret_cast<const uint32_t*>(p.acc) + u * N;
+  const int chunk = lane >> 2, within = (lane & 3) * 4;
+#pragma unroll 1
+  for (int r0 = rlo; r0 < rhi; r0 += ROWS) {
+    uint4 xv[ROWS], v0[ROWS], v1[ROWS];
 #pragma unroll
-        for (int q = 0; q < UNROLL; ++q) {
-          const int n = n0 + 32 * q;
-          if (n < N) {
-            xv[q] = x[n];
-            yv[q] = x[(n - r) & (N - 1)];
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < UNROLL; ++q) {
-          const int n = n0 + 32 * q;
-          if (n < N) {
-            const bool neg = (n < r) != flip;  // wrapped once: negate
-            const uint32_t d = (neg ? 0u - yv[q] : yv[q]) - xv[q] + offset;
-            const int off = swz(row, n, N);
-            for (int lv = 0; lv < l; ++lv)
-              sD[lv * BM * N + off] = (uint8_t)(int8_t)(
-                  (int)((d >> (32 - (lv + 1) * bgbit)) & mask) - half);
-          }
-        }
-      }
+    for (int i = 0; i < ROWS; ++i) {
+      const int row = r0 + i, b = b0 + row;
+      const uint32_t* x = accu + (size_t)(b < p.B ? b : p.B - 1) * UN;
+      const int s0 = (n0 - rot[row]) & (N - 1);
+      xv[i] = __ldg(reinterpret_cast<const uint4*>(x + n0));
+      v0[i] = __ldg(reinterpret_cast<const uint4*>(x + (s0 & ~3)));
+      v1[i] = __ldg(reinterpret_cast<const uint4*>(
+          x + ((s0 + 4) & (N - 1) & ~3)));
     }
-    __syncthreads();
-    for (int lv = 0; lv < l; ++lv) {
-      const uint8_t* plane = sD + lv * BM * N;
-      for (int n0 = 0; n0 < N; n0 += BK) {
-        load_w_tiles<L, BK>(sB, w, K, UN, (u * l + lv) * N + n0, c0, tid);
-        __syncthreads();
 #pragma unroll
-        for (int ks = 0; ks < BK / 32; ++ks) {  // 32-deep mma steps
-          const int wb = (n0 >> 2) + 8 * ks;
-          const int w0 = (wb + t) ^ gsw, w1 = (wb + 4 + t) ^ gsw;
-          uint32_t a[2][4];
+    for (int i = 0; i < ROWS; ++i) {
+      const int row = r0 + i;
+      const bool live = b0 + row < p.B;
+      const int av = rot[row], r = av & (N - 1);
+      const bool flip = (av >> p.logN) & 1;     // X^N = -1
+      const int q = (n0 - r) & 3;
+      const uint32_t e[8] = {v0[i].x, v0[i].y, v0[i].z, v0[i].w,
+                             v1[i].x, v1[i].y, v1[i].z, v1[i].w};
+      uint32_t f[6];
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            const uint8_t* r0 = plane + (warp_m * 32 + mi * 16 + g) * N;
-            const uint8_t* r8 = r0 + 8 * N;
-            a[mi][0] = *reinterpret_cast<const uint32_t*>(r0 + 4 * w0);
-            a[mi][1] = *reinterpret_cast<const uint32_t*>(r8 + 4 * w0);
-            a[mi][2] = *reinterpret_cast<const uint32_t*>(r0 + 4 * w1);
-            a[mi][3] = *reinterpret_cast<const uint32_t*>(r8 + 4 * w1);
-          }
-          mma_chunk<L, BK>(C, a, sB, 8 * ks, warp_n, lane);
+      for (int k = 0; k < 6; ++k) f[k] = (q & 1) ? e[k + 1] : e[k];
+      const uint32_t xs[4] = {xv[i].x, xv[i].y, xv[i].z, xv[i].w};
+      uint32_t dv[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint32_t y = (q & 2) ? f[k + 2] : f[k];  // acc[(n0+k-r) mod N]
+        const bool neg = (n0 + k < r) != flip;  // wrapped once: negate
+        // digit lv is ((d >> s) & mask) - half, s = 32 - (lv+1) bgbit: the
+        // bgbit-bit field of d ^ (half << s), sign-extended
+        dv[k] = ((neg ? 0u - y : y) - xs[k] + p.offset) ^ xmask;
+      }
+      const int off = row * BK + ((chunk ^ (row & 7)) << 4) + within;
+#pragma unroll
+      for (int lv = 0; lv < MAX_LEVELS; ++lv) {
+        if (lv < p.l) {
+          uint32_t w[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            w[k] = (uint32_t)((int32_t)(dv[k] << (lv * p.bgbit))
+                              >> (32 - p.bgbit));
+          const uint32_t word = __byte_perm(
+              __byte_perm(w[0], w[1], 0x0040),
+              __byte_perm(w[2], w[3], 0x0040), 0x5410);
+          *reinterpret_cast<uint32_t*>(dst + lv * TILE + off) =
+              live ? word : 0u;
         }
-        __syncthreads();
       }
     }
   }
-  epilogue<L>(C, acc, out, B, UN, m0, c0, key_shift, warp_m, warp_n, lane);
 }
 
-constexpr size_t smem_bytes(int THREADS, int L, int l, int N) {
-  return (size_t)l * (THREADS / 4) * N
-         + (size_t)L * BN * (THREADS / 32 + 1) * sizeof(uint32_t);
+template <int L, int CW>
+__global__ void __launch_bounds__(CW * 128 + 32, 1)
+fused_cmux_kernel(__grid_constant__ const CUtensorMap wmap, const Args p) {
+  constexpr int R = 32 * L, STAGE = CW * L * TILE, MY_ROWS = 16 / CW;
+  static_assert(MY_ROWS % ROWS == 0, "a warp's rows, ROWS at a time");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const int S = p.stages, l = p.l;
+  uint8_t* digits = ring + (size_t)S * STAGE;               // [buffer][level]
+  uint64_t* full = reinterpret_cast<uint64_t*>(digits + (size_t)2 * l * TILE);
+  uint64_t* empty = full + S;
+  int* rot = reinterpret_cast<int*>(empty + S);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int c0 = blockIdx.x * BN * CW, b0 = blockIdx.y * 64;
+  const int N = p.N, UN = p.kp1 * N, slices = N / BK, G = p.kp1 * slices;
+
+  for (int i = tid; i < 64; i += blockDim.x) {
+    const int b = b0 + i;
+    rot[i] = b < p.B ? p.expo[b] & (2 * N - 1) : 0;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * CW);           // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * CW) {                       // the producer warp
+    if (KEYS && lane == 0) {
+      prefetch_map(&wmap);
+      int s = 0;
+      uint32_t ph = 0;
+      for (int g = 0; g < G; ++g) {
+        const int u = g / slices, t0 = (g % slices) * BK;
+        for (int lv = 0; lv < l; ++lv) {
+          mbar_wait(&empty[s], ph ^ 1);
+          mbar_arrive_tx(&full[s], STAGE);
+          for (int c = 0; c < CW; ++c)
+            tma_load_3d(ring + (size_t)s * STAGE + c * L * TILE, &wmap,
+                        &full[s], (u * l + lv) * N + t0, c0 + c * BN, 0);
+          if (++s == S) { s = 0; ph ^= 1; }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup cw: columns c0 + 64 cw .. + 63 of every limb; its
+  // warp wl builds rows (4 cw + wl) * MY_ROWS .. + MY_ROWS - 1 of the digits
+  const int cw = warp >> 2, wl = warp & 3, cols = c0 + BN * cw;
+  const int rlo = (4 * cw + wl) * MY_ROWS, rhi = rlo + MY_ROWS;
+  uint32_t xmask = 0;
+  for (int lv = 0; lv < l; ++lv)
+    xmask |= (1u << (p.bgbit - 1)) << (32 - (lv + 1) * p.bgbit);
+  uint32_t d[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) d[i] = 0;
+
+  if (DIGITS) build_digits(digits, p, rot, b0, 0, 0, lane, xmask, rlo, rhi);
+  fence_async_smem();
+  named_sync(1, 128 * CW);
+  int s = 0;
+  uint32_t ph = 0;
+  for (int g = 0; g < G; ++g) {
+    const uint8_t* dg = digits + (size_t)(g & 1) * l * TILE;
+    const int first = s;
+    if (MMAS) {
+      fence_regs(d);
+      wgmma_fence();
+    }
+    for (int lv = 0; lv < l; ++lv) {
+      if (KEYS) mbar_wait(&full[s], ph);
+      if (MMAS) {
+        const uint64_t da = sw128_desc(smem_addr(dg + lv * TILE));
+        const uint64_t db = sw128_desc(
+            smem_addr(ring + (size_t)s * STAGE + cw * L * TILE));
+#pragma unroll
+        for (int k = 0; k < BK / 32; ++k) wgmma(d, da + 2 * k, db + 2 * k);
+      }
+      if (++s == S) { s = 0; ph ^= 1; }
+    }
+    if (MMAS) wgmma_commit();
+    const int gn = g + 1;                     // overlaps the wgmmas in flight
+    if (DIGITS && gn < G)
+      build_digits(digits + (size_t)(gn & 1) * l * TILE, p, rot, b0,
+                   gn / slices, (gn % slices) * BK, lane, xmask, rlo, rhi);
+    if (MMAS) {
+      wgmma_wait<0>();
+      fence_regs(d);
+    }
+    if (KEYS) {                               // this group's key stages
+      __syncwarp();
+      if (lane == 0) {
+        int r = first;
+        for (int lv = 0; lv < l; ++lv) {
+          mbar_arrive(&empty[r]);
+          if (++r == S) r = 0;
+        }
+      }
+    }
+    fence_async_smem();
+    named_sync(1, 128 * CW);
+  }
+
+  const int g4 = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int b = b0 + 16 * wl + g4 + 8 * h;
+    if (b >= p.B) continue;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const size_t off = (size_t)b * UN + cols + 8 * j + 2 * t4;
+      const int2 in = *reinterpret_cast<const int2*>(p.acc + off);
+      uint32_t s0 = (uint32_t)in.x, s1 = (uint32_t)in.y;
+#pragma unroll
+      for (int lm = 0; lm < L; ++lm) {
+        const int sh = 8 * lm + p.key_shift;
+        if (sh < 32) {
+          s0 += d[(lm * 8 + j) * 4 + 2 * h] << sh;
+          s1 += d[(lm * 8 + j) * 4 + 2 * h + 1] << sh;
+        }
+      }
+      *reinterpret_cast<int2*>(p.out + off) = make_int2((int)s0, (int)s1);
+    }
+  }
 }
 
-template <int L, int THREADS>
-int launch(const void* a, const void* acc, const void* w, void* out, int B,
-           int kp1, int N, int l, int bgbit, uint32_t offset, int key_shift,
-           cudaStream_t stream) {
-  int logN = 0;
-  while ((1 << logN) < N) ++logN;
-  const size_t smem = smem_bytes(THREADS, L, l, N);
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_cmux_kernel<L, THREADS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, looked up through the runtime, so
+// the build needs no -lcuda.
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f) : nullptr;
+  }();
+  return fn;
+}
+
+template <int L, int CW>
+int launch(const void* wt, Args p, cudaStream_t stream) {
+  p.stages = ring_stages(L, CW, p.l);
+  if (p.stages == 0) return (int)cudaErrorInvalidValue;
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  // wt as (L, UN, K) bytes, innermost first; one box per K slice and
+  // 64 columns
+  const int UN = p.kp1 * p.N, K = UN * p.l;
+  const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)UN, (cuuint64_t)L};
+  const cuuint64_t strides[2] = {(cuuint64_t)K, (cuuint64_t)UN * K};
+  const cuuint32_t box[3] = {BK, BN, (cuuint32_t)L};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  CUtensorMap map;
+  if (enc(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(wt), dims,
+          strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(L, CW, p.l, p.stages);
+  const cudaError_t e = cudaFuncSetAttribute(
+      fused_cmux_kernel<L, CW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(kp1 * N / BN, (B + THREADS / 4 - 1) / (THREADS / 4));
-  fused_cmux_kernel<L, THREADS><<<grid, THREADS, smem, stream>>>(
-      (const int32_t*)a, (const int32_t*)acc, (const int8_t*)w, (int32_t*)out,
-      B, kp1, N, logN, l, bgbit, offset, key_shift);
+  const dim3 grid(UN / (BN * CW), (p.B + 63) / 64);
+  fused_cmux_kernel<L, CW><<<grid, CW * 128 + 32, smem, stream>>>(map, p);
   return (int)cudaGetLastError();
 }
 
-// tile_rows 64 or 128 forces a tile; 0 chooses.  The 128-row tile does more
-// multiply-adds per byte staged and per barrier, but runs one block per SM
-// on half as many blocks, so it loses while the batch is small enough for
-// the 64-row grid to leave SMs idle.  It is chosen where the 64-row grid
-// has more blocks than the card has SMs, the 128-row tile fits the 227 KB
-// of shared memory a block may use and N is a multiple of its 64-deep K
-// stage.
 template <int L>
-int launch_tile(const void* a, const void* acc, const void* w, void* out,
-                int B, int kp1, int N, int l, int bgbit, uint32_t offset,
-                int key_shift, int tile_rows, cudaStream_t stream) {
-  const bool fits128 = N % 64 == 0 && smem_bytes(512, L, l, N) <= 232448;
-  if (tile_rows == 0) {
-    int dev = 0, sms = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    const long blocks64 = (long)(kp1 * N / BN) * ((B + 63) / 64);
-    tile_rows = fits128 && blocks64 > sms ? 128 : 64;
-  }
-  if (tile_rows == 128 && fits128)
-    return launch<L, 512>(a, acc, w, out, B, kp1, N, l, bgbit, offset,
-                          key_shift, stream);
-  if (tile_rows == 64)
-    return launch<L, 256>(a, acc, w, out, B, kp1, N, l, bgbit, offset,
-                          key_shift, stream);
+int launch_plan(const void* wt, const Args& p, int tile_cols,
+                cudaStream_t stream) {
+  if (tile_cols == 128) return launch<L, 2>(wt, p, stream);
+  if (tile_cols == 64) return launch<L, 1>(wt, p, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// tile_cols 64 or 128: the output columns of a block, one consumer
+// warpgroup per 64 (the wrapper chooses: kernels.fused_cmux_step_v2_plan,
+// which mirrors smem_bytes and ring_stages).  N must be a multiple of 128,
+// l at most 4, and the plan's ring must hold l stages.
 extern "C" int tfhe_fused_cmux_step(const void* a, const void* acc,
-                                    const void* w, void* out, int B, int kp1,
+                                    const void* wt, void* out, int B, int kp1,
                                     int N, int l, int L, int bgbit,
                                     unsigned int offset, int key_shift,
-                                    int tile_rows, void* stream) {
+                                    int tile_cols, void* stream) {
+  if (N % BK != 0 || l < 1 || l > MAX_LEVELS)
+    return (int)cudaErrorInvalidValue;
+  int logN = 0;
+  while ((1 << logN) < N) ++logN;
+  const Args p{(const int32_t*)a, (const int32_t*)acc, (int32_t*)out, B, kp1,
+               N, logN, l, bgbit, key_shift, 0, offset};
   cudaStream_t s = (cudaStream_t)stream;
   switch (L) {
-    case 1: return launch_tile<1>(a, acc, w, out, B, kp1, N, l, bgbit, offset, key_shift, tile_rows, s);
-    case 2: return launch_tile<2>(a, acc, w, out, B, kp1, N, l, bgbit, offset, key_shift, tile_rows, s);
-    case 3: return launch_tile<3>(a, acc, w, out, B, kp1, N, l, bgbit, offset, key_shift, tile_rows, s);
+    case 1: return launch_plan<1>(wt, p, tile_cols, s);
+    case 2: return launch_plan<2>(wt, p, tile_cols, s);
+    case 3: return launch_plan<3>(wt, p, tile_cols, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -140,11 +140,17 @@ class _EngineBase:
         step)."""
         return None
 
-    def _fused_ok(self, acc, bgbit) -> bool:
+    def _fused_ok(self, acc, l, bgbit) -> bool:
+        """Whether fused_cmux_step_v2 takes this step: on a card, only
+        shapes in its kernel's domain (fused_cmux_step_v2_plan); on the CPU
+        its plain version takes any."""
         cfg = self.cfg
         return (cfg.out_bits == 32 and cfg.kbits == 32
                 and cfg.plane_split[1] == 1 and bgbit <= 8
-                and cfg.num_limbs <= 3 and acc.ndim == 3)
+                and cfg.num_limbs <= 3 and acc.ndim == 3
+                and (acc.device.type == "cpu"
+                     or kernels.fused_cmux_step_v2_plan(
+                         cfg.N, l, cfg.num_limbs) > 0))
 
 
 class NaiveEngine(_EngineBase):
@@ -185,6 +191,11 @@ class MatmulEngine(_EngineBase):
     def _w(self, prepared):
         return prepared["w"]
 
+    def _wt(self, prepared):
+        """The K-packed key of the fused step: the dense W transposed per
+        call (a copy of L*J*U*N^2 bytes, 21.2 MB at GATE_FAST2)."""
+        return prepared["w"].transpose(1, 2).contiguous()
+
     def accumulate(self, x, prepared):
         w = self._w(prepared)
         L, JN, UN = w.shape
@@ -200,18 +211,19 @@ class MatmulEngine(_EngineBase):
         return _fold_planes(self.cfg, x, self._w(prepared), acc)
 
     def cmux_step(self, a, acc, prepared, *, l, bgbit, offset):
-        if not self._fused_ok(acc, bgbit):
+        if not self._fused_ok(acc, l, bgbit):
             return None
-        return kernels.fused_cmux_step_v2(a, acc, self._w(prepared), l=l,
+        return kernels.fused_cmux_step_v2(a, acc, self._wt(prepared), l=l,
                                           bgbit=bgbit, offset=offset,
                                           key_shift=self.cfg.key_shift)
 
 
 class OnTheFlyMatmulEngine(MatmulEngine):
     """Keys stored as O(N) doubled-limb vectors (L, J, U, 2N) int8; every
-    call materializes the negacyclic limb matrices (kernels.materialize_w)
-    and runs the same int8 GEMM as MatmulEngine.  The dense matrices would
-    cost N times the key memory (n * 21 MB at GATE_FAST2)."""
+    call materializes the negacyclic limb matrices (kernels.materialize_w,
+    or kernels.materialize_wt in the fused step's K-packed layout) and runs
+    the same int8 GEMM as MatmulEngine.  The dense matrices would cost N
+    times the key memory (n * 21 MB at GATE_FAST2)."""
 
     def prepare(self, key_polys):
         J, U, N = key_polys.shape
@@ -220,6 +232,9 @@ class OnTheFlyMatmulEngine(MatmulEngine):
 
     def _w(self, prepared):
         return kernels.materialize_w(prepared["v"])
+
+    def _wt(self, prepared):
+        return kernels.materialize_wt(prepared["v"])
 
 
 class ChunkedEngine(_EngineBase):

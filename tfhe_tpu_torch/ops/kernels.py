@@ -15,6 +15,7 @@ exact) and the mod-2^32 recombination runs in int64.
 
   kernel                      replaces (pallas_kernels.py)  bound on the H100
   materialize_w               materialize_w                 bytes written (L*J*U*N*N)
+  materialize_wt              materialize_w (K-packed)      bytes written (L*J*U*N*N)
   rotate_decompose            rotate_decompose              bytes moved (4 + l per coeff)
   mm_recombine_acc            mm_recombine_acc              int8 MACs (W bytes at small B)
   fused_cmux_step             fused_cmux_step (v1)          int8 MACs
@@ -111,6 +112,37 @@ def materialize_w(v):
 
 
 materialize_w.launches = 0
+
+
+def materialize_wt_plain(v):
+    return materialize_w_plain(v).transpose(1, 2).contiguous()
+
+
+def materialize_wt(v):
+    """v: (L, J, U, 2N) int8 doubled limb vectors -> the K-packed key
+    Wt: (L, U*N, J*N) int8 with Wt[l, (u,i), (j,t)] = v[l,j,u,(i-t) mod 2N],
+    materialize_w's W transposed (K contiguous for each output column, as
+    fused_cmux_step_v2's wgmma reads it).
+
+    Kernel: csrc/materialize_w.cu, its second entry (the K-packed layout of
+    pallas_kernels.materialize_w).  Bound by the L*J*U*N^2 bytes it writes;
+    a row of Wt is a reversed run of v, so each thread still issues one
+    16-byte store, built from five aligned words of a reversed
+    shared-memory copy of the vector."""
+    _check(v, "materialize_wt v", torch.int8, 4)
+    L, J, U, twoN = v.shape
+    N = twoN // 2
+    _require(_is_pow2(twoN), "materialize_wt: 2N must be a power of two")
+    if _on_cpu(v):
+        return materialize_wt_plain(v)
+    _require(N >= 16, "materialize_wt: the kernel needs N >= 16")
+    out = torch.empty((L, U * N, J * N), dtype=torch.int8, device=v.device)
+    materialize_wt.launches += 1
+    _launch("materialize_wt", v.data_ptr(), out.data_ptr(), L, J, U, N)
+    return out
+
+
+materialize_wt.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -237,8 +269,11 @@ def _mm_split(B, K, UN, L, dev):
 # fused_cmux_step_v2
 # ---------------------------------------------------------------------------
 
-def fused_cmux_step_v2_plain(a, acc, w, *, l: int, bgbit: int, offset: int,
-                             key_shift: int = 0, kp1: int | None = None):
+def fused_cmux_step_plain(a, acc, w, *, l: int, bgbit: int, offset: int,
+                          key_shift: int = 0, kp1: int | None = None):
+    """The step on materialize_w's layout w (L, (k+1)*l*N, (k+1)*N): the
+    plain version of fused_cmux_step (v1), and of fused_cmux_step_v2 once
+    its key is transposed back."""
     B = acc.shape[0]
     kp1 = kp1 if acc.ndim == 2 else acc.shape[1]
     acc3 = acc.reshape(B, kp1, -1)
@@ -247,58 +282,99 @@ def fused_cmux_step_v2_plain(a, acc, w, *, l: int, bgbit: int, offset: int,
                                   shift_base=key_shift)
 
 
-def fused_cmux_step_v2(a, acc, w, *, l: int, bgbit: int, offset: int,
+def fused_cmux_step_v2_plain(a, acc, wt, *, l: int, bgbit: int, offset: int,
+                             key_shift: int = 0, kp1: int | None = None):
+    return fused_cmux_step_plain(a, acc, wt.transpose(1, 2), l=l, bgbit=bgbit,
+                                 offset=offset, key_shift=key_shift, kp1=kp1)
+
+
+# fused_cmux_step_v2's plans: the output columns of a block, one consumer
+# warpgroup per 64, every block owning 64 batch rows.
+FUSED_COLS = (64, 128)
+_FUSED_TILE = 64 * 128                 # one 64-row x 128-byte operand tile
+
+
+def fused_ring_stages(L: int, cols: int, l: int) -> int:
+    """Key-ring stages of a fused_cmux_step_v2 block of ``cols`` columns
+    (csrc/fused_cmux_step.cu, ring_stages): as many stages of L limbs'
+    key tiles as fit beside the two l-level digit buffers, at most 8; 0
+    where fewer than one group's l slices fit."""
+    room = MAX_SMEM - (1024 + 2 * l * _FUSED_TILE + 64 * 4)
+    s = min(room // ((cols // 64) * L * _FUSED_TILE + 16), 8)
+    return s if s >= l else 0
+
+
+def fused_cmux_step_v2_plan(N: int, l: int, L: int,
+                            tile_cols: int = 0) -> int:
+    """The output columns of a fused_cmux_step_v2 block for these shapes,
+    or 0 where its kernel cannot run them: N not a multiple of the 128-deep
+    K slice, l outside 1..4, L outside 1..3, or a forced ``tile_cols``
+    whose ring cannot hold one group.  Chosen (``tile_cols`` 0): 128, whose
+    two warpgroups share one digit build, rebuilt half as often (the faster
+    plan from B=64 up, and within 3 microseconds at B=1 and 3: PERF.md
+    §6); 64 where the 128-column ring cannot hold a group (l=4 at L=3)."""
+    if N % 128 or not 1 <= l <= 4 or not 1 <= L <= 3:
+        return 0
+    for cols in ((tile_cols,) if tile_cols else (128, 64)):
+        if fused_ring_stages(L, cols, l):
+            return cols
+    return 0
+
+
+def fused_cmux_step_v2(a, acc, wt, *, l: int, bgbit: int, offset: int,
                        key_shift: int = 0, kp1: int | None = None,
-                       tile_rows: int = 0):
+                       tile_cols: int = 0):
     """One blind-rotation step, fully fused:
 
-        out = acc + recombine(decompose((X^a - 1) * acc) @ w)
+        out = acc + recombine(decompose((X^a - 1) * acc) @ wt^T)
 
     a: (B,) int32; acc: (B, k+1, N) int32, or the flat (B, (k+1)*N) layout
-    with kp1 given (the same bytes); w: (L <= 3, (k+1)*l*N, (k+1)*N) int8.
-    Returns acc's layout.
+    with kp1 given (the same bytes); wt: (L <= 3, (k+1)*N, (k+1)*l*N) int8,
+    the K-packed key of materialize_wt.  Returns acc's layout.
 
     Kernel: csrc/fused_cmux_step.cu (replaces
-    pallas_kernels.fused_cmux_step_v2).  Bound by int8 tensor-core MACs;
-    the digits are built per tile in shared memory and never written to
-    device memory (rebuilt once per 128-column output tile, in swizzled
-    planes).  The batch tile is 128 rows once 64-row tiles would need more
-    blocks than the card has SMs (and the 128-row tile fits shared memory),
-    else 64; ``tile_rows`` 64 or 128 forces one, to time both (0 chooses)."""
-    _require(tile_rows in (0, 64, 128),
-             "fused_cmux_step_v2: tile_rows must be 0, 64 or 128")
+    pallas_kernels.fused_cmux_step_v2).  Bound by int8 tensor-core MACs.
+    A block owns 64 batch rows and 64 or 128 output columns of every limb
+    (one consumer warpgroup per 64); a producer warp loads the key tiles by
+    TMA into a ring of shared-memory stages, and the consumer warps build
+    the block's digits one 128-coefficient group (all l levels) at a time
+    while wgmma runs on the group before.  ``tile_cols`` 64 or 128 forces
+    the plan, 0 lets fused_cmux_step_v2_plan choose.  Any B >= 1; the
+    kernel's domain is fused_cmux_step_v2_plan's (N a multiple of 128,
+    l <= 4)."""
+    _require(tile_cols in (0, *FUSED_COLS),
+             "fused_cmux_step_v2: tile_cols must be 0, 64 or 128")
     _check(a, "fused_cmux_step_v2 a", torch.int32, 1)
     _require(acc.dtype == torch.int32 and acc.is_contiguous(),
              "fused_cmux_step_v2 acc: contiguous int32")
-    _check(w, "fused_cmux_step_v2 w", torch.int8, 3)
+    _check(wt, "fused_cmux_step_v2 wt", torch.int8, 3)
     if acc.ndim == 2:
         _require(kp1 is not None, "fused_cmux_step_v2: flat acc needs kp1")
         B, N = acc.shape[0], acc.shape[1] // kp1
     else:
         _require(acc.ndim == 3, "fused_cmux_step_v2 acc: (B, k+1, N)")
         B, kp1, N = acc.shape
-    L, K, UN = w.shape
+    L, UN, K = wt.shape
     _require(a.shape[0] == B, "fused_cmux_step_v2: a must have B entries")
     _require(K == kp1 * l * N and UN == kp1 * N,
-             "fused_cmux_step_v2: w must be (L, (k+1)*l*N, (k+1)*N)")
+             "fused_cmux_step_v2: wt must be (L, (k+1)*N, (k+1)*l*N)")
     _require(1 <= L <= 3, "fused_cmux_step_v2 takes 1 to 3 key limbs")
     _require(_is_pow2(N), "fused_cmux_step_v2: N must be a power of two")
     _require(1 <= bgbit <= 8 and l * bgbit <= 32,
              "fused_cmux_step_v2: digits must fit int8")
-    if _on_cpu(a, acc, w):
-        return fused_cmux_step_v2_plain(a, acc, w, l=l, bgbit=bgbit,
+    if _on_cpu(a, acc, wt):
+        return fused_cmux_step_v2_plain(a, acc, wt, l=l, bgbit=bgbit,
                                         offset=offset, key_shift=key_shift,
                                         kp1=kp1)
-    smem = l * _BM * N + L * _BN * _SB_WORDS * 4      # the 64-row tile
-    _require(N % _BK == 0 and UN % _BN == 0 and smem <= MAX_SMEM,
-             f"fused_cmux_step_v2: the kernel needs N % {_BK} == 0, "
-             f"(k+1)*N % {_BN} == 0 and {smem} <= {MAX_SMEM} bytes of "
-             f"shared memory")
+    cols = fused_cmux_step_v2_plan(N, l, L, tile_cols)
+    _require(cols > 0, f"fused_cmux_step_v2: no plan of the kernel takes "
+             f"N={N}, l={l}, L={L}, tile_cols={tile_cols} (it needs N % 128 "
+             f"== 0, l <= 4, and a key ring of at least l stages)")
     out = torch.empty_like(acc)
     fused_cmux_step_v2.launches += 1
-    _launch("fused_cmux_step", a.data_ptr(), acc.data_ptr(), w.data_ptr(),
+    _launch("fused_cmux_step", a.data_ptr(), acc.data_ptr(), wt.data_ptr(),
             out.data_ptr(), B, kp1, N, l, L, bgbit, offset & T.MASK32,
-            key_shift, tile_rows)
+            key_shift, cols)
     return out
 
 
@@ -313,7 +389,7 @@ def fused_cmux_step(a, acc, w, *, l: int, bgbit: int, offset: int,
     a: (B,) int32; acc: (B, k+1, N) int32; w: (3, (k+1)*l*N, (k+1)*N) int8
     (materialize_w's layout; three key limbs, as the JAX kernel is
     specialized).  Returns (B, k+1, N) int32.  Its plain version is
-    fused_cmux_step_v2_plain.
+    fused_cmux_step_plain.
 
     Kernel: csrc/fused_cmux_step_v1.cu (replaces
     pallas_kernels.fused_cmux_step).  Bound by int8 tensor-core MACs; a
@@ -334,8 +410,8 @@ def fused_cmux_step(a, acc, w, *, l: int, bgbit: int, offset: int,
     _require(1 <= bgbit <= 8 and l * bgbit <= 32,
              "fused_cmux_step: digits must fit int8")
     if _on_cpu(a, acc, w):
-        return fused_cmux_step_v2_plain(a, acc, w, l=l, bgbit=bgbit,
-                                        offset=offset, key_shift=key_shift)
+        return fused_cmux_step_plain(a, acc, w, l=l, bgbit=bgbit,
+                                     offset=offset, key_shift=key_shift)
     smem = _BM * (N + 16) + L * _BN * _SB_WORDS * 4
     _require(N % _BN == 0 and smem <= MAX_SMEM,
              f"fused_cmux_step: the kernel needs N % {_BN} == 0 and {smem} "
@@ -1036,7 +1112,7 @@ def ck_cmux_step64(a, acc, wm, *, l: int, bgbit: int, offset: int, m: int,
 ck_cmux_step64.launches = 0
 
 # in the order of pallas_kernels.py (PERF.md's kernel table)
-KERNELS = (materialize_w, rotate_decompose, fused_cmux_step,
+KERNELS = (materialize_w, materialize_wt, rotate_decompose, fused_cmux_step,
            fused_cmux_step_v2, rotate_decompose64, rotate_decompose64_ck,
            rotate_decompose64_ck_flat, ck_dot64p, ck_dot64p_sacc,
            ck_dot64p_acc, ck_cmux_step32, ck_cmux_step64, mm_recombine_acc)
