@@ -15,9 +15,12 @@ Phases (each prints its own lines; any failure exits non-zero):
      an H100 SXM: materialize_w and its K-packed entry materialize_wt, the
      fused step (wgmma + TMA on the K-packed key) at GATE_FAST2 B=8192 and
      B=1024 and GATE_MXU B=8192, the v1 fused step at GATE_FAST2 and
-     GATE_MXU B=8192 (also equal to v2's kernel), the 64-bit kernels (and the fused-epilogue pair, the
-     limb-grid contraction and the plain-layout digits, which re-laid out
-     must equal the chunk-layout kernel's) at CB_MXU and CB_ACTIVE B=256,
+     GATE_MXU B=8192 (also equal to v2's kernel), the 64-bit kernels (and
+     the fused-epilogue pair, the limb-grid contraction and the plain-layout
+     digits, which re-laid out must equal the chunk-layout kernel's) at
+     CB_MXU and CB_ACTIVE B=256, ck_dot64p and ck_dot64p_acc on the K-packed
+     key wmt with their chosen plans, ck_dot64p also at CB_MXU tails B=1, 3,
+     100,
      the one-kernel 64-bit step there and at CB_MXU tails B=1, 3, 100,
      ck_cmux_step32 at GATE_MXU B=8192, GATE_DEFAULT B=256, GATE_MXU
      B=256 and 512 (the adder's narrow launches) and tail batches B=1, 3,
@@ -43,13 +46,15 @@ Phases (each prints its own lines; any failure exits non-zero):
      CircuitCloudKey.generate (seconds per keygen.circuit.* span) /
      make_circuit_bootstrap_staged, one untimed launch, then a timed one;
      every step must go through rotate_decompose64_ck + ck_dot64p (1,000 of
-     each per launch: two 500-step rotations) and no 32-bit kernel; every
+     each per launch: two 500-step rotations) on the prepared K-packed key
+     (no per-call transpose of wm) and no 32-bit kernel; every
      TRGSW row phase, a CMux driven by each TRGSW and a 4-bit LUT over 64
      instances (lut.eval_lut_batch) must be right; then where one launch's
      time goes (CUDA events) and the peak device memory;
   5b. the same launch with TFHE_CK64_PATH=acc on phase 5's keys: TRGSWs
      bit-identical to phase 5's, 1,000 rotate_decompose64_ck_flat + 1,000
-     ck_dot64p_acc launches and no other CMux kernel;
+     ck_dot64p_acc launches (no per-call transpose) and no other CMux
+     kernel;
   5c. the same with TFHE_CK64_PATH=sacc: 1,000 rotate_decompose64_ck_flat +
      1,000 ck_dot64p_sacc launches and no other CMux kernel;
   5d. the same with TFHE_CK64_FUSED=1: 1,000 ck_cmux_step64 launches and no
@@ -275,7 +280,9 @@ def _kernel_cases(seed: int = 0):
 
     # rotate_decompose64_ck + ck_dot64p: the circuit bootstrap's lvl2 step at
     # B=256, CB_MXU (l=5, Bg=2^8: one plane, 6 key limbs) then a
-    # CB_ACTIVE-shaped case (l=4, Bg=2^9: two planes, 8 key limbs)
+    # CB_ACTIVE-shaped case (l=4, Bg=2^9: two planes, 8 key limbs); the two
+    # wgmma contractions read the K-packed key wmt (phase_kernels derives it
+    # on the card, as ChunkedEngine.prepare does)
     B, kp1, N, m = 256, 2, 2048, CB_M
     C = N // m
     for label, p, L in (("CB_MXU", CB_MXU.tgsw_lvl2, 6),
@@ -332,6 +339,21 @@ def _kernel_cases(seed: int = 0):
                           bound_ms(_nbytes(x, wm, acc, acc), macs),
                           ("_int_mm", (x.reshape(B * C * P, Jm), wcat)),
                           True))
+
+    # ck_dot64p at CB_MXU tail batches (the default step's narrow launches)
+    p, L = CB_MXU.tgsw_lvl2, 6
+    Jm, UL = kp1 * p.l * m, kp1 * L
+    wm = i8((UL, Jm, N + m))
+    for B in (1, 3, 100):
+        x = i8((B, C * K.ck_width(Jm)))
+        macs = B * UL * N * (Jm // m) * N
+        cases.append(("ck_dot64p", f"CB_MXU B={B}", "csrc/ck_dot64p.cu",
+                      f"{PALLAS}:835", K.ck_dot64p, K.ck_dot64p_plain,
+                      (x, wm), dict(N=N, m=m, planes=1),
+                      bound_ms(_nbytes(x, wm) + UL * B * N * 4, macs),
+                      ("_int_mm", (x.reshape(B * C, Jm), wm.permute(
+                          1, 0, 2).reshape(Jm, UL * (N + m))))
+                      if B * C > 16 else None, True))
 
     # ck_cmux_step64: the whole 64-bit step on the flat accumulator at
     # CB_MXU and CB_ACTIVE B=256, then CB_MXU tail batches
@@ -398,7 +420,10 @@ def phase_kernels(reps: int = 20):
     for (name, shape, src, replaces, wrapper, plain, args, kw, (bnd, by),
          lib, plain_on_card) in _kernel_cases():
         dev_args = tuple(t.cuda() for t in args)
-        got = wrapper(*dev_args, **kw)
+        launch_kw = dict(kw)
+        if name in K64_WMT:                    # the engine's K-packed key
+            launch_kw["wmt"] = K.ck_wmt(dev_args[1])
+        got = wrapper(*dev_args, **launch_kw)
         torch.cuda.synchronize()
         want = plain(*(dev_args if plain_on_card else args), **kw)
         err = _compare(name, got, want)
@@ -428,7 +453,7 @@ def phase_kernels(reps: int = 20):
                 forced["tile_rows"] = plan[0]
             _compare(f"{name} split=1", wrapper(*dev_args, **forced), got)
             split1_ms = cuda_ms(lambda: wrapper(*dev_args, **forced), reps)
-        ms = cuda_ms(lambda: wrapper(*dev_args, **kw), reps)
+        ms = cuda_ms(lambda: wrapper(*dev_args, **launch_kw), reps)
         plain_ms = cuda_ms(lambda: plain(*dev_args, **kw), 3, warmup=1)
         if name in SPLIT_KERNELS:
             split_txt = (f", chosen (tile_rows, S) = {plan}; S = 1 "
@@ -444,16 +469,24 @@ def phase_kernels(reps: int = 20):
         if name in SPLIT_KERNELS:
             numbers.update(tile_rows=plan[0], split=plan[1],
                            split1_ms=split1_ms)
+        if name in K64_WMT:
+            numbers["plan"] = _k64_plan(name, dev_args, kw)
+            what = "rows" if name == "ck_dot64p" else "rows, limbs"
+            split_txt = f", plan ({what}) = {numbers['plan']}"
         if name in ("ck_dot64p_acc", "ck_dot64p_sacc"):
             x, wm, acc = dev_args              # the two-kernel step's dot
-            kp1 = kw["kp1"]
+            kp1, wmt = kw["kp1"], K.ck_wmt(wm)
             numbers["two_kernel_ms"] = cuda_ms(lambda: acc + K.recombine(
-                K.ck_dot64p(x, wm, N=kw["N"], m=kw["m"], planes=kw["planes"]),
-                kp1, kw["key_shift"]).reshape(acc.shape), reps)
+                K.ck_dot64p(x, wm, N=kw["N"], m=kw["m"], planes=kw["planes"],
+                            wmt=wmt), kp1, kw["key_shift"]).reshape(
+                                acc.shape), reps)
+            del wmt
         if name == "ck_cmux_step64" and dev_args[0].shape[0] == 256:
+            wmt = K.ck_wmt(dev_args[2])
             numbers["default_step_ms"] = cuda_ms(
-                lambda: _default_step64(*dev_args, **kw), reps)
-        del dev_args, got, want
+                lambda: _default_step64(*dev_args, wmt=wmt, **kw), reps)
+            del wmt
+        del dev_args, launch_kw, got, want
         if name in results:
             results[name].setdefault("other_shapes", []).append(numbers)
         else:
@@ -477,6 +510,21 @@ def phase_kernels(reps: int = 20):
 
 # the kernels whose reduction is split over blocks (K slices, chunk windows)
 SPLIT_KERNELS = ("mm_recombine_acc", "ck_cmux_step32")
+# the wgmma contractions, which read the K-packed chunked key wmt
+K64_WMT = ("ck_dot64p", "ck_dot64p_acc")
+
+
+def _k64_plan(name, dev_args, kw):
+    """The plan the wrapper of ``name`` chooses for these inputs: the rows
+    of a ck_dot64p block, (rows, limbs) of a ck_dot64p_acc block."""
+    from tfhe_tpu_torch.ops import kernels as K
+    x, wm = dev_args[:2]
+    UL, Jm, _ = wm.shape
+    if name == "ck_dot64p":
+        return K.ck_dot64p_plan(x.shape[0], kw["N"], kw["m"], Jm,
+                                kw["planes"])
+    return K.ck_dot64p_acc_plan(x.shape[0], kw["N"], kw["m"], Jm,
+                                UL // kw["kp1"], kw["planes"])
 
 
 def _plan(name, dev_args, kw):
@@ -557,14 +605,14 @@ def phase_splits(results, reps: int = 10):
 
 
 def _default_step64(a, acc, wm, *, l, bgbit, offset, m, planes, kp1,
-                    key_shift):
+                    key_shift, wmt):
     """The default 64-bit step (rotate_decompose64_ck + ck_dot64p + the
     int64 epilogue) on the flat accumulator: what ck_cmux_step64 replaces."""
     from tfhe_tpu_torch.ops import kernels as K
     B, N = acc.shape[0], acc.shape[1] // kp1
     x = K.rotate_decompose64_ck(a, acc.view(B, kp1, N), l=l, bgbit=bgbit,
                                 offset=offset, m=m, planes=planes)
-    y = K.ck_dot64p(x, wm, N=N, m=m, planes=planes)
+    y = K.ck_dot64p(x, wm, N=N, m=m, planes=planes, wmt=wmt)
     return acc + K.recombine(y, kp1, key_shift).reshape(acc.shape)
 
 
@@ -873,6 +921,7 @@ def phase_circuit(smi: str):
     for name in ("rotate_decompose64_ck", "ck_dot64p"):
         check(counts[name] == steps, f"CB_MXU: {name} launched "
               f"{counts[name]} times, want {steps}")
+    _no_transposes("CB_MXU")
     for name in ("materialize_w", "materialize_wt", "rotate_decompose",
                  "mm_recombine_acc", "fused_cmux_step_v2"):
         check(counts[name] == 0, f"CB_MXU: 32-bit kernel {name} launched "
@@ -909,7 +958,8 @@ def phase_circuit(smi: str):
     # where one launch's time goes, from CUDA events at the path's shapes
     p2 = P.tgsw_lvl2
     eng = make_engine(tgsw.engine_config(p2), "chunked")
-    wm0 = ck.data["bk"]["wm"][0]
+    wm0, wmt0 = ck.data["bk"]["wm"][0], ck.data["bk"]["wmt"][0]
+    prep0 = {"wm": wm0, "wmt": wmt0}
     acc = torch.randint(-2**63, 2**63 - 1, (batch, k + 1, P.n_lvl2),
                         dtype=torch.int64, device=dev)
     a0 = torch.randint(0, 2 * P.n_lvl2, (batch,), dtype=torch.int32,
@@ -917,22 +967,25 @@ def phase_circuit(smi: str):
     kw = dict(l=p2.l, bgbit=p2.bgbit, offset=p2.offset, m=eng.m,
               planes=eng.cfg.plane_split[1])
     x = K.rotate_decompose64_ck(a0, acc, **kw)
-    y = K.ck_dot64p(x, wm0, N=P.n_lvl2, m=eng.m, planes=kw["planes"])
+    y = K.ck_dot64p(x, wm0, N=P.n_lvl2, m=eng.m, planes=kw["planes"],
+                    wmt=wmt0)
     rot_ms = cuda_ms(lambda: K.rotate_decompose64_ck(a0, acc, **kw), 20)
     dot_ms = cuda_ms(lambda: K.ck_dot64p(x, wm0, N=P.n_lvl2, m=eng.m,
-                                         planes=kw["planes"]), 10)
+                                         planes=kw["planes"], wmt=wmt0), 10)
     epi_ms = cuda_ms(lambda: acc + K.recombine(y, k + 1,
                                                eng.cfg.key_shift), 20)
-    step_ms = cuda_ms(lambda: eng.cmux_step(a0, acc, {"wm": wm0}, l=p2.l,
+    step_ms = cuda_ms(lambda: eng.cmux_step(a0, acc, prep0, l=p2.l,
                                             bgbit=p2.bgbit,
                                             offset=p2.offset), 10)
     accf = acc.reshape(batch, -1)
     opt_step_ms = {name: cuda_ms(lambda: getattr(eng, method)(
-        a0, accf, {"wm": wm0}, kp1=k + 1, l=p2.l, bgbit=p2.bgbit,
+        a0, accf, prep0, kp1=k + 1, l=p2.l, bgbit=p2.bgbit,
         offset=p2.offset), 10)
         for name, method in (("acc", "cmux_step_acc"),
                              ("sacc", "cmux_step_sacc"),
                              ("fused", "cmux_step_flat"))}
+    dot_plan = K.ck_dot64p_plan(batch, P.n_lvl2, eng.m, wm0.shape[1],
+                                kw["planes"])
     preks = lwe.KeySwitchKey(P.ks10, P.n_lvl1, P.n_lvl0, ck.data["preks"])
     pre_ms = cuda_ms(lambda: lwe.keyswitch(ct, preks), 5)
     ext = torch.randint(-2**63, 2**63 - 1, (batch, P.n_lvl2 + 1),
@@ -941,12 +994,14 @@ def phase_circuit(smi: str):
     n_priv = ell1 * (k + 1)
     total = (rot_ms + dot_ms + epi_ms) * steps + pre_ms + priv_ms * n_priv
     print(f"phase 5 breakdown B={batch}: rotate_decompose64_ck "
-          f"{rot_ms:.4f} ms x {steps}, ck_dot64p {dot_ms:.4f} ms x {steps}, "
+          f"{rot_ms:.4f} ms x {steps}, ck_dot64p {dot_ms:.4f} ms x {steps} "
+          f"({dot_plan} rows a block), "
           f"int64 epilogue {epi_ms:.4f} ms x {steps} (whole step "
           f"{step_ms:.4f} ms), preKS {pre_ms:.3f} ms x 1, privKS "
           f"{priv_ms:.3f} ms x {n_priv}; sum {total:.1f} ms vs "
           f"{wall * 1e3:.1f} ms per launch; peak device memory "
-          f"{peak_gb:.2f} GB")
+          f"{peak_gb:.2f} GB (the keys' wm and its K-packed wmt "
+          f"{_nbytes(ck.data['bk']['wm']) / 1e9:.2f} GB each)")
     state = {"ck": ck, "ct": ct, "gsw": gsw, "wall": wall,
              "step_ms": step_ms, "opt_step_ms": opt_step_ms, "steps": steps}
     return counts, state
@@ -985,6 +1040,7 @@ def phase_circuit_step(smi: str, state: dict, phase: str, step: str,
     finally:
         del os.environ[var]
     counts = _launch_counts()
+    _no_transposes(f"CB_MXU {step}")
     check(torch.equal(gsw, state["gsw"]),
           f"CB_MXU {step}: the TRGSWs differ from the default step's")
     _only(counts, {name: steps for name in kernels}, f"CB_MXU {step}")
@@ -1032,6 +1088,15 @@ def _gate_run(P, backend, bits, chain, seed=0):
     check(ok.all(), f"{backend}: {int((~ok).sum())} of {len(bits)} bits "
           f"wrong")
     return sk, ck, out, wall, _launch_counts(), keygen_s, peak_gb
+
+
+def _no_transposes(what: str):
+    """The wgmma contractions read the prepared K-packed key: not one
+    per-call transpose of wm in the timed launch."""
+    from tfhe_tpu_torch.ops import kernels as K
+    for k in (K.ck_dot64p, K.ck_dot64p_acc):
+        check(k.transposes == 0, f"{what}: {k.__name__} transposed wm "
+              f"{k.transposes} times inside the loop")
 
 
 def _only(counts, allowed: dict, what: str):

@@ -215,11 +215,34 @@ def test_chunked_engine_matches_jax(N, J, U, dbits, klimbs, m):
     jprep = jax.jit(je.prepare)(jnp.asarray(key))
     tprep = te.prepare(torch.from_numpy(key))
     _same(tprep["wm"], jprep["wm"])
+    # the K-packed key is JAX's wm transposed on the numpy side
+    _same(tprep["wmt"], np.swapaxes(np.asarray(jprep["wm"]), -1, -2))
     _same(te.accumulate(torch.from_numpy(x), tprep),
           jax.jit(je.accumulate)(jnp.asarray(x), jprep))
     # a stack of keys prepares in one pass to the per-key layouts
     stacked = te.prepare(torch.from_numpy(np.stack([key, key[::-1].copy()])))
     _same(stacked["wm"][0], jprep["wm"])
+    _same(stacked["wmt"][0], tprep["wmt"])
+
+
+@pytest.mark.parametrize("bits", [64, 32])
+def test_prepare_k_packed_key(bits):
+    """At 64 bits prepare returns wmt = wm transposed (every leading step,
+    contiguous); at 32 bits no copy."""
+    r = np.random.default_rng(11)
+    te = engine.ChunkedEngine(engine.EngineConfig(N=128, out_bits=bits,
+                                                  digit_bits=8), m=32)
+    key = r.integers(-2**31, 2**31, (3, 2, 2, 128)).astype(
+        np.int64 if bits == 64 else np.int32)
+    prep = te.prepare(torch.from_numpy(key))
+    if bits == 32:
+        assert set(prep) == {"wm"}
+        return
+    assert set(prep) == {"wm", "wmt"} and prep["wmt"].is_contiguous()
+    assert tuple(prep["wmt"].shape) == (3, 2 * 8, 128 + 32, 2 * 32)
+    assert torch.equal(prep["wmt"], prep["wm"].transpose(-1, -2))
+    assert torch.equal(te.with_k_packed({"wm": prep["wm"]})["wmt"],
+                       prep["wmt"])
 
 
 def test_chunked_naive64_and_the_32_bit_rule():
@@ -287,9 +310,64 @@ def test_ck_dot64p_plain(N, kp1, l, U, L, m, P, lgsize):
     wm = r.integers(-128, 128, (U * L, Jm, N + m)).astype(np.int8)
     want = pk.ck_dot64p(jnp.asarray(x), jnp.asarray(wm), N=N, m=m, planes=P,
                         tm=8, lgsize=lgsize, interpret=True)
-    got = K.ck_dot64p(torch.from_numpy(x), torch.from_numpy(wm), N=N, m=m,
-                      planes=P, digit_bits=8 if P == 1 else 13)
+    tx, twm = torch.from_numpy(x), torch.from_numpy(wm)
+    got = K.ck_dot64p(tx, twm, N=N, m=m, planes=P,
+                      digit_bits=8 if P == 1 else 13)
     _same(got, want)
+    # the K-packed key the kernel reads: the plain version contracts it
+    _same(K.ck_dot64p(tx, twm, N=N, m=m, planes=P,
+                      digit_bits=8 if P == 1 else 13, wmt=K.ck_wmt(twm)),
+          want)
+    with pytest.raises(ValueError, match="wmt must be"):
+        K.ck_dot64p(tx, twm, N=N, m=m, planes=P, digit_bits=13, wmt=twm)
+
+
+@pytest.mark.parametrize("N,kp1,l,L,m,P", [
+    (128, 2, 2, 3, 32, 1), (128, 2, 2, 4, 64, 2), (256, 3, 2, 2, 64, 1)])
+def test_ck_dot64p_acc_plain_with_wmt(N, kp1, l, L, m, P):
+    """ck_dot64p_acc on the K-packed key (its plain version contracts wmt)
+    against the Pallas kernel (interpret) at test_ck_dot64p_plain's
+    shapes."""
+    r = np.random.default_rng(12)
+    C, Jm, B = N // m, kp1 * l * m, 8
+    x = r.integers(-64, 64, (B, C * P * K.ck_width(Jm))).astype(np.int8)
+    wm = r.integers(-128, 128, (kp1 * L, Jm, N + m)).astype(np.int8)
+    acc = _i64(r, (B, kp1 * N))
+    key_shift = max(0, 64 - 8 * L)
+    lo, hi = i64pair.from_i64(jnp.asarray(acc))
+    olo, ohi = pk.ck_dot64p_acc(jnp.asarray(x), jnp.asarray(wm), lo, hi, N=N,
+                                m=m, key_shift=key_shift, planes=P, tm=8,
+                                kp1=kp1, interpret=True)
+    want = i64pair.to_i64(olo, ohi)
+    tx, twm, tacc = (torch.from_numpy(v) for v in (x, wm, acc))
+    kw = dict(N=N, m=m, key_shift=key_shift, planes=P, kp1=kp1,
+              digit_bits=8 if P == 1 else 13)
+    _same(K.ck_dot64p_acc(tx, twm, tacc, **kw), want)
+    _same(K.ck_dot64p_acc(tx, twm, tacc, wmt=K.ck_wmt(twm), **kw), want)
+    with pytest.raises(ValueError, match="wmt must be"):
+        K.ck_dot64p_acc(tx, twm, tacc, wmt=twm[:, :, :Jm].contiguous(),
+                        **kw)
+
+
+@pytest.mark.parametrize("N,m,Jm,P,ok", [
+    (2048, 64, 640, 1, True), (2048, 64, 512, 2, True), (64, 32, 96, 1, True),
+    (32, 16, 64, 1, False), (128, 32, 200, 1, False), (128, 64, 256, 3, False)])
+def test_ck64_kernel_domain_and_plans(N, m, Jm, P, ok):
+    """The wgmma contractions' domain is one predicate: the plan functions
+    raise outside it, and inside it choose the rows from B (two warpgroups
+    above 64 rows) and ck_dot64p_acc's limbs a pass from L's parity."""
+    assert K.ck64_kernel_ok(N, m, Jm, P) == ok
+    for B in (1, 64, 65, 256):
+        rows = 128 if B > 64 else 64
+        if not ok:
+            with pytest.raises(ValueError, match="kernel needs"):
+                K.ck_dot64p_plan(B, N, m, Jm, P)
+            with pytest.raises(ValueError, match="kernel needs"):
+                K.ck_dot64p_acc_plan(B, N, m, Jm, 6, P)
+            continue
+        assert K.ck_dot64p_plan(B, N, m, Jm, P) == rows
+        assert K.ck_dot64p_acc_plan(B, N, m, Jm, 6, P) == (rows, 2)
+        assert K.ck_dot64p_acc_plan(B, N, m, Jm, 5, P) == (rows, 1)
 
 
 def test_ck_dot64p_asserts_the_int32_bound():
@@ -305,6 +383,60 @@ def test_ck_dot64p_asserts_the_int32_bound():
     assert K.ck_dot64p_exact(16, 2048, 64, 9)
     with pytest.raises(ValueError, match="int32 accumulation bound"):
         te.prepare(torch.zeros((32, 1, 2048), dtype=torch.int64))
+
+
+def test_converted_circuit_key_carries_wmt():
+    """A chunked circuit key carried over from the JAX package's arrays
+    gains the K-packed key, as prepare gives it."""
+    from tfhe_tpu_torch import convert
+    r = np.random.default_rng(13)
+    p = T_TOY
+    te = engine.make_engine(tgsw.engine_config(p.tgsw_lvl2), "chunked")
+    UL, Jm = (p.lvl2.k + 1) * te.cfg.num_limbs, p.tgsw_lvl2.kpl * te.m
+    wm = r.integers(-128, 128, (p.n_lvl0, UL, Jm, p.n_lvl2 + te.m)).astype(
+        np.int8)
+    ks10, ks21 = p.ks10, p.ks21
+    data = {"preks": r.integers(-128, 128, (4, p.n_lvl1 * ks10.t * ks10.base,
+                                            p.n_lvl0 + 1)).astype(np.int8),
+            "bk": {"wm": wm},
+            "privks": r.integers(-128, 128, (
+                p.lvl1.k + 1, 4, (p.n_lvl2 + 1) * ks21.t * ks21.base,
+                (p.lvl1.k + 1) * p.n_lvl1)).astype(np.int8)}
+    ck = convert.circuit_cloud_key_from_numpy(data, p, "chunked",
+                                              device="cpu")
+    assert set(ck.data["bk"]) == {"wm", "wmt"}
+    _same(ck.data["bk"]["wmt"], np.swapaxes(wm, -1, -2))
+
+
+@pytest.mark.parametrize("path", ["", "acc"])
+def test_64_bit_steps_read_the_prepared_k_packed_key(monkeypatch, path):
+    """The default and acc steps hand prepared["wmt"] to their contraction
+    through rotate_steps (so a card never transposes per step); the same
+    rotation from wm alone gives the same bits."""
+    p = T_TOY.tgsw_lvl2
+    r = np.random.default_rng(14)
+    n, B, N, k = 3, 2, p.tlwe.N, p.tlwe.k
+    te = engine.make_engine(tgsw.engine_config(p), "chunked")
+    key = r.integers(-2**50, 2**50, (n, p.kpl, k + 1, N)).astype(np.int64)
+    prep = te.prepare(torch.from_numpy(key))
+    acc = torch.from_numpy(_i64(r, (B, k + 1, N)))
+    abar = torch.from_numpy(r.integers(0, 2 * N, (B, n)).astype(np.int32))
+    name = "ck_dot64p_acc" if path else "ck_dot64p"
+    real, seen = getattr(K, name), []
+
+    def spy(*args, wmt=None, **kw):
+        seen.append(wmt)
+        return real(*args, wmt=wmt, **kw)
+
+    monkeypatch.setenv("TFHE_CK64_PATH", path)
+    monkeypatch.setattr(K, name, spy)
+    got = br.blind_rotate(acc, prep, abar, p, "chunked")
+    assert len(seen) == n
+    assert all(w is not None and w.data_ptr() == prep["wmt"][i].data_ptr()
+               for i, w in enumerate(seen))
+    bare = br.blind_rotate(acc, {"wm": prep["wm"]}, abar, p, "chunked")
+    assert seen[n:] == [None] * n
+    assert torch.equal(got, bare)
 
 
 # ---------------------------------------------------------------------------

@@ -182,6 +182,7 @@ def test_convert_round_trip():
     for name in ("preks", "privks"):
         assert torch.equal(ck.data[name], native.data[name])
     assert torch.equal(ck.data["bk"]["wm"], native.data["bk"]["wm"])
+    assert torch.equal(ck.data["bk"]["wmt"], native.data["bk"]["wmt"])
     got = circuit.circuit_bootstrap(torch.from_numpy(ct), ck.data, tp)
     np.testing.assert_array_equal(got.numpy(), gsw)
     with pytest.raises(ValueError, match="expects bk key"):

@@ -275,27 +275,125 @@ def test_rotate_decompose64_ck(cuda, B, k, N, l, bgbit, m):
                   (a, acc), kw, cuda)
 
 
-@pytest.mark.parametrize("B,N,J,UL,m,P", [(256, 2048, 10, 12, 64, 1),
-                                          (37, 2048, 8, 16, 64, 2),
-                                          (70, 256, 6, 3, 32, 1),
-                                          (9, 128, 4, 5, 64, 2)])
-def test_ck_dot64p(cuda, B, N, J, UL, m, P):
-    r = np.random.default_rng(6)
+# the wgmma contractions' cases: CB_MXU's shape (J = 10, 12 limb groups, one
+# plane) at every batch, CB_ACTIVE's (J = 8, 16 groups, two planes), m = 32
+# and 64, N from the 64-column tile up, limb counts that leave a ragged
+# last group, B = 300 (three 128-row tiles, the last one ragged).  Every tile's first added windows start below key row 0 and
+# its last subtracted ones end past N + m: TMA's zero fill is the mask.
+CK64_CASES = [(B, 2048, 10, 12, 64, 1) for B in (1, 3, 64, 65, 100, 256)] + [
+    (256, 2048, 8, 16, 64, 2), (37, 2048, 8, 16, 64, 2),
+    (65, 512, 8, 16, 64, 2), (300, 1024, 10, 12, 64, 1),
+    (70, 256, 6, 3, 32, 1), (100, 256, 4, 5, 32, 2),
+    (64, 128, 6, 4, 32, 1), (9, 128, 4, 5, 64, 2), (5, 64, 4, 3, 32, 1)]
+
+
+def _ck64_inputs(r, B, N, J, UL, m, P, extreme=False):
+    """x (B, C*P*ckp) and wm (UL, J*m, N+m); ``extreme``: key limbs all
+    -128 and digit rows at the planes' extremes (P = 1: -128 and 127; P =
+    2: -64 and 64), the largest partial sums the in-place negation and the
+    plane shift see."""
     ckp = K.ck_width(J * m)
     lo, hi = (-128, 128) if P == 1 else (-64, 65)
     x = _i8(r, (B, (N // m) * P * ckp), lo, hi)
     wm = _i8(r, (UL, J * m, N + m))
-    _same_on_card(K.ck_dot64p, K.ck_dot64p_plain, (x, wm),
-                  dict(N=N, m=m, planes=P), cuda)
+    if extreme:
+        wm.fill_(-128)
+        x[0::2] = lo
+        x[1::2] = hi - 1
+    return x, wm
+
+
+def _on_card_vs_plain(fn, plain, args, kw, cuda, **launch):
+    """fn on the card against the plain version on the card (its float64
+    sums are exact there too; the host would take seconds a case)."""
+    dev = tuple(t.to(cuda) for t in args)
+    got = fn(*dev, **kw, **launch)
+    want = plain(*dev, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _ck_dot64p_rows(x, wm, *, N, m, planes, rows):
+    """ck_dot64p's kernel at a forced row tile, through its raw entry (the
+    wrapper chooses the rows from B)."""
+    wmt = K.ck_wmt(wm)
+    UL, _, Jm = wmt.shape
+    out = torch.empty((UL, x.shape[0], N), dtype=torch.int32,
+                      device=x.device)
+    K._launch("ck_dot64p", x.data_ptr(), wmt.data_ptr(), out.data_ptr(),
+              x.shape[0], N, m, Jm, UL, planes, K.ck_width(Jm), rows)
+    return out
+
+
+def _ck_dot64p_acc_plan(x, wm, acc, *, N, m, planes, kp1, key_shift, plan):
+    """ck_dot64p_acc's kernel at a forced (rows, limbs) plan, through its
+    raw entry."""
+    rows, limbs = plan
+    wmt = K.ck_wmt(wm)
+    UL, _, Jm = wmt.shape
+    out = torch.empty_like(acc)
+    K._launch("ck_dot64p_acc", x.data_ptr(), wmt.data_ptr(), acc.data_ptr(),
+              out.data_ptr(), x.shape[0], N, m, Jm, kp1, UL // kp1, planes,
+              K.ck_width(Jm), key_shift, rows, limbs)
+    return out
+
+
+@pytest.mark.parametrize("B,N,J,UL,m,P", CK64_CASES)
+def test_ck_dot64p(cuda, B, N, J, UL, m, P):
+    """The chosen plan on wmt as the engine prepares it, and from wm alone
+    (one transpose a call, counted)."""
+    x, wm = _ck64_inputs(np.random.default_rng(6), B, N, J, UL, m, P)
+    kw = dict(N=N, m=m, planes=P)
+    before = K.ck_dot64p.transposes
+    _on_card_vs_plain(K.ck_dot64p, K.ck_dot64p_plain, (x, wm), kw, cuda,
+                      wmt=K.ck_wmt(wm.to(cuda)))
+    assert K.ck_dot64p.transposes == before
+    _on_card_vs_plain(K.ck_dot64p, K.ck_dot64p_plain, (x, wm), kw, cuda)
+    assert K.ck_dot64p.transposes == before + 1
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("B,N,J,UL,m,P", [(65, 1024, 10, 12, 64, 1),
+                                          (100, 256, 4, 5, 32, 2),
+                                          (300, 512, 8, 16, 64, 2)])
+def test_ck_dot64p_every_plan(cuda, B, N, J, UL, m, P, rows):
+    """Both row tiles at the same batches, the one the wrapper would not
+    choose included."""
+    x, wm = _ck64_inputs(np.random.default_rng(16), B, N, J, UL, m, P)
+    _on_card_vs_plain(_ck_dot64p_rows, K.ck_dot64p_plain, (x, wm),
+                      dict(N=N, m=m, planes=P), cuda, rows=rows)
+
+
+@pytest.mark.parametrize("B,N,J,UL,m,P", [(256, 2048, 10, 12, 64, 1),
+                                          (100, 2048, 8, 16, 64, 2),
+                                          (65, 256, 6, 3, 32, 1)])
+def test_ck_dot64p_extreme_digits(cuda, B, N, J, UL, m, P):
+    """Digits at the planes' extremes against key limbs of -128: the
+    partial sums between the in-place negations and plane shifts reach
+    their largest magnitudes (wrapping mod 2^32 where P = 2), and the
+    folded result is still bit-exact."""
+    x, wm = _ck64_inputs(np.random.default_rng(17), B, N, J, UL, m, P,
+                         extreme=True)
+    kw = dict(N=N, m=m, planes=P)
+    _on_card_vs_plain(K.ck_dot64p, K.ck_dot64p_plain, (x, wm), kw, cuda)
+    for rows in (64, 128):
+        _on_card_vs_plain(_ck_dot64p_rows, K.ck_dot64p_plain, (x, wm), kw,
+                          cuda, rows=rows)
 
 
 def test_ck_dot64p_unsupported_shape_raises(cuda):
-    """N = 64 is below the kernel's 128-column tile: the wrapper raises
-    instead of running the plain version on the card."""
-    x = torch.zeros((4, 2 * 128), dtype=torch.int8, device=cuda)
-    wm = torch.zeros((2, 2 * 32, 64 + 32), dtype=torch.int8, device=cuda)
-    with pytest.raises(ValueError, match="kernel"):
-        K.ck_dot64p(x, wm, N=64, m=32)
+    """N = 32 is below the kernel's 64-column tile, and J*m = 24 is not a
+    multiple of 16 (TMA's row stride): the wrappers raise instead of
+    running the plain version on the card."""
+    for N, m, J in ((32, 16, 4), (128, 8, 3)):
+        ckp = K.ck_width(J * m)
+        x = torch.zeros((4, (N // m) * ckp), dtype=torch.int8, device=cuda)
+        wm = torch.zeros((2, J * m, N + m), dtype=torch.int8, device=cuda)
+        acc = torch.zeros((4, 2 * N), dtype=torch.int64, device=cuda)
+        with pytest.raises(ValueError, match="kernel"):
+            K.ck_dot64p(x, wm, N=N, m=m)
+        with pytest.raises(ValueError, match="kernel"):
+            K.ck_dot64p_acc(x, wm, acc, N=N, m=m, key_shift=0, kp1=2)
 
 
 @pytest.mark.parametrize("split", [1, 2, 3, 0])
@@ -342,20 +440,46 @@ def test_ck_cmux_step32_unsupported_shape_raises(cuda):
         K.ck_cmux_step32(a, acc, wm, l=3, bgbit=7, offset=0, m=64, split=1)
 
 
-@pytest.mark.parametrize("B,N,l,kp1,L,m,P", [(256, 2048, 5, 2, 6, 64, 1),
-                                             (37, 2048, 4, 2, 8, 64, 2),
-                                             (1, 256, 2, 3, 3, 64, 1),
-                                             (70, 128, 4, 2, 5, 32, 2)])
+# ck_dot64p_acc's cases: (B, N, l, kp1, L, m, P)
+CK64_ACC_CASES = [(B, 2048, 5, 2, 6, 64, 1) for B in (1, 3, 64, 65, 100, 256)
+                  ] + [(256, 2048, 4, 2, 8, 64, 2), (37, 2048, 4, 2, 8, 64, 2),
+                       (1, 256, 2, 3, 3, 64, 1), (70, 128, 4, 2, 5, 32, 2),
+                       (100, 256, 3, 2, 4, 32, 1), (5, 64, 2, 2, 3, 32, 1)]
+
+
+@pytest.mark.parametrize("B,N,l,kp1,L,m,P", CK64_ACC_CASES)
 def test_ck_dot64p_acc(cuda, B, N, l, kp1, L, m, P):
     r = np.random.default_rng(8)
-    ckp = K.ck_width(kp1 * l * m)
-    lo, hi = (-128, 128) if P == 1 else (-64, 65)
-    x = _i8(r, (B, (N // m) * P * ckp), lo, hi)
-    wm = _i8(r, (kp1 * L, kp1 * l * m, N + m))
+    x, wm = _ck64_inputs(r, B, N, kp1 * l, kp1 * L, m, P)
     acc = _i64(r, (B, kp1 * N))
-    _same_on_card(K.ck_dot64p_acc, K.ck_dot64p_acc_plain, (x, wm, acc),
-                  dict(N=N, m=m, planes=P, kp1=kp1,
-                       key_shift=max(0, 64 - 8 * L)), cuda)
+    kw = dict(N=N, m=m, planes=P, kp1=kp1, key_shift=max(0, 64 - 8 * L))
+    before = K.ck_dot64p_acc.transposes
+    _on_card_vs_plain(K.ck_dot64p_acc, K.ck_dot64p_acc_plain, (x, wm, acc),
+                      kw, cuda, wmt=K.ck_wmt(wm.to(cuda)))
+    assert K.ck_dot64p_acc.transposes == before
+    _on_card_vs_plain(K.ck_dot64p_acc, K.ck_dot64p_acc_plain, (x, wm, acc),
+                      kw, cuda)
+    assert K.ck_dot64p_acc.transposes == before + 1
+
+
+@pytest.mark.parametrize("extreme", [False, True])
+@pytest.mark.parametrize("plan", [(64, 1), (64, 2), (128, 1), (128, 2)])
+@pytest.mark.parametrize("B,N,l,kp1,L,m,P", [(65, 2048, 5, 2, 6, 64, 1),
+                                             (100, 512, 4, 2, 8, 64, 2),
+                                             (9, 256, 3, 2, 5, 32, 2),
+                                             (300, 256, 4, 2, 6, 64, 1)])
+def test_ck_dot64p_acc_every_plan(cuda, B, N, l, kp1, L, m, P, plan,
+                                  extreme):
+    """Every (rows, limbs) plan at the same batches, an odd L under two
+    limbs a pass (the second limb of a pass belongs to the next polynomial),
+    and the extreme digits of test_ck_dot64p_extreme_digits."""
+    r = np.random.default_rng(18)
+    x, wm = _ck64_inputs(r, B, N, kp1 * l, kp1 * L, m, P, extreme)
+    acc = _i64(r, (B, kp1 * N))
+    _on_card_vs_plain(_ck_dot64p_acc_plan, K.ck_dot64p_acc_plain,
+                      (x, wm, acc), dict(N=N, m=m, planes=P, kp1=kp1,
+                                         key_shift=max(0, 64 - 8 * L)),
+                      cuda, plan=plan)
 
 
 @pytest.mark.parametrize("B,k,N,l,bgbit,m", [(256, 1, 2048, 5, 8, 64),

@@ -115,6 +115,9 @@ def test_circuit_key_files_cross_load(tmp_path):
     data, params = ser.load_circuit_key(jpath, device="cpu")
     assert params == T_CB_TOY
     _same_circuit_data(data, ck.data)
+    # the reloaded key carries the K-packed key of the 64-bit steps
+    assert torch.equal(data["bk"]["wmt"], ck.data["bk"]["wmt"])
+    assert torch.equal(data["bk"]["wmt"], data["bk"]["wm"].transpose(-1, -2))
     assert torch.equal(circuit.circuit_bootstrap(ct, data, params), want)
     # port -> JAX
     tpath = str(tmp_path / "port_cb.npz")

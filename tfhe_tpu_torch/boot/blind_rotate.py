@@ -78,8 +78,9 @@ def cmux_step(eng, a, acc, prep, p: TGswParams):
         return fused
     if p.tlwe.bits == 64 and acc.device.type != "cpu":
         raise ValueError(
-            "this backend has no 64-bit step for the card; the 64-bit blind "
-            "rotation runs on the 'chunked' backend")
+            "no 64-bit step for the card takes these parameters: the 64-bit "
+            "blind rotation runs on the 'chunked' backend, in its kernels' "
+            "domain (kernels.ck64_kernel_ok)")
     if p.tlwe.bits == 32 and p.bgbit <= 8:
         digits = kernels.rotate_decompose(a, acc, l=p.l, bgbit=p.bgbit,
                                           offset=p.offset)

@@ -16,7 +16,8 @@ Both functions take plain numpy arrays (convert a JAX array with
     ``tfhe_tpu.boot.circuit.CircuitCloudKey.data`` — ``preks`` (4,
     n1*t*base, n0+1) int8 limbs, ``bk`` ``{"wm": (n0, U*L, J*m, N2+m)
     int8}`` for ``chunked`` (``{"mat": ...}`` for ``naive``), ``privks``
-    (k+1, 4, (n2+1)*t*base, (k+1)*N1) int8 limbs.
+    (k+1, 4, (n2+1)*t*base, (k+1)*N1) int8 limbs.  A chunked ``bk`` gains
+    the K-packed ``wmt`` here, as ``ChunkedEngine.prepare`` gives it.
 
 Both packages then compute the same function on the same keys.
 """
@@ -27,9 +28,10 @@ import numpy as np
 import torch
 
 from tfhe_tpu_torch import device as _device
-from tfhe_tpu_torch import lwe, tlwe
+from tfhe_tpu_torch import lwe, tgsw, tlwe
 from tfhe_tpu_torch.boot import circuit
 from tfhe_tpu_torch.boot.gate import CloudKey, SecretKey
+from tfhe_tpu_torch.ops.engine import make_engine
 from tfhe_tpu_torch.params import CircuitParams, GateParams, LweParams
 
 _BK_LEAF = {"onthefly": "v", "matmul": "w", "naive": "mat", "chunked": "wm"}
@@ -77,6 +79,9 @@ def circuit_cloud_key_from_numpy(key_data, params: CircuitParams,
                                  device=None) -> circuit.CircuitCloudKey:
     dev = _device.resolve(device)
     bk = _bk(key_data, backend, dev)
+    if backend == "chunked":              # the K-packed key of the 64-bit steps
+        bk = make_engine(tgsw.engine_config(params.tgsw_lvl2),
+                         "chunked").with_k_packed(bk)
     preks = lwe.KeySwitchKey.from_limbs(np.array(key_data["preks"], np.int8),
                                         params.ks10, params.n_lvl1,
                                         params.n_lvl0, device=dev)

@@ -52,9 +52,10 @@ SIGNATURES = {
                               [_P, _P, _P, _I, _I, _I, _I, _I, _U64, _I, _I,
                                _I, _P]),
     "ck_dot64p": ("tfhe_ck_dot64p", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                     _P]),
+                                     _I, _P]),
     "ck_dot64p_acc": ("tfhe_ck_dot64p_acc", [_P, _P, _P, _P, _I, _I, _I, _I,
-                                             _I, _I, _I, _I, _I, _P]),
+                                             _I, _I, _I, _I, _I, _I, _I,
+                                             _P]),
     "ck_cmux_step32": ("tfhe_ck_cmux_step32",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _I,
                         _I, _I, _P]),

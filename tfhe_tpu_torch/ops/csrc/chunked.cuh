@@ -1,6 +1,8 @@
-// Shared pieces of the chunked-key kernels (ck_dot64p.cu, ck_dot64p_acc.cu,
-// ck_cmux_step32.cu): the key-window tile loader and the window pass over
-// digits in ck_dot64p's chunk layout.
+// Shared pieces of the mma.sync chunked-key kernels on wm (ck_dot64p_sacc.cu,
+// ck_cmux_step64.cu; pipeline.cuh takes its tile constants): the key-window
+// tile loader and the window pass over digits in ck_dot64p's chunk layout.
+// ck_dot64p.cu and ck_dot64p_acc.cu run the same windows on the K-packed key
+// with wgmma (ck_wgmma.cuh).
 //
 // A block owns a tile of FOLDED output columns [i0, i0 + 128) of one
 // polynomial.  Chunk c of the digits adds key columns q = i - c*m (needed

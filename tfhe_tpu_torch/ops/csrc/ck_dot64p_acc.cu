@@ -1,136 +1,159 @@
 // ck_dot64p_acc: the chunked-key contraction with the 64-bit limb
-// recombination and the accumulator add inside.  x (B, C*P*ckp) int8
-// (rotate_decompose64_ck's chunk layout), wm (kp1*L, Jm, N+m) int8
-// (ChunkedEngine.prepare), acc / out (B, kp1*N) int64 (the native
-// (B, k+1, N) Torus64 accumulator, the same bytes):
+// recombination and the accumulator add inside, on Hopper.  x (B, C*P*ckp)
+// int8 (rotate_decompose64_ck's chunk layout), wmt (kp1*L, N+m, Jm) int8
+// (the K-packed chunked key of ChunkedEngine.prepare), acc / out
+// (B, kp1*N) int64 (the native (B, k+1, N) Torus64 accumulator, the same
+// bytes):
 //
 //   out[b, u*N + i] = acc[b, u*N + i]
-//                     + sum_l fold(x . wm[u*L + l])[b, i] << (8 l + key_shift)
+//                     + sum_l fold(x . wmt[u*L + l])[b, i] << (8 l + key_shift)
 //
 // mod 2^64, fold as in ck_dot64p.cu (planes combined with << 7p).
 //
-// Replaces tfhe_tpu/ops/pallas_kernels.py:ck_dot64p_acc.  Bound by int8
-// tensor-core MACs, as ck_dot64p.  The design is ck_dot64p.cu's (a block
-// owns a 64 x 128 tile of folded output columns and runs the chunk windows
-// that reach it, chunked.cuh) with the epilogue moved inside: the block
-// owns one polynomial u and loops over its L limb groups (two at a time
-// where L is even, sharing each x tile), and every (limb, plane, sign) pass
-// is added to a uint64 accumulator held in registers as
-// (int64) pass << (8 l + key_shift + 7 p).  The per-limb int32 products of
-// ck_dot64p, (U*L, B, N) int32 in device memory, never exist.  Registers:
-// 32 uint64 outputs (64 words) plus LG x 32 int32 pass sums per thread.
-// Exact: each pass's int32 sum is bounded by J*(N+m)*|digit|*128 < 2^31,
+// Replaces tfhe_tpu/ops/pallas_kernels.py:ck_dot64p_acc.  Bound as
+// ck_dot64p (int8 MACs on paper, the operand tiles' L2 traffic on the
+// card), on the same mainloop (ck_wgmma.cuh: TMA into an mbarrier ring, int8
+// wgmma with LG limbs stacked along N, TMA's zero fill as the window mask,
+// one register set for every pass).  A block owns 64 folded columns of one
+// polynomial u for 64 WG batch rows and loops over u's L limbs, LG at a
+// time: each group's folded int32 lands in the one register set, is widened
+// and added to a uint64 sum held in registers as
+// (int64) fold << (8 l + key_shift), and the set is zeroed for the next
+// group.  The epilogue adds acc and writes (B, kp1*N) int64 once; the
+// per-limb int32 products of ck_dot64p, (U*L, B, N) in device memory, never
+// exist.  Registers: 32 LG int32 accumulators and 32 uint64 sums (64 words)
+// a consumer thread; -Xptxas -v (sm_90a): 168 at 128 rows and 2 limbs, 179
+// at 64 rows and 2 limbs, 149 at 1 limb; no spills.  Limbs of a ragged last
+// group that belong to the next polynomial are computed and not added.
+// At CB_MXU B=256 the chosen plan (128 rows, 2 limbs) runs kp1 x N/64 x 2
+// = 128 blocks of 288 threads, one wave on 132 SMs (one block an SM: a
+// 7-stage ring of 32 KB stages), each walking 3 limb pairs x 33 windows x 5
+// K tiles: 0.23 ms, about what its TMA loads alone take (PERF.md §6).
+// Exact: each limb's int32 fold is bounded by J*(N+m)*|digit|*128 < 2^31,
 // which the wrapper asserts; the uint64 sums wrap as the torus does.
-#include "chunked.cuh"
+#include "ck_wgmma.cuh"
 
 namespace {
 
 using namespace tfhe;
 
-constexpr int BM = CK_BM, THREADS = 8 * CK_BK;
+constexpr int TN = 64;                      // folded columns of a block
 
-template <int P, int LG>
-__global__ void __launch_bounds__(THREADS)
-ck_dot64p_acc_kernel(const int8_t* __restrict__ x,
-                     const int8_t* __restrict__ wm,
-                     const int64_t* __restrict__ acc_in,
-                     int64_t* __restrict__ out, int B, int N, int m, int Jm,
-                     int kp1, int L, int ckp, int key_shift) {
-  __shared__ __align__(16) uint8_t sA[BM * CK_SA_STRIDE];
-  __shared__ uint32_t sB[LG * BN * SB_WORDS<CK_BK>];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int warp_m = warp >> 2, warp_n = warp & 3;
-  const int gr = lane >> 2, t = lane & 3;
-  const int i0 = blockIdx.x * BN, m0 = blockIdx.y * BM, u = blockIdx.z;
-  const int npm = N + m, C = N / m;
-  const size_t xrow = (size_t)C * P * ckp;
-  const size_t gstride = (size_t)Jm * npm;
-  const int add_end = min((i0 + BN - 1) / m + 1, C);  // added: [0, add_end)
-  const int sub_begin = i0 / m;                       // subtracted: [.., C)
+struct AccArgs {
+  const int64_t* acc;
+  int64_t* out;
+  int kp1, L, key_shift;
+};
 
-  uint64_t z[2][4][4];                 // this thread's 32 outputs
+// A consumer warp: its warpgroup's share of the mainloop for every limb
+// group of polynomial u, folded into 64-bit sums, then acc + the sums.
+template <class Pl>
+__device__ __forceinline__ void ck_acc_consumer(const CkRing<Pl>& r,
+                                                CkCursor& cur,
+                                                const CkShape& g,
+                                                const AccArgs& a, int i0,
+                                                int b0, int u, int warp,
+                                                int lane) {
+  // z[4 jj + e] is row 16 wl + g4 + 8 (e >> 1), column 8 jj + 2 t4 + (e & 1)
+  // of the block: limb 0's accumulator registers
+  constexpr int Z = TN / 2;
+  const int wg = warp >> 2, wl = warp & 3;
+  uint64_t z[Z];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int i = 0; i < Z; ++i) z[i] = 0;
+  uint32_t d[Pl::R];
+  for (int l0 = 0; l0 < a.L; l0 += Pl::LG) {
 #pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
+    for (int i = 0; i < Pl::R; ++i) d[i] = 0;
+    if (CK_MAIN) ck_consume(d, r, cur, g, i0, wg, lane);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) z[mi][nj][e] = 0;
-
-  int32_t acc[LG][2][4][4];
-  for (int l0 = 0; l0 < L; l0 += LG) {
-    const int8_t* w = wm + (size_t)(u * L + l0) * gstride;
-    for (int p = 0; p < P; ++p) {
-      for (int sub = 0; sub < 2; ++sub) {
-        zero<LG>(acc);
-        ck_window_pass<LG>(acc, sA, sB, x, xrow, w, gstride, npm, B, m0, Jm,
-                           m, P, p, ckp, sub ? sub_begin : 0,
-                           sub ? C : add_end, (sub ? N : 0) + i0, tid);
+    for (int lg = 0; lg < Pl::LG; ++lg) {
+      const int s = 8 * (l0 + lg) + a.key_shift;
+      if (l0 + lg >= a.L || s >= 64) continue;   // next poly / vanishes
 #pragma unroll
-        for (int lg = 0; lg < LG; ++lg) {
-          const int s = 8 * (l0 + lg) + key_shift + 7 * p;
-          if (s >= 64) continue;        // vanishes mod 2^64
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-            for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                const uint64_t v = (uint64_t)(int64_t)acc[lg][mi][nj][e] << s;
-                z[mi][nj][e] = sub ? z[mi][nj][e] - v : z[mi][nj][e] + v;
-              }
-        }
-      }
+      for (int i = 0; i < Z; ++i)
+        z[i] += (uint64_t)(int64_t)(int32_t)d[lg * Z + i] << s;
     }
   }
 
-  const int UN = kp1 * N;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const size_t UN = (size_t)a.kp1 * g.N;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int h = 0; h < 2; ++h) {
+    const int b = b0 + 64 * wg + 16 * wl + g4 + 8 * h;
+    if (b >= g.B) continue;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + warp_m * 32 + mi * 16 + gr + 8 * h;
-      if (row >= B) continue;
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        const int col = u * N + i0 + warp_n * 32 + nj * 8 + 2 * t;
-        const size_t off = (size_t)row * UN + col;
-        const longlong2 in = *reinterpret_cast<const longlong2*>(acc_in + off);
-        const uint64_t s0 = (uint64_t)in.x + z[mi][nj][2 * h];
-        const uint64_t s1 = (uint64_t)in.y + z[mi][nj][2 * h + 1];
-        *reinterpret_cast<longlong2*>(out + off) =
-            make_longlong2((long long)s0, (long long)s1);
-      }
+    for (int jj = 0; jj < TN / 8; ++jj) {
+      const size_t off = (size_t)b * UN + (size_t)u * g.N + i0 + 8 * jj
+                         + 2 * t4;
+      const longlong2 in = *reinterpret_cast<const longlong2*>(a.acc + off);
+      const uint64_t s0 = (uint64_t)in.x + z[4 * jj + 2 * h];
+      const uint64_t s1 = (uint64_t)in.y + z[4 * jj + 2 * h + 1];
+      *reinterpret_cast<longlong2*>(a.out + off) =
+          make_longlong2((long long)s0, (long long)s1);
     }
+  }
 }
 
-template <int P, int LG>
-int launch(const void* x, const void* wm, const void* acc, void* out, int B,
-           int N, int m, int Jm, int kp1, int L, int ckp, int key_shift,
-           cudaStream_t stream) {
-  const dim3 grid(N / BN, (B + BM - 1) / BM, kp1);
-  ck_dot64p_acc_kernel<P, LG><<<grid, THREADS, 0, stream>>>(
-      (const int8_t*)x, (const int8_t*)wm, (const int64_t*)acc,
-      (int64_t*)out, B, N, m, Jm, kp1, L, ckp, key_shift);
-  return (int)cudaGetLastError();
+template <class Pl>
+__global__ void __launch_bounds__(Pl::THREADS, 1)
+ck_dot64p_acc_kernel(__grid_constant__ const CUtensorMap xmap,
+                     __grid_constant__ const CUtensorMap wmap,
+                     const CkShape g, const AccArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  const CkRing<Pl> r(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int i0 = blockIdx.x * TN, b0 = blockIdx.y * Pl::ROWS;
+  const int u = blockIdx.z;
+  r.init(tid);
+  CkCursor cur;
+
+  if (warp == 4 * Pl::WG) {                   // the producer warp
+    if (CK_MAIN && CK_LOADS && lane == 0) {
+      prefetch_map(&xmap);
+      prefetch_map(&wmap);
+      for (int l0 = 0; l0 < a.L; l0 += Pl::LG)
+        ck_produce(r, cur, &xmap, &wmap, g, i0, b0, u * a.L + l0);
+    }
+  } else {
+    ck_acc_consumer<Pl>(r, cur, g, a, i0, b0, u, warp, lane);
+  }
+}
+
+template <int WG, int NN>
+int launch(const void* x, const void* wmt, const AccArgs& a, const CkShape& g,
+           int Jm, cudaStream_t stream) {
+  using Pl = CkPlan<WG, TN, NN>;
+  if (g.N % TN != 0) return (int)cudaErrorInvalidValue;
+  if (tensor_map_encoder() == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap xmap, wmap;
+  if (!ck_maps<Pl>(&xmap, &wmap, x, wmt, g, Jm))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(g.N / TN, (g.B + Pl::ROWS - 1) / Pl::ROWS, a.kp1);
+  return ck_launch<Pl>(ck_dot64p_acc_kernel<Pl>, grid, stream, xmap, wmap, g,
+                       a);
 }
 
 }  // namespace
 
-extern "C" int tfhe_ck_dot64p_acc(const void* x, const void* wm,
+// The plan: ``rows`` 64 or 128 (one or two consumer warpgroups) and
+// ``limbs`` 1 or 2 limbs a pass set (kernels.ck_dot64p_acc_plan chooses);
+// 64 folded columns a block.  N a multiple of 64, Jm a multiple of 16, P 1
+// or 2.
+extern "C" int tfhe_ck_dot64p_acc(const void* x, const void* wmt,
                                   const void* acc, void* out, int B, int N,
                                   int m, int Jm, int kp1, int L, int P,
-                                  int ckp, int key_shift, void* stream) {
+                                  int ckp, int key_shift, int rows, int limbs,
+                                  void* stream) {
+  if (Jm % 16 != 0 || (P != 1 && P != 2) || N % m != 0)
+    return (int)cudaErrorInvalidValue;
+  const CkShape g{B, N, m, N / m, P, ckp, (Jm + CKW_BK - 1) / CKW_BK,
+                  kp1 * L};
+  const AccArgs a{(const int64_t*)acc, (int64_t*)out, kp1, L, key_shift};
   cudaStream_t s = (cudaStream_t)stream;
-  const bool pair = L % 2 == 0;         // two limb groups share each x tile
-  if (P == 1)
-    return pair ? launch<1, 2>(x, wm, acc, out, B, N, m, Jm, kp1, L, ckp,
-                               key_shift, s)
-                : launch<1, 1>(x, wm, acc, out, B, N, m, Jm, kp1, L, ckp,
-                               key_shift, s);
-  if (P == 2)
-    return pair ? launch<2, 2>(x, wm, acc, out, B, N, m, Jm, kp1, L, ckp,
-                               key_shift, s)
-                : launch<2, 1>(x, wm, acc, out, B, N, m, Jm, kp1, L, ckp,
-                               key_shift, s);
+  if (rows == 64 && limbs == 1) return launch<1, 64>(x, wmt, a, g, Jm, s);
+  if (rows == 64 && limbs == 2) return launch<1, 128>(x, wmt, a, g, Jm, s);
+  if (rows == 128 && limbs == 1) return launch<2, 64>(x, wmt, a, g, Jm, s);
+  if (rows == 128 && limbs == 2) return launch<2, 128>(x, wmt, a, g, Jm, s);
   return (int)cudaErrorInvalidValue;
 }

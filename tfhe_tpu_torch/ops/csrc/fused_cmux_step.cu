@@ -12,8 +12,9 @@
 // walks K in groups (u, t0): 128 coefficients of input polynomial u at every
 // level, i.e. the l 128-deep K slices j = u*l + lv.
 //   * Key tiles by TMA: one producer warp loads each slice's CW boxes of
-//     L x 64 x 128 bytes of wt (a 3-D tensor map, 128-byte swizzle) into a
-//     ring of S stages (full/empty mbarriers).  No thread touches a key byte.
+//     L x 64 x 128 bytes of wt (a 3-D tensor map, 128-byte swizzle,
+//     wgmma.cuh's encode_i8_map) into a ring of S stages (full/empty
+//     mbarriers).  No thread touches a key byte.
 //   * Tensor cores by wgmma: the L limbs' 64-column boxes are stacked along
 //     the instruction's N, so one m64n(64L)k32 per k32 step covers every limb
 //     (32 L int32 accumulators a thread, 96 at L = 3, which is why a
@@ -289,50 +290,19 @@ fused_cmux_kernel(__grid_constant__ const CUtensorMap wmap, const Args p) {
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, looked up through the runtime, so
-// the build needs no -lcuda.
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f) : nullptr;
-  }();
-  return fn;
-}
-
 template <int L, int CW>
 int launch(const void* wt, Args p, cudaStream_t stream) {
   p.stages = ring_stages(L, CW, p.l);
   if (p.stages == 0) return (int)cudaErrorInvalidValue;
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  if (tensor_map_encoder() == nullptr) return (int)cudaErrorNotSupported;
   // wt as (L, UN, K) bytes, innermost first; one box per K slice and
   // 64 columns
   const int UN = p.kp1 * p.N, K = UN * p.l;
   const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)UN, (cuuint64_t)L};
   const cuuint64_t strides[2] = {(cuuint64_t)K, (cuuint64_t)UN * K};
   const cuuint32_t box[3] = {BK, BN, (cuuint32_t)L};
-  const cuuint32_t unit[3] = {1, 1, 1};
   CUtensorMap map;
-  if (enc(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(wt), dims,
-          strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  if (!encode_i8_map(&map, wt, 3, dims, strides, box))
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(L, CW, p.l, p.stages);
   const cudaError_t e = cudaFuncSetAttribute(

@@ -249,7 +249,15 @@ class ChunkedEngine(_EngineBase):
     times wm lands at ring offset c*m; the 2N ring folds once with X^N = -1
     (``kernels.ck_dot64p``).  m = 128 at 32 bits and 64 at 64 bits are the
     JAX package's defaults, so its keys carry over byte for byte (3.34 GB
-    of wm at GATE_MXU, 8.1 GB at CB_MXU)."""
+    of wm at GATE_MXU, 8.1 GB at CB_MXU).
+
+    At 64 bits the prepared key also holds wm K-packed,
+        wmt[(u,l), q, (j,s)] = wm[(u,l), (j,s), q],
+    the operand of the wgmma contractions (``kernels.ck_dot64p`` and
+    ``ck_dot64p_acc``): another 8.1 GB at CB_MXU, derived on the key's
+    device and never written to a key file.  The 32-bit step
+    (``ck_cmux_step32``) and the 64-bit ``sacc`` and ``FUSED`` steps read
+    wm."""
 
     def __init__(self, cfg: EngineConfig, m: int | None = None):
         self.cfg = cfg
@@ -269,8 +277,9 @@ class ChunkedEngine(_EngineBase):
                 < 2**31)
 
     def prepare(self, key_polys):
-        """key_polys (..., J, U, N) -> {"wm": (..., U*L, J*m, N+m) int8};
-        leading axes (the steps of a bootstrapping key) are prepared in one
+        """key_polys (..., J, U, N) -> {"wm": (..., U*L, J*m, N+m) int8},
+        plus "wmt" (..., U*L, N+m, J*m) at 64 bits (with_k_packed); leading
+        axes (the steps of a bootstrapping key) are prepared in one
         pass."""
         cfg = self.cfg
         *lead, J, U, N = key_polys.shape
@@ -288,7 +297,24 @@ class ChunkedEngine(_EngineBase):
                          device=key_polys.device)
         for s in range(m):
             wm[..., s, s:s + N] = lj
-        return {"wm": wm.reshape(*lead, U * L, J * m, N + m)}
+        return self.with_k_packed(
+            {"wm": wm.reshape(*lead, U * L, J * m, N + m)})
+
+    def with_k_packed(self, prepared):
+        """``prepared`` with its K-packed key: at 64 bits "wmt" =
+        kernels.ck_wmt(prepared["wm"]), one transpose copy of every step on
+        wm's device; at 32 bits unchanged.  prepare and the conversion of
+        JAX circuit keys (``convert``) both go through it."""
+        if self.cfg.out_bits != 64:
+            return prepared
+        return {**prepared, "wmt": kernels.ck_wmt(prepared["wm"])}
+
+    def _ck64_ok(self, acc, Jm: int, P: int) -> bool:
+        """Whether the 64-bit steps that read wmt (the default and ``acc``)
+        apply: on a card only shapes in their kernels' domain
+        (kernels.ck64_kernel_ok); the CPU's plain versions take any."""
+        return (acc.device.type == "cpu"
+                or kernels.ck64_kernel_ok(self.cfg.N, self.m, Jm, P))
 
     def accumulate(self, x, prepared):
         cfg = self.cfg
@@ -302,7 +328,8 @@ class ChunkedEngine(_EngineBase):
         if cfg.out_bits == 64:
             xc = kernels.ck_layout(flat, self.m)
             y = kernels.ck_dot64p(xc, wm, N=cfg.N, m=self.m, planes=P,
-                                  digit_bits=cfg.digit_bits)
+                                  digit_bits=cfg.digit_bits,
+                                  wmt=prepared.get("wmt"))
             return kernels.recombine(y, U, cfg.key_shift).reshape(
                 *lead, U, cfg.N)
         # 32 bits: one contraction per digit plane (balanced 7-bit planes
@@ -332,7 +359,9 @@ class ChunkedEngine(_EngineBase):
         32 bits: one ck_cmux_step32 kernel.  64 bits, on the native int64
         accumulator: rotate_decompose64_ck (digits straight into the chunk
         layout) -> ck_dot64p -> limb recombination + accumulator add in
-        int64 torch ops (the JAX package's XLA epilogue)."""
+        int64 torch ops (the JAX package's XLA epilogue).  The contraction
+        reads prepared["wmt"] (a prepared dict without it costs a transpose
+        copy a step); None on a card outside its kernel's domain."""
         cfg = self.cfg
         if acc.ndim != 3:
             return None
@@ -343,13 +372,15 @@ class ChunkedEngine(_EngineBase):
                                           bgbit=bgbit, offset=offset,
                                           m=self.m, key_shift=cfg.key_shift)
         pb, P = cfg.plane_split
-        if P > 2:
+        wm = prepared["wm"]
+        if P > 2 or not self._ck64_ok(acc, wm.shape[-2], P):
             return None
         B, kp1, N = acc.shape
         x = kernels.rotate_decompose64_ck(a, acc, l=l, bgbit=bgbit,
                                           offset=offset, m=self.m, planes=P)
-        y = kernels.ck_dot64p(x, prepared["wm"], N=N, m=self.m, planes=P,
-                              digit_bits=cfg.digit_bits)
+        y = kernels.ck_dot64p(x, wm, N=N, m=self.m, planes=P,
+                              digit_bits=cfg.digit_bits,
+                              wmt=prepared.get("wmt"))
         return acc + kernels.recombine(y, kp1, cfg.key_shift)
 
     def _flat64_planes(self, acc_flat):
@@ -382,7 +413,7 @@ class ChunkedEngine(_EngineBase):
                                       key_shift=cfg.key_shift, kp1=kp1)
 
     def _two_kernel_step(self, dot, a, acc_flat, prepared, *, kp1, l, bgbit,
-                         offset):
+                         offset, **key):
         P = self._flat64_planes(acc_flat)
         if P is None:
             return None
@@ -392,16 +423,20 @@ class ChunkedEngine(_EngineBase):
                                                m=self.m, planes=P)
         return dot(x, prepared["wm"], acc_flat, N=cfg.N, m=self.m,
                    key_shift=cfg.key_shift, planes=P, kp1=kp1,
-                   digit_bits=cfg.digit_bits)
+                   digit_bits=cfg.digit_bits, **key)
 
     def cmux_step_acc(self, a, acc_flat, prepared, *, kp1, l, bgbit, offset):
         """The 64-bit step with the epilogue fused into the contraction, on
         the flat (B, (k+1)*N) int64 accumulator: rotate_decompose64_ck_flat
-        -> ck_dot64p_acc (the JAX package's TFHE_CK64_PATH=acc step).  None
-        when ineligible."""
+        -> ck_dot64p_acc (the JAX package's TFHE_CK64_PATH=acc step), which
+        reads prepared["wmt"].  None when ineligible, on a card also outside
+        its kernel's domain."""
+        if not self._ck64_ok(acc_flat, prepared["wm"].shape[-2],
+                             self.cfg.plane_split[1]):
+            return None
         return self._two_kernel_step(kernels.ck_dot64p_acc, a, acc_flat,
                                      prepared, kp1=kp1, l=l, bgbit=bgbit,
-                                     offset=offset)
+                                     offset=offset, wmt=prepared.get("wmt"))
 
     def cmux_step_sacc(self, a, acc_flat, prepared, *, kp1, l, bgbit,
                        offset):

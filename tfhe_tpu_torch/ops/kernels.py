@@ -23,14 +23,16 @@ exact) and the mod-2^32 recombination runs in int64.
   rotate_decompose64          rotate_decompose64            bytes moved (8 + l*P per coeff)
   rotate_decompose64_ck       rotate_decompose64_ck         bytes moved (8 + l*P per coeff)
   rotate_decompose64_ck_flat  rotate_decompose64_ck_flat    the same kernel, flat acc
-  ck_dot64p                   ck_dot64p                     int8 MACs
+  ck_dot64p                   ck_dot64p                     int8 MACs (reads wmt)
   ck_dot64p_sacc              ck_dot64p_sacc                int8 MACs
-  ck_dot64p_acc               ck_dot64p_acc                 int8 MACs
+  ck_dot64p_acc               ck_dot64p_acc                 int8 MACs (reads wmt)
   ck_cmux_step32              ck_cmux_step32                int8 MACs
   ck_cmux_step64              ck_cmux_step64                int8 MACs
 
 fused_cmux_step (v1) and rotate_decompose64 run on no path of the port, as
-in the JAX package, where only its tests call them.
+in the JAX package, where only its tests call them.  ck_dot64p and
+ck_dot64p_acc read the chunked key K-packed (wmt, ck_wmt), which the
+chunked engine prepares once at 64 bits beside wm.
 """
 
 from __future__ import annotations
@@ -638,25 +640,96 @@ def _ck_exact_check(name, Jm, N, m, digit_bits):
              f"*128 < 2^31 exceeded")
 
 
+def ck_wmt(wm):
+    """The K-packed chunked key: wm (..., U*L, J*m, N+m) -> wmt (..., U*L,
+    N+m, J*m) int8, wmt[..., g, q, k] = wm[..., g, k, q] (one transpose
+    copy), the layout the wgmma contractions' TMA loads read."""
+    return wm.transpose(-1, -2).contiguous()
+
+
+def ck64_kernel_ok(N: int, m: int, Jm: int, planes: int) -> bool:
+    """The domain of the wgmma chunked contractions, shared by their
+    wrappers and the chunked engine's 64-bit steps: N a multiple of m and
+    of the 64-column tile, J*m a multiple of 16 (the K-packed key's row
+    stride, which TMA needs in 16-byte units), one or two digit planes.
+    Any B >= 1 and any limb count."""
+    return (N % m == 0 and N % 64 == 0 and Jm > 0 and Jm % 16 == 0
+            and planes in (1, 2))
+
+
+def _ck64_require(name, N, m, Jm, planes):
+    _require(ck64_kernel_ok(N, m, Jm, planes),
+             f"{name}: the kernel needs N % 64 == 0, J*m % 16 == 0 and 1 or 2 "
+             f"planes, got N={N}, m={m}, J*m={Jm}, planes={planes}")
+
+
+# The plans of the wgmma contractions (csrc/ck_dot64p.cu, ck_dot64p_acc.cu):
+# a block owns 64 folded columns for 64 or 128 batch rows (one or two
+# consumer warpgroups sharing each key tile), the rows chosen from B.
+# Memoized: the 1,000 steps of a circuit bootstrap ask with the same shapes.
+
+@functools.lru_cache(maxsize=None)
+def ck_dot64p_plan(B: int, N: int, m: int, Jm: int, planes: int) -> int:
+    """The batch rows of a ck_dot64p block (its 64 columns of 4 limb groups
+    are fixed).  Raises outside ck64_kernel_ok."""
+    _ck64_require("ck_dot64p", N, m, Jm, planes)
+    return 128 if B > 64 else 64
+
+
+@functools.lru_cache(maxsize=None)
+def ck_dot64p_acc_plan(B: int, N: int, m: int, Jm: int, L: int,
+                       planes: int) -> tuple:
+    """(rows, limbs) of a ck_dot64p_acc block: the rows as ck_dot64p's, two
+    limbs a pass where L is even, else one.  Raises outside
+    ck64_kernel_ok."""
+    _ck64_require("ck_dot64p_acc", N, m, Jm, planes)
+    return 128 if B > 64 else 64, 2 if L % 2 == 0 else 1
+
+
+def _ck_key(name, wrapper, wm, wmt):
+    """The K-packed key of a launch: ``wmt`` as given (checked against
+    wm's shape), else one transpose copy of wm counted on
+    ``wrapper.transposes``."""
+    UL, Jm, Npm = wm.shape
+    if wmt is not None:
+        _check(wmt, f"{name} wmt", torch.int8, 3)
+        _require(tuple(wmt.shape) == (UL, Npm, Jm),
+                 f"{name}: wmt must be wm's shape transposed, "
+                 f"{(UL, Npm, Jm)}")
+        return wmt
+    wrapper.transposes += 1
+    return ck_wmt(wm)
+
+
+def _plain_key(wm, wmt):
+    """What the plain versions contract: the key the kernel would read."""
+    return wm if wmt is None else wmt.transpose(1, 2)
+
+
 def ck_dot64p(x, wm, *, N: int, m: int, planes: int = 1,
-              digit_bits: int | None = None):
+              digit_bits: int | None = None, wmt=None):
     """Chunked-key negacyclic contraction with per-limb int32 outputs:
 
         ring[g, b, c*m + q] += sum_p (x[b, (c*P+p)*ckp : +J*m] . wm[g, :, q]) << 7p
         out[g, b, i] = ring[g, b, i] - ring[g, b, N + i]
 
     x: (B, C*P*ckp) int8 (rotate_decompose64_ck's layout); wm: (U*L, J*m,
-    N+m) int8 (ChunkedEngine.prepare).  Returns (U*L, B, N) int32.  The sums
-    are exact in int32 when J*(N+m) * 2^(digit_bits-1) * 128 < 2^31
-    (digit_bits: the width of the digits the planes encode; 8 for one plane,
-    9 for two), which the wrapper asserts.
+    N+m) int8 (ChunkedEngine.prepare); wmt: the same key K-packed, (U*L,
+    N+m, J*m) (ck_wmt; the engine prepares it once at 64 bits).  Returns
+    (U*L, B, N) int32.  The sums are exact in int32 when J*(N+m) *
+    2^(digit_bits-1) * 128 < 2^31 (digit_bits: the width of the digits the
+    planes encode; 8 for one plane, 9 for two), which the wrapper asserts.
 
     Kernel: csrc/ck_dot64p.cu (replaces pallas_kernels.ck_dot64p).  Bound by
-    int8 tensor-core MACs.  A block owns a 64 x 128 tile of the N folded
-    outputs of one or two limb groups and runs, per plane, the chunks whose
-    key window reaches its columns (added) or their X^N wrap (subtracted):
-    C + 2 chunk products of depth J*m, key columns outside [0, N+m) read as
-    zero.  The 2N ring never reaches memory."""
+    int8 tensor-core MACs.  It reads wmt, by TMA, and runs int8 wgmma; a
+    caller that passes no wmt gets one transpose copy of wm per call,
+    counted on ``ck_dot64p.transposes``.  A block owns 64 folded columns
+    of 4 limb groups for 64 or 128 batch rows (ck_dot64p_plan), and runs,
+    per plane, the chunk
+    windows that reach its columns (added) or their X^N wrap (subtracted):
+    C + 1 or C + 2 chunk products of depth J*m, key rows outside [0, N+m)
+    read as zero.  The 2N ring never reaches memory.  On the CPU the plain
+    version contracts wmt when given, else wm."""
     _check(x, "ck_dot64p x", torch.int8, 2)
     _check(wm, "ck_dot64p wm", torch.int8, 3)
     UL, Jm, Npm = wm.shape
@@ -670,19 +743,22 @@ def ck_dot64p(x, wm, *, N: int, m: int, planes: int = 1,
              "ck_dot64p: x must be (B, C*P*ckp)")
     _ck_exact_check("ck_dot64p", Jm, N, m,
                     digit_bits or (8 if planes == 1 else 9))
-    if _on_cpu(x, wm):
-        return ck_dot64p_plain(x, wm, N=N, m=m, planes=planes)
-    _require(N % _BN == 0 and m % 4 == 0 and Jm % _BK == 0,
-             f"ck_dot64p: the kernel needs N % {_BN} == 0, m % 4 == 0 and "
-             f"J*m % {_BK} == 0")
+    if _on_cpu(x, wm, *(() if wmt is None else (wmt,))):
+        if wmt is not None:
+            _ck_key("ck_dot64p", ck_dot64p, wm, wmt)
+        return ck_dot64p_plain(x, _plain_key(wm, wmt), N=N, m=m,
+                               planes=planes)
+    rows = ck_dot64p_plan(B, N, m, Jm, planes)
+    wmt = _ck_key("ck_dot64p", ck_dot64p, wm, wmt)
     out = torch.empty((UL, B, N), dtype=torch.int32, device=x.device)
     ck_dot64p.launches += 1
-    _launch("ck_dot64p", x.data_ptr(), wm.data_ptr(), out.data_ptr(), B, N, m,
-            Jm, UL, planes, ckp)
+    _launch("ck_dot64p", x.data_ptr(), wmt.data_ptr(), out.data_ptr(), B, N,
+            m, Jm, UL, planes, ckp, rows)
     return out
 
 
 ck_dot64p.launches = 0
+ck_dot64p.transposes = 0
 
 
 # ---------------------------------------------------------------------------
@@ -707,12 +783,9 @@ def ck_dot64p_acc_plain(x, wm, acc, *, N: int, m: int, key_shift: int,
     return acc + recombine(y, kp1, key_shift).reshape(acc.shape)
 
 
-def _ck_dot64p_acc(wrapper, x, wm, acc, *, N, m, key_shift, planes, kp1,
-                   digit_bits):
-    """The contract ck_dot64p_acc and ck_dot64p_sacc share: checks, then the
-    plain version on the CPU or one launch of csrc/<wrapper name>.cu
-    counted on ``wrapper``."""
-    name = wrapper.__name__
+def _ck_acc_checks(name, x, wm, acc, *, N, m, planes, kp1, digit_bits):
+    """The checks ck_dot64p_acc and ck_dot64p_sacc share; returns (UL, Jm,
+    ckp)."""
     _check(x, f"{name} x", torch.int8, 2)
     _check(wm, f"{name} wm", torch.int8, 3)
     _check(acc, f"{name} acc", torch.int64, 2)
@@ -728,58 +801,80 @@ def _ck_dot64p_acc(wrapper, x, wm, acc, *, N, m, key_shift, planes, kp1,
     _require(x.shape[1] == (N // m) * planes * ckp,
              f"{name}: x must be (B, C*P*ckp)")
     _ck_exact_check(name, Jm, N, m, digit_bits or (8 if planes == 1 else 9))
-    if _on_cpu(x, wm, acc):
-        return ck_dot64p_acc_plain(x, wm, acc, N=N, m=m, key_shift=key_shift,
-                                   planes=planes, kp1=kp1)
-    _require(N % _BN == 0 and m % 4 == 0 and Jm % _BK == 0,
-             f"{name}: the kernel needs N % {_BN} == 0, m % 4 == 0 and "
-             f"J*m % {_BK} == 0")
-    out = torch.empty_like(acc)
-    wrapper.launches += 1
-    _launch(name, x.data_ptr(), wm.data_ptr(), acc.data_ptr(), out.data_ptr(),
-            B, N, m, Jm, kp1, UL // kp1, planes, ckp, key_shift)
-    return out
+    return UL, Jm, ckp
 
 
 def ck_dot64p_acc(x, wm, acc, *, N: int, m: int, key_shift: int,
-                  planes: int = 1, kp1: int, digit_bits: int | None = None):
+                  planes: int = 1, kp1: int, digit_bits: int | None = None,
+                  wmt=None):
     """ck_dot64p with the 64-bit limb recombination and the accumulator add
     inside:
 
         out = acc + sum_l ck_dot64p(x, wm)[u*L + l] << (8l + key_shift)
 
     mod 2^64.  x: (B, C*P*ckp) int8 (rotate_decompose64_ck's layout); wm:
-    (kp1*L, J*m, N+m) int8; acc: (B, kp1*N) int64, the flat accumulator.
-    Returns acc's shape.  The same int32 bound as ck_dot64p is asserted.
+    (kp1*L, J*m, N+m) int8; wmt: the same key K-packed (ck_wmt); acc:
+    (B, kp1*N) int64, the flat accumulator.  Returns acc's shape.  The same
+    int32 bound as ck_dot64p is asserted.
 
     Kernel: csrc/ck_dot64p_acc.cu (replaces pallas_kernels.ck_dot64p_acc).
-    Bound by int8 tensor-core MACs, as ck_dot64p; a block owns a 64 x 128
-    output tile of one polynomial, loops over its limb groups and keeps
-    the 64-bit sums in registers, so the (U*L, B, N) int32 products never
-    reach device memory."""
-    return _ck_dot64p_acc(ck_dot64p_acc, x, wm, acc, N=N, m=m,
-                          key_shift=key_shift, planes=planes, kp1=kp1,
-                          digit_bits=digit_bits)
+    Bound by int8 tensor-core MACs, as ck_dot64p, on its mainloop (TMA
+    loads of wmt and the digits, int8 wgmma; no wmt: one transpose copy a
+    call, counted on ``ck_dot64p_acc.transposes``).  A block owns 64 folded
+    columns of one polynomial for 64 or 128 rows, loops over its L limbs
+    one or two at a time (ck_dot64p_acc_plan) and keeps the 64-bit sums in
+    registers, so the (U*L, B, N) int32 products never reach device
+    memory."""
+    UL, Jm, ckp = _ck_acc_checks("ck_dot64p_acc", x, wm, acc, N=N, m=m,
+                                 planes=planes, kp1=kp1,
+                                 digit_bits=digit_bits)
+    if _on_cpu(x, wm, acc, *(() if wmt is None else (wmt,))):
+        if wmt is not None:
+            _ck_key("ck_dot64p_acc", ck_dot64p_acc, wm, wmt)
+        return ck_dot64p_acc_plain(x, _plain_key(wm, wmt), acc, N=N, m=m,
+                                   key_shift=key_shift, planes=planes,
+                                   kp1=kp1)
+    B, L = x.shape[0], UL // kp1
+    rows, limbs = ck_dot64p_acc_plan(B, N, m, Jm, L, planes)
+    wmt = _ck_key("ck_dot64p_acc", ck_dot64p_acc, wm, wmt)
+    out = torch.empty_like(acc)
+    ck_dot64p_acc.launches += 1
+    _launch("ck_dot64p_acc", x.data_ptr(), wmt.data_ptr(), acc.data_ptr(),
+            out.data_ptr(), B, N, m, Jm, kp1, L, planes, ckp, key_shift, rows,
+            limbs)
+    return out
 
 
 ck_dot64p_acc.launches = 0
+ck_dot64p_acc.transposes = 0
 
 
 def ck_dot64p_sacc(x, wm, acc, *, N: int, m: int, key_shift: int,
                    planes: int = 1, kp1: int, digit_bits: int | None = None):
     """ck_dot64p_acc's function and contract (its plain version is
-    ck_dot64p_acc_plain) with the limb axis in the grid.
+    ck_dot64p_acc_plain) with the limb axis in the grid, on wm.
 
     Kernel: csrc/ck_dot64p_sacc.cu (replaces pallas_kernels.ck_dot64p_sacc).
     Bound by int8 tensor-core MACs.  A block owns one (64-row tile,
     128-column tile, polynomial, limb) cell and adds its limb's shifted
     folded product into the output with 64-bit atomicAdd, after acc is
     copied there on the same stream; the additions commute mod 2^64, so the
-    result is the same bits whatever the order.  L times ck_dot64p_acc's
-    grid."""
-    return _ck_dot64p_acc(ck_dot64p_sacc, x, wm, acc, N=N, m=m,
-                          key_shift=key_shift, planes=planes, kp1=kp1,
-                          digit_bits=digit_bits)
+    result is the same bits whatever the order."""
+    UL, Jm, ckp = _ck_acc_checks("ck_dot64p_sacc", x, wm, acc, N=N, m=m,
+                                 planes=planes, kp1=kp1,
+                                 digit_bits=digit_bits)
+    if _on_cpu(x, wm, acc):
+        return ck_dot64p_acc_plain(x, wm, acc, N=N, m=m, key_shift=key_shift,
+                                   planes=planes, kp1=kp1)
+    _require(N % _BN == 0 and m % 4 == 0 and Jm % _BK == 0,
+             f"ck_dot64p_sacc: the kernel needs N % {_BN} == 0, m % 4 == 0 "
+             f"and J*m % {_BK} == 0")
+    out = torch.empty_like(acc)
+    ck_dot64p_sacc.launches += 1
+    _launch("ck_dot64p_sacc", x.data_ptr(), wm.data_ptr(), acc.data_ptr(),
+            out.data_ptr(), x.shape[0], N, m, Jm, kp1, UL // kp1, planes, ckp,
+            key_shift)
+    return out
 
 
 ck_dot64p_sacc.launches = 0
@@ -1119,5 +1214,8 @@ KERNELS = (materialize_w, materialize_wt, rotate_decompose, fused_cmux_step,
 
 
 def reset_launches():
+    """Every kernel's launch count, and the per-call key transposes of the
+    two wgmma contractions, to 0."""
     for k in KERNELS:
         k.launches = 0
+    ck_dot64p.transposes = ck_dot64p_acc.transposes = 0
