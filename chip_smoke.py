@@ -18,10 +18,11 @@ Phases (each prints its own lines; any failure exits non-zero):
      GATE_MXU B=8192 (also equal to v2's kernel), the 64-bit kernels (and
      the fused-epilogue pair, the limb-grid contraction and the plain-layout
      digits, which re-laid out must equal the chunk-layout kernel's) at
-     CB_MXU and CB_ACTIVE B=256, ck_dot64p and ck_dot64p_acc on the K-packed
-     key wmt with their chosen plans, ck_dot64p also at CB_MXU tails B=1, 3,
-     100,
-     the one-kernel 64-bit step there and at CB_MXU tails B=1, 3, 100,
+     CB_MXU and CB_ACTIVE B=256, the four 64-bit contractions on the
+     K-packed key wmt with their chosen plans, ck_dot64p and ck_dot64p_sacc
+     also at CB_MXU tails B=1, 3, 100,
+     the one-kernel 64-bit step there and at CB_MXU tails B=1, 3, 100
+     (beside the two-kernel default and acc steps it replaces),
      ck_cmux_step32 at GATE_MXU B=8192, GATE_DEFAULT B=256, GATE_MXU
      B=256 and 512 (the adder's narrow launches) and tail batches B=1, 3,
      100, with the flat carry; the two kernels whose reduction is split over
@@ -47,14 +48,18 @@ Phases (each prints its own lines; any failure exits non-zero):
      make_circuit_bootstrap_staged, one untimed launch, then a timed one;
      every step must go through rotate_decompose64_ck + ck_dot64p (1,000 of
      each per launch: two 500-step rotations) on the prepared K-packed key
-     (no per-call transpose of wm) and no 32-bit kernel; every
+     wmt (the key holds no wm, and no call transposes one) and no 32-bit
+     kernel; every
      TRGSW row phase, a CMux driven by each TRGSW and a 4-bit LUT over 64
      instances (lut.eval_lut_batch) must be right; then where one launch's
-     time goes (CUDA events) and the peak device memory;
+     time goes (CUDA events) and the peak device memory, read two ways:
+     from before keygen to after the launches (the whole run, keygen's
+     transients included) and of the two launches alone, beside the
+     resident keys;
   5b. the same launch with TFHE_CK64_PATH=acc on phase 5's keys: TRGSWs
      bit-identical to phase 5's, 1,000 rotate_decompose64_ck_flat + 1,000
-     ck_dot64p_acc launches (no per-call transpose) and no other CMux
-     kernel;
+     ck_dot64p_acc launches and no other CMux kernel, the key still wmt
+     alone;
   5c. the same with TFHE_CK64_PATH=sacc: 1,000 rotate_decompose64_ck_flat +
      1,000 ck_dot64p_sacc launches and no other CMux kernel;
   5d. the same with TFHE_CK64_FUSED=1: 1,000 ck_cmux_step64 launches and no
@@ -280,9 +285,9 @@ def _kernel_cases(seed: int = 0):
 
     # rotate_decompose64_ck + ck_dot64p: the circuit bootstrap's lvl2 step at
     # B=256, CB_MXU (l=5, Bg=2^8: one plane, 6 key limbs) then a
-    # CB_ACTIVE-shaped case (l=4, Bg=2^9: two planes, 8 key limbs); the two
-    # wgmma contractions read the K-packed key wmt (phase_kernels derives it
-    # on the card, as ChunkedEngine.prepare does)
+    # CB_ACTIVE-shaped case (l=4, Bg=2^9: two planes, 8 key limbs); the 64-bit
+    # contractions read the K-packed key wmt (UL, N+m, J*m), as
+    # ChunkedEngine.prepare builds it
     B, kp1, N, m = 256, 2, 2048, CB_M
     C = N // m
     for label, p, L in (("CB_MXU", CB_MXU.tgsw_lvl2, 6),
@@ -308,16 +313,16 @@ def _kernel_cases(seed: int = 0):
                       None, False))
         lo, hi = (-128, 128) if P == 1 else (-64, 65)
         x = i8((B, C * P * K.ck_width(Jm)), lo, hi)
-        wm = i8((kp1 * L, Jm, N + m))
+        wmt = i8((kp1 * L, N + m, Jm))
         UL = kp1 * L
         # the product's essential MACs: every folded output sums J*N terms
         macs = P * B * UL * N * (Jm // m) * N
         out_bytes = UL * B * N * 4
-        wcat = wm.permute(1, 0, 2).reshape(Jm, UL * (N + m))
+        wcat = _wcat(wmt)
         cases.append(("ck_dot64p", f"{label} B={B}", "csrc/ck_dot64p.cu",
                       f"{PALLAS}:835", K.ck_dot64p, K.ck_dot64p_plain,
-                      (x, wm), dict(N=N, m=m, planes=P),
-                      bound_ms(_nbytes(x, wm) + out_bytes, macs),
+                      (x, wmt), dict(N=N, m=m, planes=P),
+                      bound_ms(_nbytes(x, wmt) + out_bytes, macs),
                       ("_int_mm", (x.reshape(B * C * P, Jm), wcat)), True))
         # the fused-epilogue step's two kernels on the same shapes
         acc_flat = acc.reshape(B, kp1 * N)
@@ -333,27 +338,37 @@ def _kernel_cases(seed: int = 0):
                 ("ck_dot64p_sacc", K.ck_dot64p_sacc, 966)):
             cases.append((name, f"{label} B={B}", f"csrc/{name}.cu",
                           f"{PALLAS}:{line}", wrapper, K.ck_dot64p_acc_plain,
-                          (x, wm, acc_flat),
+                          (x, wmt, acc_flat),
                           dict(N=N, m=m, planes=P, kp1=kp1,
                                key_shift=64 - 8 * L),
-                          bound_ms(_nbytes(x, wm, acc, acc), macs),
+                          bound_ms(_nbytes(x, wmt, acc, acc), macs),
                           ("_int_mm", (x.reshape(B * C * P, Jm), wcat)),
                           True))
 
-    # ck_dot64p at CB_MXU tail batches (the default step's narrow launches)
+    # ck_dot64p and ck_dot64p_sacc at CB_MXU tail batches (the default and
+    # sacc steps' narrow launches)
     p, L = CB_MXU.tgsw_lvl2, 6
     Jm, UL = kp1 * p.l * m, kp1 * L
-    wm = i8((UL, Jm, N + m))
+    wmt = i8((UL, N + m, Jm))
     for B in (1, 3, 100):
         x = i8((B, C * K.ck_width(Jm)))
+        acc_flat = torch.from_numpy(r.integers(-2**63, 2**63, (B, kp1 * N),
+                                               dtype=np.int64))
         macs = B * UL * N * (Jm // m) * N
+        lib = (("_int_mm", (x.reshape(B * C, Jm), _wcat(wmt)))
+               if B * C > 16 else None)
         cases.append(("ck_dot64p", f"CB_MXU B={B}", "csrc/ck_dot64p.cu",
                       f"{PALLAS}:835", K.ck_dot64p, K.ck_dot64p_plain,
-                      (x, wm), dict(N=N, m=m, planes=1),
-                      bound_ms(_nbytes(x, wm) + UL * B * N * 4, macs),
-                      ("_int_mm", (x.reshape(B * C, Jm), wm.permute(
-                          1, 0, 2).reshape(Jm, UL * (N + m))))
-                      if B * C > 16 else None, True))
+                      (x, wmt), dict(N=N, m=m, planes=1),
+                      bound_ms(_nbytes(x, wmt) + UL * B * N * 4, macs), lib,
+                      True))
+        cases.append(("ck_dot64p_sacc", f"CB_MXU B={B}",
+                      "csrc/ck_dot64p_sacc.cu", f"{PALLAS}:966",
+                      K.ck_dot64p_sacc, K.ck_dot64p_acc_plain,
+                      (x, wmt, acc_flat),
+                      dict(N=N, m=m, planes=1, kp1=kp1, key_shift=64 - 8 * L),
+                      bound_ms(_nbytes(x, wmt, acc_flat, acc_flat), macs),
+                      lib, True))
 
     # ck_cmux_step64: the whole 64-bit step on the flat accumulator at
     # CB_MXU and CB_ACTIVE B=256, then CB_MXU tail batches
@@ -367,19 +382,18 @@ def _kernel_cases(seed: int = 0):
         acc_flat = torch.from_numpy(r.integers(-2**63, 2**63, (B, kp1 * N),
                                                dtype=np.int64))
         a = expo(B, N)
-        wm = i8((kp1 * L, Jm, N + m))
+        wmt = i8((kp1 * L, N + m, Jm))
         kw = dict(l=p.l, bgbit=p.bgbit, offset=p.offset, m=m, planes=P,
                   kp1=kp1, key_shift=64 - 8 * L)
         macs = P * B * kp1 * L * N * (Jm // m) * N
         lo, hi = (-128, 128) if P == 1 else (-64, 65)
         digits = i8((B * C * P, Jm), lo, hi)
-        wcat = wm.permute(1, 0, 2).reshape(Jm, kp1 * L * (N + m))
         cases.append(("ck_cmux_step64", f"{label} B={B}",
                       "csrc/ck_cmux_step64.cu", f"{PALLAS}:1450",
                       K.ck_cmux_step64, K.ck_cmux_step64_plain,
-                      (a, acc_flat, wm), kw,
-                      bound_ms(_nbytes(a, acc_flat, wm, acc_flat), macs),
-                      ("_int_mm", (digits, wcat)), True))
+                      (a, acc_flat, wmt), kw,
+                      bound_ms(_nbytes(a, acc_flat, wmt, acc_flat), macs),
+                      ("_int_mm", (digits, _wcat(wmt))), True))
 
     # ck_cmux_step32: GATE_MXU (k=1, N=1024, l=3, 3 key limbs, m=128) at the
     # N=1024 path's B=8192, GATE_DEFAULT (4 key limbs) at B=256, the
@@ -412,6 +426,14 @@ def _kernel_cases(seed: int = 0):
     return cases
 
 
+def _wcat(wmt):
+    """The K-packed chunked key as one (J*m, U*L*(N+m)) int8 matrix: the
+    library yardstick's operand (one torch._int_mm of every chunk's digits
+    against every limb's shifted copies)."""
+    UL, Npm, Jm = wmt.shape
+    return wmt.permute(2, 0, 1).reshape(Jm, UL * Npm)
+
+
 def phase_kernels(reps: int = 20):
     """One JSON entry per kernel, from its first case; the numbers of its
     other cases go under the entry's "other_shapes"."""
@@ -420,10 +442,7 @@ def phase_kernels(reps: int = 20):
     for (name, shape, src, replaces, wrapper, plain, args, kw, (bnd, by),
          lib, plain_on_card) in _kernel_cases():
         dev_args = tuple(t.cuda() for t in args)
-        launch_kw = dict(kw)
-        if name in K64_WMT:                    # the engine's K-packed key
-            launch_kw["wmt"] = K.ck_wmt(dev_args[1])
-        got = wrapper(*dev_args, **launch_kw)
+        got = wrapper(*dev_args, **kw)
         torch.cuda.synchronize()
         want = plain(*(dev_args if plain_on_card else args), **kw)
         err = _compare(name, got, want)
@@ -453,7 +472,7 @@ def phase_kernels(reps: int = 20):
                 forced["tile_rows"] = plan[0]
             _compare(f"{name} split=1", wrapper(*dev_args, **forced), got)
             split1_ms = cuda_ms(lambda: wrapper(*dev_args, **forced), reps)
-        ms = cuda_ms(lambda: wrapper(*dev_args, **launch_kw), reps)
+        ms = cuda_ms(lambda: wrapper(*dev_args, **kw), reps)
         plain_ms = cuda_ms(lambda: plain(*dev_args, **kw), 3, warmup=1)
         if name in SPLIT_KERNELS:
             split_txt = (f", chosen (tile_rows, S) = {plan}; S = 1 "
@@ -469,24 +488,22 @@ def phase_kernels(reps: int = 20):
         if name in SPLIT_KERNELS:
             numbers.update(tile_rows=plan[0], split=plan[1],
                            split1_ms=split1_ms)
-        if name in K64_WMT:
+        if name in K64_PLANS:
             numbers["plan"] = _k64_plan(name, dev_args, kw)
-            what = "rows" if name == "ck_dot64p" else "rows, limbs"
-            split_txt = f", plan ({what}) = {numbers['plan']}"
+            split_txt = (f", plan ({K64_PLANS[name]}) = "
+                         f"{numbers['plan']}")
         if name in ("ck_dot64p_acc", "ck_dot64p_sacc"):
-            x, wm, acc = dev_args              # the two-kernel step's dot
-            kp1, wmt = kw["kp1"], K.ck_wmt(wm)
+            x, wmt, acc = dev_args             # the two-kernel step's dot
             numbers["two_kernel_ms"] = cuda_ms(lambda: acc + K.recombine(
-                K.ck_dot64p(x, wm, N=kw["N"], m=kw["m"], planes=kw["planes"],
-                            wmt=wmt), kp1, kw["key_shift"]).reshape(
-                                acc.shape), reps)
-            del wmt
-        if name == "ck_cmux_step64" and dev_args[0].shape[0] == 256:
-            wmt = K.ck_wmt(dev_args[2])
+                K.ck_dot64p(x, wmt, N=kw["N"], m=kw["m"],
+                            planes=kw["planes"]), kw["kp1"],
+                kw["key_shift"]).reshape(acc.shape), reps)
+        if name == "ck_cmux_step64":           # the steps it replaces
             numbers["default_step_ms"] = cuda_ms(
-                lambda: _default_step64(*dev_args, wmt=wmt, **kw), reps)
-            del wmt
-        del dev_args, launch_kw, got, want
+                lambda: _default_step64(*dev_args, **kw), reps)
+            numbers["acc_step_ms"] = cuda_ms(
+                lambda: _acc_step64(*dev_args, **kw), reps)
+        del dev_args, got, want
         if name in results:
             results[name].setdefault("other_shapes", []).append(numbers)
         else:
@@ -499,7 +516,8 @@ def phase_kernels(reps: int = 20):
             f", ck_dot64p + torch epilogue {two:.4f} ms"
         if "default_step_ms" in numbers:
             two_txt = (f", default two-kernel step "
-                       f"{numbers['default_step_ms']:.4f} ms")
+                       f"{numbers['default_step_ms']:.4f} ms, acc step "
+                       f"{numbers['acc_step_ms']:.4f} ms")
         print(f"phase 2 kernel {name} at {shape}: bit-identical to plain, "
               f"{ms:.4f} ms (bound {bnd:.4f} ms by {by}, "
               f"{bnd / ms:.1%} of it), plain {plain_ms:.4f} ms, "
@@ -510,17 +528,25 @@ def phase_kernels(reps: int = 20):
 
 # the kernels whose reduction is split over blocks (K slices, chunk windows)
 SPLIT_KERNELS = ("mm_recombine_acc", "ck_cmux_step32")
-# the wgmma contractions, which read the K-packed chunked key wmt
-K64_WMT = ("ck_dot64p", "ck_dot64p_acc")
+# the 64-bit contractions on the K-packed key wmt, and what their plans hold
+K64_PLANS = {"ck_dot64p": "rows", "ck_dot64p_sacc": "rows",
+             "ck_dot64p_acc": "rows, limbs", "ck_cmux_step64": "rows, split"}
 
 
 def _k64_plan(name, dev_args, kw):
     """The plan the wrapper of ``name`` chooses for these inputs: the rows
-    of a ck_dot64p block, (rows, limbs) of a ck_dot64p_acc block."""
+    of a ck_dot64p or ck_dot64p_sacc block, (rows, limbs) of a
+    ck_dot64p_acc block, (rows, split) of a ck_cmux_step64 launch."""
     from tfhe_tpu_torch.ops import kernels as K
-    x, wm = dev_args[:2]
-    UL, Jm, _ = wm.shape
-    if name == "ck_dot64p":
+    if name == "ck_cmux_step64":
+        a, acc, wmt = dev_args
+        UL, Npm, Jm = wmt.shape
+        return K.ck_cmux_step64_plan(acc.shape[0], kw["kp1"], Npm - kw["m"],
+                                     kw["m"], Jm, UL // kw["kp1"],
+                                     kw["planes"], acc.device)
+    x, wmt = dev_args[:2]
+    UL, _, Jm = wmt.shape
+    if name in ("ck_dot64p", "ck_dot64p_sacc"):
         return K.ck_dot64p_plan(x.shape[0], kw["N"], kw["m"], Jm,
                                 kw["planes"])
     return K.ck_dot64p_acc_plan(x.shape[0], kw["N"], kw["m"], Jm,
@@ -604,16 +630,28 @@ def phase_splits(results, reps: int = 10):
     torch.cuda.empty_cache()
 
 
-def _default_step64(a, acc, wm, *, l, bgbit, offset, m, planes, kp1,
-                    key_shift, wmt):
+def _default_step64(a, acc, wmt, *, l, bgbit, offset, m, planes, kp1,
+                    key_shift):
     """The default 64-bit step (rotate_decompose64_ck + ck_dot64p + the
     int64 epilogue) on the flat accumulator: what ck_cmux_step64 replaces."""
     from tfhe_tpu_torch.ops import kernels as K
     B, N = acc.shape[0], acc.shape[1] // kp1
     x = K.rotate_decompose64_ck(a, acc.view(B, kp1, N), l=l, bgbit=bgbit,
                                 offset=offset, m=m, planes=planes)
-    y = K.ck_dot64p(x, wm, N=N, m=m, planes=planes, wmt=wmt)
+    y = K.ck_dot64p(x, wmt, N=N, m=m, planes=planes)
     return acc + K.recombine(y, kp1, key_shift).reshape(acc.shape)
+
+
+def _acc_step64(a, acc, wmt, *, l, bgbit, offset, m, planes, kp1,
+                key_shift):
+    """The two-kernel acc step (rotate_decompose64_ck_flat + ck_dot64p_acc)
+    on the same inputs: the yardstick of ck_cmux_step64."""
+    from tfhe_tpu_torch.ops import kernels as K
+    N = acc.shape[1] // kp1
+    x = K.rotate_decompose64_ck_flat(a, acc, N=N, l=l, bgbit=bgbit,
+                                     offset=offset, m=m, planes=planes)
+    return K.ck_dot64p_acc(x, wmt, acc, N=N, m=m, key_shift=key_shift,
+                           planes=planes, kp1=kp1)
 
 
 def phase_tiles(entry, batches=(1, 3, 64, 65, 100, 256, 512, 704, 768, 1024,
@@ -894,6 +932,9 @@ def phase_circuit(smi: str):
     t0 = time.perf_counter()
     ck = circuit.CircuitCloudKey.generate(sk, rng, backend="chunked")
     keygen_s = time.perf_counter() - t0
+    keygen_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    keys_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
     spans = obs.report()["spans"]
     parts = ", ".join(f"{name.split('.')[-1]} {v['total_s']:.2f} s"
                       for name, v in spans.items()
@@ -921,7 +962,7 @@ def phase_circuit(smi: str):
     for name in ("rotate_decompose64_ck", "ck_dot64p"):
         check(counts[name] == steps, f"CB_MXU: {name} launched "
               f"{counts[name]} times, want {steps}")
-    _no_transposes("CB_MXU")
+    _wmt_only("CB_MXU", ck)
     for name in ("materialize_w", "materialize_wt", "rotate_decompose",
                  "mm_recombine_acc", "fused_cmux_step_v2"):
         check(counts[name] == 0, f"CB_MXU: 32-bit kernel {name} launched "
@@ -958,8 +999,8 @@ def phase_circuit(smi: str):
     # where one launch's time goes, from CUDA events at the path's shapes
     p2 = P.tgsw_lvl2
     eng = make_engine(tgsw.engine_config(p2), "chunked")
-    wm0, wmt0 = ck.data["bk"]["wm"][0], ck.data["bk"]["wmt"][0]
-    prep0 = {"wm": wm0, "wmt": wmt0}
+    wmt0 = ck.data["bk"]["wmt"][0]
+    prep0 = {"wmt": wmt0}
     acc = torch.randint(-2**63, 2**63 - 1, (batch, k + 1, P.n_lvl2),
                         dtype=torch.int64, device=dev)
     a0 = torch.randint(0, 2 * P.n_lvl2, (batch,), dtype=torch.int32,
@@ -967,11 +1008,10 @@ def phase_circuit(smi: str):
     kw = dict(l=p2.l, bgbit=p2.bgbit, offset=p2.offset, m=eng.m,
               planes=eng.cfg.plane_split[1])
     x = K.rotate_decompose64_ck(a0, acc, **kw)
-    y = K.ck_dot64p(x, wm0, N=P.n_lvl2, m=eng.m, planes=kw["planes"],
-                    wmt=wmt0)
+    y = K.ck_dot64p(x, wmt0, N=P.n_lvl2, m=eng.m, planes=kw["planes"])
     rot_ms = cuda_ms(lambda: K.rotate_decompose64_ck(a0, acc, **kw), 20)
-    dot_ms = cuda_ms(lambda: K.ck_dot64p(x, wm0, N=P.n_lvl2, m=eng.m,
-                                         planes=kw["planes"], wmt=wmt0), 10)
+    dot_ms = cuda_ms(lambda: K.ck_dot64p(x, wmt0, N=P.n_lvl2, m=eng.m,
+                                         planes=kw["planes"]), 10)
     epi_ms = cuda_ms(lambda: acc + K.recombine(y, k + 1,
                                                eng.cfg.key_shift), 20)
     step_ms = cuda_ms(lambda: eng.cmux_step(a0, acc, prep0, l=p2.l,
@@ -984,7 +1024,7 @@ def phase_circuit(smi: str):
         for name, method in (("acc", "cmux_step_acc"),
                              ("sacc", "cmux_step_sacc"),
                              ("fused", "cmux_step_flat"))}
-    dot_plan = K.ck_dot64p_plan(batch, P.n_lvl2, eng.m, wm0.shape[1],
+    dot_plan = K.ck_dot64p_plan(batch, P.n_lvl2, eng.m, wmt0.shape[-1],
                                 kw["planes"])
     preks = lwe.KeySwitchKey(P.ks10, P.n_lvl1, P.n_lvl0, ck.data["preks"])
     pre_ms = cuda_ms(lambda: lwe.keyswitch(ct, preks), 5)
@@ -999,9 +1039,11 @@ def phase_circuit(smi: str):
           f"int64 epilogue {epi_ms:.4f} ms x {steps} (whole step "
           f"{step_ms:.4f} ms), preKS {pre_ms:.3f} ms x 1, privKS "
           f"{priv_ms:.3f} ms x {n_priv}; sum {total:.1f} ms vs "
-          f"{wall * 1e3:.1f} ms per launch; peak device memory "
-          f"{peak_gb:.2f} GB (the keys' wm and its K-packed wmt "
-          f"{_nbytes(ck.data['bk']['wm']) / 1e9:.2f} GB each)")
+          f"{wall * 1e3:.1f} ms per launch; peak device memory from before "
+          f"keygen {max(keygen_peak_gb, peak_gb):.2f} GB, of the two "
+          f"launches {peak_gb:.2f} GB (the keys {keys_gb:.2f} GB resident, "
+          f"their K-packed wmt {_nbytes(ck.data['bk']['wmt']) / 1e9:.2f} GB, "
+          f"no wm; keygen's peak {keygen_peak_gb:.2f} GB)")
     state = {"ck": ck, "ct": ct, "gsw": gsw, "wall": wall,
              "step_ms": step_ms, "opt_step_ms": opt_step_ms, "steps": steps}
     return counts, state
@@ -1040,7 +1082,7 @@ def phase_circuit_step(smi: str, state: dict, phase: str, step: str,
     finally:
         del os.environ[var]
     counts = _launch_counts()
-    _no_transposes(f"CB_MXU {step}")
+    _wmt_only(f"CB_MXU {step}", ck)
     check(torch.equal(gsw, state["gsw"]),
           f"CB_MXU {step}: the TRGSWs differ from the default step's")
     _only(counts, {name: steps for name in kernels}, f"CB_MXU {step}")
@@ -1090,13 +1132,14 @@ def _gate_run(P, backend, bits, chain, seed=0):
     return sk, ck, out, wall, _launch_counts(), keygen_s, peak_gb
 
 
-def _no_transposes(what: str):
-    """The wgmma contractions read the prepared K-packed key: not one
-    per-call transpose of wm in the timed launch."""
+def _wmt_only(what: str, ck):
+    """The 64-bit prepared key is the K-packed wmt alone (no wm), and the
+    timed launch transposed no key."""
     from tfhe_tpu_torch.ops import kernels as K
-    for k in (K.ck_dot64p, K.ck_dot64p_acc):
-        check(k.transposes == 0, f"{what}: {k.__name__} transposed wm "
-              f"{k.transposes} times inside the loop")
+    check(set(ck.data["bk"]) == {"wmt"}, f"{what}: the 64-bit prepared key "
+          f"holds {sorted(ck.data['bk'])}, want wmt alone")
+    check(K.ck_dot64p.transposes == 0, f"{what}: {K.ck_dot64p.transposes} "
+          f"per-call key transposes inside the loop")
 
 
 def _only(counts, allowed: dict, what: str):

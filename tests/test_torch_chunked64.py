@@ -214,35 +214,40 @@ def test_chunked_engine_matches_jax(N, J, U, dbits, klimbs, m):
     te = engine.ChunkedEngine(engine.EngineConfig(**cfg), m=m)
     jprep = jax.jit(je.prepare)(jnp.asarray(key))
     tprep = te.prepare(torch.from_numpy(key))
-    _same(tprep["wm"], jprep["wm"])
-    # the K-packed key is JAX's wm transposed on the numpy side
+    # the 64-bit key is K-packed alone: JAX's wm transposed on the numpy side
+    assert set(tprep) == {"wmt"}
     _same(tprep["wmt"], np.swapaxes(np.asarray(jprep["wm"]), -1, -2))
     _same(te.accumulate(torch.from_numpy(x), tprep),
           jax.jit(je.accumulate)(jnp.asarray(x), jprep))
     # a stack of keys prepares in one pass to the per-key layouts
     stacked = te.prepare(torch.from_numpy(np.stack([key, key[::-1].copy()])))
-    _same(stacked["wm"][0], jprep["wm"])
     _same(stacked["wmt"][0], tprep["wmt"])
+    _same(stacked["wmt"][1], te.prepare(torch.from_numpy(
+        key[::-1].copy()))["wmt"])
 
 
 @pytest.mark.parametrize("bits", [64, 32])
 def test_prepare_k_packed_key(bits):
-    """At 64 bits prepare returns wmt = wm transposed (every leading step,
-    contiguous); at 32 bits no copy."""
+    """At 64 bits prepare returns wmt alone, built directly and equal to
+    ck_wmt of JAX's wm for every leading step (contiguous); at 32 bits wm
+    alone, JAX's."""
     r = np.random.default_rng(11)
-    te = engine.ChunkedEngine(engine.EngineConfig(N=128, out_bits=bits,
-                                                  digit_bits=8), m=32)
+    cfg = dict(N=128, out_bits=bits, digit_bits=8)
+    te = engine.ChunkedEngine(engine.EngineConfig(**cfg), m=32)
+    je = jeng.ChunkedEngine(jeng.EngineConfig(**cfg), m=32)
     key = r.integers(-2**31, 2**31, (3, 2, 2, 128)).astype(
         np.int64 if bits == 64 else np.int32)
     prep = te.prepare(torch.from_numpy(key))
+    jwm = [torch.from_numpy(np.array(je.prepare(jnp.asarray(key[i]))["wm"]))
+           for i in range(3)]
     if bits == 32:
         assert set(prep) == {"wm"}
+        assert all(torch.equal(prep["wm"][i], jwm[i]) for i in range(3))
         return
-    assert set(prep) == {"wm", "wmt"} and prep["wmt"].is_contiguous()
+    assert set(prep) == {"wmt"} and prep["wmt"].is_contiguous()
     assert tuple(prep["wmt"].shape) == (3, 2 * 8, 128 + 32, 2 * 32)
-    assert torch.equal(prep["wmt"], prep["wm"].transpose(-1, -2))
-    assert torch.equal(te.with_k_packed({"wm": prep["wm"]})["wmt"],
-                       prep["wmt"])
+    assert all(torch.equal(prep["wmt"][i], K.ck_wmt(jwm[i]))
+               for i in range(3))
 
 
 def test_chunked_naive64_and_the_32_bit_rule():
@@ -311,15 +316,17 @@ def test_ck_dot64p_plain(N, kp1, l, U, L, m, P, lgsize):
     want = pk.ck_dot64p(jnp.asarray(x), jnp.asarray(wm), N=N, m=m, planes=P,
                         tm=8, lgsize=lgsize, interpret=True)
     tx, twm = torch.from_numpy(x), torch.from_numpy(wm)
-    got = K.ck_dot64p(tx, twm, N=N, m=m, planes=P,
+    # the K-packed key the kernel reads: the plain version contracts it
+    got = K.ck_dot64p(tx, K.ck_wmt(twm), N=N, m=m, planes=P,
                       digit_bits=8 if P == 1 else 13)
     _same(got, want)
-    # the K-packed key the kernel reads: the plain version contracts it
-    _same(K.ck_dot64p(tx, twm, N=N, m=m, planes=P,
-                      digit_bits=8 if P == 1 else 13, wmt=K.ck_wmt(twm)),
-          want)
+    # the 32-bit generic contraction's entry transposes wm per call
+    before = K.ck_dot64p.transposes
+    _same(K.ck_dot64p_wm(tx, twm, N=N, m=m, planes=P,
+                         digit_bits=8 if P == 1 else 13), want)
+    assert K.ck_dot64p.transposes == before + 1
     with pytest.raises(ValueError, match="wmt must be"):
-        K.ck_dot64p(tx, twm, N=N, m=m, planes=P, digit_bits=13, wmt=twm)
+        K.ck_dot64p(tx, twm, N=N, m=m, planes=P, digit_bits=13)
 
 
 @pytest.mark.parametrize("N,kp1,l,L,m,P", [
@@ -342,21 +349,24 @@ def test_ck_dot64p_acc_plain_with_wmt(N, kp1, l, L, m, P):
     tx, twm, tacc = (torch.from_numpy(v) for v in (x, wm, acc))
     kw = dict(N=N, m=m, key_shift=key_shift, planes=P, kp1=kp1,
               digit_bits=8 if P == 1 else 13)
-    _same(K.ck_dot64p_acc(tx, twm, tacc, **kw), want)
-    _same(K.ck_dot64p_acc(tx, twm, tacc, wmt=K.ck_wmt(twm), **kw), want)
-    with pytest.raises(ValueError, match="wmt must be"):
-        K.ck_dot64p_acc(tx, twm, tacc, wmt=twm[:, :, :Jm].contiguous(),
-                        **kw)
+    _same(K.ck_dot64p_acc(tx, K.ck_wmt(twm), tacc, **kw), want)
+    _same(K.ck_dot64p_sacc(tx, K.ck_wmt(twm), tacc, **kw), want)
+    with pytest.raises(ValueError, match="wmt must be"):    # wm, not wmt
+        K.ck_dot64p_acc(tx, twm, tacc, **kw)
 
 
 @pytest.mark.parametrize("N,m,Jm,P,ok", [
     (2048, 64, 640, 1, True), (2048, 64, 512, 2, True), (64, 32, 96, 1, True),
-    (32, 16, 64, 1, False), (128, 32, 200, 1, False), (128, 64, 256, 3, False)])
+    (32, 16, 64, 1, False), (128, 32, 200, 1, False), (128, 64, 256, 3, False),
+    (64, 2, 16, 1, True)])
 def test_ck64_kernel_domain_and_plans(N, m, Jm, P, ok):
-    """The wgmma contractions' domain is one predicate: the plan functions
-    raise outside it, and inside it choose the rows from B (two warpgroups
-    above 64 rows) and ck_dot64p_acc's limbs a pass from L's parity."""
+    """The 64-bit contractions' domain is one predicate (ck_cmux_step64's
+    adds m % 4 == 0 for its four-coefficient digit builds): the plan
+    functions raise outside it, and inside it choose the rows from B (two
+    warpgroups above 64 rows) and ck_dot64p_acc's limbs a pass from L's
+    parity."""
     assert K.ck64_kernel_ok(N, m, Jm, P) == ok
+    assert K.ck_cmux_step64_ok(N, m, Jm, P) == (ok and m % 4 == 0)
     for B in (1, 64, 65, 256):
         rows = 128 if B > 64 else 64
         if not ok:
@@ -372,10 +382,10 @@ def test_ck64_kernel_domain_and_plans(N, m, Jm, P, ok):
 
 def test_ck_dot64p_asserts_the_int32_bound():
     x = torch.zeros((2, 2 * 4 * 128), dtype=torch.int8)
-    wm = torch.zeros((2, 4 * 64, 128 + 64), dtype=torch.int8)
-    K.ck_dot64p(x, wm, N=128, m=64, planes=2)          # 9-bit digits fit
+    wmt = torch.zeros((2, 128 + 64, 4 * 64), dtype=torch.int8)
+    K.ck_dot64p(x, wmt, N=128, m=64, planes=2)         # 9-bit digits fit
     with pytest.raises(ValueError, match="int32 accumulation bound"):
-        K.ck_dot64p(x, wm, N=128, m=64, planes=2, digit_bits=20)
+        K.ck_dot64p(x, wmt, N=128, m=64, planes=2, digit_bits=20)
     # prepare holds the key to the same bound: J=32 rows of 9-bit digits
     # at N=2048 exceed it, J=16 (CB_ACTIVE's (k+1)*l2 = 8, doubled) do not
     te = engine.ChunkedEngine(engine.EngineConfig(N=2048, out_bits=64,
@@ -387,7 +397,8 @@ def test_ck_dot64p_asserts_the_int32_bound():
 
 def test_converted_circuit_key_carries_wmt():
     """A chunked circuit key carried over from the JAX package's arrays
-    gains the K-packed key, as prepare gives it."""
+    holds the K-packed key alone, ck_wmt of JAX's wm, as prepare gives
+    it."""
     from tfhe_tpu_torch import convert
     r = np.random.default_rng(13)
     p = T_TOY
@@ -404,39 +415,44 @@ def test_converted_circuit_key_carries_wmt():
                 (p.lvl1.k + 1) * p.n_lvl1)).astype(np.int8)}
     ck = convert.circuit_cloud_key_from_numpy(data, p, "chunked",
                                               device="cpu")
-    assert set(ck.data["bk"]) == {"wm", "wmt"}
-    _same(ck.data["bk"]["wmt"], np.swapaxes(wm, -1, -2))
+    assert set(ck.data["bk"]) == {"wmt"}
+    assert ck.data["bk"]["wmt"].is_contiguous()
+    _same(ck.data["bk"]["wmt"], K.ck_wmt(torch.from_numpy(wm)))
 
 
-@pytest.mark.parametrize("path", ["", "acc"])
-def test_64_bit_steps_read_the_prepared_k_packed_key(monkeypatch, path):
-    """The default and acc steps hand prepared["wmt"] to their contraction
-    through rotate_steps (so a card never transposes per step); the same
-    rotation from wm alone gives the same bits."""
+@pytest.mark.parametrize("var,value,name,arg", [
+    ("", "", "ck_dot64p", 1), ("TFHE_CK64_PATH", "acc", "ck_dot64p_acc", 1),
+    ("TFHE_CK64_PATH", "sacc", "ck_dot64p_sacc", 1),
+    ("TFHE_CK64_FUSED", "1", "ck_cmux_step64", 2)])
+def test_64_bit_steps_read_the_prepared_k_packed_key(monkeypatch, var,
+                                                      value, name, arg):
+    """Every 64-bit step hands prepared["wmt"], the only key the 64-bit
+    prepare makes, to its contraction through rotate_steps, step by step,
+    and gives the default step's bits."""
     p = T_TOY.tgsw_lvl2
     r = np.random.default_rng(14)
     n, B, N, k = 3, 2, p.tlwe.N, p.tlwe.k
     te = engine.make_engine(tgsw.engine_config(p), "chunked")
     key = r.integers(-2**50, 2**50, (n, p.kpl, k + 1, N)).astype(np.int64)
     prep = te.prepare(torch.from_numpy(key))
+    assert set(prep) == {"wmt"}
     acc = torch.from_numpy(_i64(r, (B, k + 1, N)))
     abar = torch.from_numpy(r.integers(0, 2 * N, (B, n)).astype(np.int32))
-    name = "ck_dot64p_acc" if path else "ck_dot64p"
+    default = br.blind_rotate(acc, prep, abar, p, "chunked")
     real, seen = getattr(K, name), []
 
-    def spy(*args, wmt=None, **kw):
-        seen.append(wmt)
-        return real(*args, wmt=wmt, **kw)
+    def spy(*args, **kw):
+        seen.append(args[arg])
+        return real(*args, **kw)
 
-    monkeypatch.setenv("TFHE_CK64_PATH", path)
+    if var:
+        monkeypatch.setenv(var, value)
     monkeypatch.setattr(K, name, spy)
     got = br.blind_rotate(acc, prep, abar, p, "chunked")
     assert len(seen) == n
-    assert all(w is not None and w.data_ptr() == prep["wmt"][i].data_ptr()
+    assert all(w.data_ptr() == prep["wmt"][i].data_ptr()
                for i, w in enumerate(seen))
-    bare = br.blind_rotate(acc, {"wm": prep["wm"]}, abar, p, "chunked")
-    assert seen[n:] == [None] * n
-    assert torch.equal(got, bare)
+    assert torch.equal(got, default)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,7 @@ evaluator and its noise worksheets against tfhe_tpu's, bit for bit, on the
 CPU.
 
   * the same TfheRng seed gives byte-identical keys in both packages (preKS
-    limbs, the chunked bk wm, the privKS limbs), at CB_TOY and at the
+    limbs, the chunked bk, K-packed, the privKS limbs), at CB_TOY and at the
     CB_MXU-gadget toy (Bg=2^8/l=5, 6-limb bk: CB_MXU's lvl2 geometry);
   * circuit_bootstrap, make_circuit_bootstrap_fn and _staged give identical
     TRGSWs, with one shared rotation and with one rotation per level;
@@ -37,6 +37,7 @@ from tfhe_tpu_torch import params as tparams
 from tfhe_tpu_torch import torus as T
 from tfhe_tpu_torch.boot import circuit
 from tfhe_tpu_torch.models import lut
+from tfhe_tpu_torch.ops import kernels as K
 from tfhe_tpu_torch.rng import TfheRng
 from tfhe_tpu_torch.utils import observability as obs
 
@@ -81,8 +82,11 @@ def test_same_seed_same_keys(case):
     pre = ck.data["preks"].numpy()
     np.testing.assert_array_equal(pre[..., :jpre.shape[-1]], jpre)
     assert not pre[..., jpre.shape[-1]:].any()
-    np.testing.assert_array_equal(ck.data["bk"]["wm"].numpy(),
-                                  np.asarray(jck.data["bk"]["wm"]))
+    # the 64-bit chunked key holds wmt alone: ck_wmt of JAX's wm
+    assert set(ck.data["bk"]) == {"wmt"}
+    np.testing.assert_array_equal(
+        ck.data["bk"]["wmt"].numpy(),
+        K.ck_wmt(torch.from_numpy(np.asarray(jck.data["bk"]["wm"]))).numpy())
     np.testing.assert_array_equal(ck.data["privks"].numpy(),
                                   np.asarray(jck.data["privks"]))
     # both streams are in the same place after keygen
@@ -181,7 +185,7 @@ def test_convert_round_trip():
         np.testing.assert_array_equal(mine.key, theirs.key)
     for name in ("preks", "privks"):
         assert torch.equal(ck.data[name], native.data[name])
-    assert torch.equal(ck.data["bk"]["wm"], native.data["bk"]["wm"])
+    assert set(ck.data["bk"]) == set(native.data["bk"]) == {"wmt"}
     assert torch.equal(ck.data["bk"]["wmt"], native.data["bk"]["wmt"])
     got = circuit.circuit_bootstrap(torch.from_numpy(ct), ck.data, tp)
     np.testing.assert_array_equal(got.numpy(), gsw)

@@ -190,21 +190,6 @@ def test_ck_cmux_step32_wrapper_rules():
                              split=bad)
 
 
-def test_choose_tile_rows():
-    """64 rows where that grid gives every SM a block, else 32; None where
-    nothing fits."""
-    def blocks(B):
-        return lambda t: 8 * -(-B // t) * 2
-
-    def smem(t):
-        return K.ck_cmux_step32_smem(t, 768, 4)
-
-    assert K.choose_tile_rows(blocks(8192), smem, 132) == 64
-    assert K.choose_tile_rows(blocks(256), smem, 132) == 32
-    assert K.choose_tile_rows(blocks(1), smem, 132) == 32
-    assert K.choose_tile_rows(blocks(8192), lambda t: 10**6, 132) is None
-
-
 def _slice_partial(digits, wm, acc, *, i0, windows, N, m, kp1, key_shift):
     """A Python mirror of one ck_cmux_step32 block's slice: for the output
     tile of folded columns [i0, i0+128) of every polynomial, the signed sum
@@ -331,14 +316,14 @@ def test_acc_kernels_plain_match_pallas(N, k, l, bgbit, klimbs, m, tm):
     np.testing.assert_array_equal(                 # the data columns
         tx.numpy().reshape(B, -1, ckp)[..., :jm],
         np.asarray(x).reshape(B, -1, ckp)[..., :jm])
-    twm = torch.from_numpy(np.array(wm))
-    _same(K.ck_dot64p_acc(tx, twm, tacc, N=N, m=m, key_shift=cfg.key_shift,
+    twmt = K.ck_wmt(torch.from_numpy(np.array(wm)))
+    _same(K.ck_dot64p_acc(tx, twmt, tacc, N=N, m=m, key_shift=cfg.key_shift,
                           planes=P, kp1=kp1, digit_bits=bgbit), want)
     te = engine.ChunkedEngine(tgsw.engine_config(tp), m=m)
-    _same(te.cmux_step_acc(ta, tacc, {"wm": twm}, kp1=kp1, l=l, bgbit=bgbit,
-                           offset=tp.offset), want)
+    _same(te.cmux_step_acc(ta, tacc, {"wmt": twmt}, kp1=kp1, l=l,
+                           bgbit=bgbit, offset=tp.offset), want)
     # the default step computes the same function
-    _same(te.cmux_step(ta, tacc.reshape(B, kp1, N), {"wm": twm}, l=l,
+    _same(te.cmux_step(ta, tacc.reshape(B, kp1, N), {"wmt": twmt}, l=l,
                        bgbit=bgbit, offset=tp.offset).reshape(B, -1), want)
 
 

@@ -288,10 +288,11 @@ CK64_CASES = [(B, 2048, 10, 12, 64, 1) for B in (1, 3, 64, 65, 100, 256)] + [
 
 
 def _ck64_inputs(r, B, N, J, UL, m, P, extreme=False):
-    """x (B, C*P*ckp) and wm (UL, J*m, N+m); ``extreme``: key limbs all
-    -128 and digit rows at the planes' extremes (P = 1: -128 and 127; P =
-    2: -64 and 64), the largest partial sums the in-place negation and the
-    plane shift see."""
+    """x (B, C*P*ckp) and the K-packed key wmt (UL, N+m, J*m) (ck_wmt of a
+    random wm (UL, J*m, N+m)); ``extreme``: key limbs all -128 and digit
+    rows at the planes' extremes (P = 1: -128 and 127; P = 2: -64 and 64),
+    the largest partial sums the in-place negation and the plane shift
+    see."""
     ckp = K.ck_width(J * m)
     lo, hi = (-128, 128) if P == 1 else (-64, 65)
     x = _i8(r, (B, (N // m) * P * ckp), lo, hi)
@@ -300,7 +301,7 @@ def _ck64_inputs(r, B, N, J, UL, m, P, extreme=False):
         wm.fill_(-128)
         x[0::2] = lo
         x[1::2] = hi - 1
-    return x, wm
+    return x, K.ck_wmt(wm)
 
 
 def _on_card_vs_plain(fn, plain, args, kw, cuda, **launch):
@@ -313,10 +314,9 @@ def _on_card_vs_plain(fn, plain, args, kw, cuda, **launch):
     assert torch.equal(got, want)
 
 
-def _ck_dot64p_rows(x, wm, *, N, m, planes, rows):
+def _ck_dot64p_rows(x, wmt, *, N, m, planes, rows):
     """ck_dot64p's kernel at a forced row tile, through its raw entry (the
     wrapper chooses the rows from B)."""
-    wmt = K.ck_wmt(wm)
     UL, _, Jm = wmt.shape
     out = torch.empty((UL, x.shape[0], N), dtype=torch.int32,
                       device=x.device)
@@ -325,11 +325,11 @@ def _ck_dot64p_rows(x, wm, *, N, m, planes, rows):
     return out
 
 
-def _ck_dot64p_acc_plan(x, wm, acc, *, N, m, planes, kp1, key_shift, plan):
+def _ck_dot64p_acc_plan(x, wmt, acc, *, N, m, planes, kp1, key_shift,
+                        plan):
     """ck_dot64p_acc's kernel at a forced (rows, limbs) plan, through its
     raw entry."""
     rows, limbs = plan
-    wmt = K.ck_wmt(wm)
     UL, _, Jm = wmt.shape
     out = torch.empty_like(acc)
     K._launch("ck_dot64p_acc", x.data_ptr(), wmt.data_ptr(), acc.data_ptr(),
@@ -340,16 +340,17 @@ def _ck_dot64p_acc_plan(x, wm, acc, *, N, m, planes, kp1, key_shift, plan):
 
 @pytest.mark.parametrize("B,N,J,UL,m,P", CK64_CASES)
 def test_ck_dot64p(cuda, B, N, J, UL, m, P):
-    """The chosen plan on wmt as the engine prepares it, and from wm alone
-    (one transpose a call, counted)."""
-    x, wm = _ck64_inputs(np.random.default_rng(6), B, N, J, UL, m, P)
+    """The chosen plan on wmt as the engine prepares it, and through the
+    32-bit generic contraction's entry from wm (one transpose a call,
+    counted)."""
+    x, wmt = _ck64_inputs(np.random.default_rng(6), B, N, J, UL, m, P)
     kw = dict(N=N, m=m, planes=P)
+    _on_card_vs_plain(K.ck_dot64p, K.ck_dot64p_plain, (x, wmt), kw, cuda)
     before = K.ck_dot64p.transposes
-    _on_card_vs_plain(K.ck_dot64p, K.ck_dot64p_plain, (x, wm), kw, cuda,
-                      wmt=K.ck_wmt(wm.to(cuda)))
-    assert K.ck_dot64p.transposes == before
-    _on_card_vs_plain(K.ck_dot64p, K.ck_dot64p_plain, (x, wm), kw, cuda)
+    dx, dwmt = x.to(cuda), wmt.to(cuda)
+    got = K.ck_dot64p_wm(dx, dwmt.transpose(1, 2).contiguous(), **kw)
     assert K.ck_dot64p.transposes == before + 1
+    assert torch.equal(got, K.ck_dot64p_plain(dx, dwmt, **kw))
 
 
 @pytest.mark.parametrize("rows", [64, 128])
@@ -359,8 +360,8 @@ def test_ck_dot64p(cuda, B, N, J, UL, m, P):
 def test_ck_dot64p_every_plan(cuda, B, N, J, UL, m, P, rows):
     """Both row tiles at the same batches, the one the wrapper would not
     choose included."""
-    x, wm = _ck64_inputs(np.random.default_rng(16), B, N, J, UL, m, P)
-    _on_card_vs_plain(_ck_dot64p_rows, K.ck_dot64p_plain, (x, wm),
+    x, wmt = _ck64_inputs(np.random.default_rng(16), B, N, J, UL, m, P)
+    _on_card_vs_plain(_ck_dot64p_rows, K.ck_dot64p_plain, (x, wmt),
                       dict(N=N, m=m, planes=P), cuda, rows=rows)
 
 
@@ -372,28 +373,44 @@ def test_ck_dot64p_extreme_digits(cuda, B, N, J, UL, m, P):
     partial sums between the in-place negations and plane shifts reach
     their largest magnitudes (wrapping mod 2^32 where P = 2), and the
     folded result is still bit-exact."""
-    x, wm = _ck64_inputs(np.random.default_rng(17), B, N, J, UL, m, P,
-                         extreme=True)
+    x, wmt = _ck64_inputs(np.random.default_rng(17), B, N, J, UL, m, P,
+                          extreme=True)
     kw = dict(N=N, m=m, planes=P)
-    _on_card_vs_plain(K.ck_dot64p, K.ck_dot64p_plain, (x, wm), kw, cuda)
+    _on_card_vs_plain(K.ck_dot64p, K.ck_dot64p_plain, (x, wmt), kw, cuda)
     for rows in (64, 128):
-        _on_card_vs_plain(_ck_dot64p_rows, K.ck_dot64p_plain, (x, wm), kw,
+        _on_card_vs_plain(_ck_dot64p_rows, K.ck_dot64p_plain, (x, wmt), kw,
                           cuda, rows=rows)
 
 
 def test_ck_dot64p_unsupported_shape_raises(cuda):
-    """N = 32 is below the kernel's 64-column tile, and J*m = 24 is not a
-    multiple of 16 (TMA's row stride): the wrappers raise instead of
-    running the plain version on the card."""
-    for N, m, J in ((32, 16, 4), (128, 8, 3)):
+    """N = 32 is below the kernels' 64-column tile and J*m = 24 is not a
+    multiple of 16 (TMA's row stride): the four 64-bit wrappers raise
+    instead of running the plain version on the card.  m = 2 is not a
+    multiple of 4, which only ck_cmux_step64's digit builds need: it
+    raises there, and the contractions run."""
+    for N, m, J in ((32, 16, 4), (128, 8, 3), (64, 2, 8)):
         ckp = K.ck_width(J * m)
         x = torch.zeros((4, (N // m) * ckp), dtype=torch.int8, device=cuda)
-        wm = torch.zeros((2, J * m, N + m), dtype=torch.int8, device=cuda)
+        wmt = torch.zeros((2, N + m, J * m), dtype=torch.int8, device=cuda)
         acc = torch.zeros((4, 2 * N), dtype=torch.int64, device=cuda)
-        with pytest.raises(ValueError, match="kernel"):
-            K.ck_dot64p(x, wm, N=N, m=m)
-        with pytest.raises(ValueError, match="kernel"):
-            K.ck_dot64p_acc(x, wm, acc, N=N, m=m, key_shift=0, kp1=2)
+        a = torch.zeros(4, dtype=torch.int32, device=cuda)
+        if m % 4 == 0:
+            with pytest.raises(ValueError, match="kernel"):
+                K.ck_dot64p(x, wmt, N=N, m=m)
+            for fn in (K.ck_dot64p_acc, K.ck_dot64p_sacc):
+                with pytest.raises(ValueError, match="kernel"):
+                    fn(x, wmt, acc, N=N, m=m, key_shift=0, kp1=2)
+        else:
+            kw = dict(N=N, m=m, key_shift=0, kp1=2)
+            assert torch.equal(K.ck_dot64p(x, wmt, N=N, m=m),
+                               K.ck_dot64p_plain(x, wmt, N=N, m=m))
+            for fn in (K.ck_dot64p_acc, K.ck_dot64p_sacc):
+                assert torch.equal(fn(x, wmt, acc, **kw),
+                                   K.ck_dot64p_acc_plain(x, wmt, acc, **kw))
+        if J % 2 == 0:                         # J = kp1 * l with kp1 = 2
+            with pytest.raises(ValueError, match="kernel"):
+                K.ck_cmux_step64(a, acc, wmt, l=J // 2, bgbit=4, offset=0,
+                                 m=m, key_shift=0, planes=1, kp1=2)
 
 
 @pytest.mark.parametrize("split", [1, 2, 3, 0])
@@ -449,17 +466,16 @@ CK64_ACC_CASES = [(B, 2048, 5, 2, 6, 64, 1) for B in (1, 3, 64, 65, 100, 256)
 
 @pytest.mark.parametrize("B,N,l,kp1,L,m,P", CK64_ACC_CASES)
 def test_ck_dot64p_acc(cuda, B, N, l, kp1, L, m, P):
+    """The chosen plan on wmt; ck_dot64p_sacc, the same function with the
+    limbs in the grid, gives the same bits."""
     r = np.random.default_rng(8)
-    x, wm = _ck64_inputs(r, B, N, kp1 * l, kp1 * L, m, P)
+    x, wmt = _ck64_inputs(r, B, N, kp1 * l, kp1 * L, m, P)
     acc = _i64(r, (B, kp1 * N))
     kw = dict(N=N, m=m, planes=P, kp1=kp1, key_shift=max(0, 64 - 8 * L))
-    before = K.ck_dot64p_acc.transposes
-    _on_card_vs_plain(K.ck_dot64p_acc, K.ck_dot64p_acc_plain, (x, wm, acc),
-                      kw, cuda, wmt=K.ck_wmt(wm.to(cuda)))
-    assert K.ck_dot64p_acc.transposes == before
-    _on_card_vs_plain(K.ck_dot64p_acc, K.ck_dot64p_acc_plain, (x, wm, acc),
+    _on_card_vs_plain(K.ck_dot64p_acc, K.ck_dot64p_acc_plain, (x, wmt, acc),
                       kw, cuda)
-    assert K.ck_dot64p_acc.transposes == before + 1
+    _on_card_vs_plain(K.ck_dot64p_sacc, K.ck_dot64p_acc_plain, (x, wmt, acc),
+                      kw, cuda)
 
 
 @pytest.mark.parametrize("extreme", [False, True])
@@ -474,10 +490,10 @@ def test_ck_dot64p_acc_every_plan(cuda, B, N, l, kp1, L, m, P, plan,
     limbs a pass (the second limb of a pass belongs to the next polynomial),
     and the extreme digits of test_ck_dot64p_extreme_digits."""
     r = np.random.default_rng(18)
-    x, wm = _ck64_inputs(r, B, N, kp1 * l, kp1 * L, m, P, extreme)
+    x, wmt = _ck64_inputs(r, B, N, kp1 * l, kp1 * L, m, P, extreme)
     acc = _i64(r, (B, kp1 * N))
     _on_card_vs_plain(_ck_dot64p_acc_plan, K.ck_dot64p_acc_plain,
-                      (x, wm, acc), dict(N=N, m=m, planes=P, kp1=kp1,
+                      (x, wmt, acc), dict(N=N, m=m, planes=P, kp1=kp1,
                                          key_shift=max(0, 64 - 8 * L)),
                       cuda, plan=plan)
 
@@ -586,39 +602,128 @@ def test_rotate_decompose64(cuda, B, k, N, l, bgbit):
                        K.rotate_decompose64_ck(da, dacc, m=64, **kw))
 
 
-@pytest.mark.parametrize("B,N,l,kp1,L,m,P", [(256, 2048, 5, 2, 6, 64, 1),
-                                             (37, 2048, 4, 2, 8, 64, 2),
-                                             (1, 256, 2, 3, 3, 64, 1),
-                                             (70, 128, 4, 2, 5, 32, 2)])
-def test_ck_dot64p_sacc(cuda, B, N, l, kp1, L, m, P):
+def _ck_dot64p_sacc_rows(x, wmt, acc, *, N, m, planes, kp1, key_shift,
+                         rows):
+    """ck_dot64p_sacc's kernel at a forced row tile, through its raw
+    entry."""
+    UL, _, Jm = wmt.shape
+    out = torch.empty_like(acc)
+    K._launch("ck_dot64p_sacc", x.data_ptr(), wmt.data_ptr(), acc.data_ptr(),
+              out.data_ptr(), x.shape[0], N, m, Jm, kp1, UL // kp1, planes,
+              K.ck_width(Jm), key_shift, rows)
+    return out
+
+
+# ck_dot64p_sacc's and ck_cmux_step64's cases: (B, N, l, kp1, L, m, P):
+# CB_MXU at the paths' batch and the tails, CB_ACTIVE-shaped (P = 2, 8
+# limbs), k = 2, odd limb counts (a 4-row limb group straddles polynomials),
+# m below the 64-column tile, a ragged K tail (J*m = 96, 160 or 352: not a
+# multiple of 128)
+CK64_ATOMIC_CASES = [(B, 2048, 5, 2, 6, 64, 1) for B in (1, 3, 37, 100, 256)
+                     ] + [(256, 2048, 4, 2, 8, 64, 2),
+                          (37, 2048, 4, 2, 8, 64, 2),
+                          (1, 256, 2, 3, 3, 64, 1), (70, 128, 4, 2, 5, 32, 2),
+                          (65, 256, 3, 3, 4, 32, 1), (9, 128, 3, 2, 5, 16, 2),
+                          (130, 256, 11, 2, 3, 16, 1)]
+
+
+@pytest.mark.parametrize("extreme", [False, True])
+@pytest.mark.parametrize("B,N,l,kp1,L,m,P", CK64_ATOMIC_CASES)
+def test_ck_dot64p_sacc(cuda, B, N, l, kp1, L, m, P, extreme):
+    """The chosen plan and both row tiles forced, on wmt, with random and
+    extreme digits (test_ck_dot64p_extreme_digits's)."""
     r = np.random.default_rng(12)
-    ckp = K.ck_width(kp1 * l * m)
-    lo, hi = (-128, 128) if P == 1 else (-64, 65)
-    x = _i8(r, (B, (N // m) * P * ckp), lo, hi)
-    wm = _i8(r, (kp1 * L, kp1 * l * m, N + m))
+    x, wmt = _ck64_inputs(r, B, N, kp1 * l, kp1 * L, m, P, extreme)
     acc = _i64(r, (B, kp1 * N))
-    _same_on_card(K.ck_dot64p_sacc, K.ck_dot64p_acc_plain, (x, wm, acc),
-                  dict(N=N, m=m, planes=P, kp1=kp1,
-                       key_shift=max(0, 64 - 8 * L)), cuda)
+    kw = dict(N=N, m=m, planes=P, kp1=kp1, key_shift=max(0, 64 - 8 * L))
+    _on_card_vs_plain(K.ck_dot64p_sacc, K.ck_dot64p_acc_plain, (x, wmt, acc),
+                      kw, cuda)
+    for rows in (64, 128):
+        _on_card_vs_plain(_ck_dot64p_sacc_rows, K.ck_dot64p_acc_plain,
+                          (x, wmt, acc), kw, cuda, rows=rows)
 
 
-@pytest.mark.parametrize("B,kp1,N,l,bgbit,L,m,tile", [
-    (256, 2, 2048, 5, 8, 6, 64, 0), (37, 2, 2048, 4, 9, 8, 64, 0),
-    (1, 2, 256, 2, 8, 3, 64, 0), (3, 2, 128, 3, 8, 8, 32, 0),
-    (100, 2, 256, 2, 9, 3, 64, 64), (100, 2, 256, 2, 9, 3, 64, 32),
-    (70, 3, 256, 3, 8, 4, 64, 32)])
-def test_ck_cmux_step64(cuda, B, kp1, N, l, bgbit, L, m, tile):
-    """Tail rows, both tiles, odd and even limb counts, one and two digit
-    planes, k = 1 and 2."""
-    r = np.random.default_rng(13)
+def _ck_cmux_step64_plan(a, acc, wmt, *, l, bgbit, offset, m, kp1,
+                         key_shift, planes, plan):
+    """ck_cmux_step64's kernel at a forced (rows, split) plan, through its
+    raw entry: 64 or 128 rows, 1 .. the windows of a tile slices."""
+    rows, split = plan
+    UL, Npm, Jm = wmt.shape
+    N = Npm - m
+    assert rows in (64, 128) and 1 <= split <= K.ck_work(N, m, 64)
+    out = torch.empty_like(acc)
+    K._launch("ck_cmux_step64", a.data_ptr(), acc.data_ptr(), wmt.data_ptr(),
+              out.data_ptr(), acc.shape[0], kp1, N, m, l, UL // kp1, planes,
+              bgbit, offset & ((1 << 64) - 1), key_shift, rows, split)
+    return out
+
+
+def _step64_case(r, B, N, l, kp1, L, m, P, extreme):
+    """(a, acc, wmt) and the step's keywords: random exponents (a[0] = N, a
+    pure sign flip) and accumulators, or ``extreme``: every exponent 0 (so
+    the digits are the offset's: all -half or all half - 1, row by row) and
+    key limbs all -128."""
+    bgbit = 8 if P == 1 else 9
+    while l * bgbit > 64:
+        bgbit -= 1
     acc = _i64(r, (B, kp1 * N))
     a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
-    a[0] = N                                   # a pure sign flip
+    a[0] = N
     wm = _i8(r, (kp1 * L, kp1 * l * m, N + m))
     offset = sum(1 << (63 - i * bgbit) for i in range(l + 1)) % 2**64
+    if extreme:
+        a.zero_()
+        wm.fill_(-128)
+        offset = 0
     kw = dict(l=l, bgbit=bgbit, offset=offset, m=m, kp1=kp1,
-              key_shift=max(0, 64 - 8 * L), planes=1 if bgbit <= 8 else 2)
-    got = K.ck_cmux_step64(a.to(cuda), acc.to(cuda), wm.to(cuda),
-                           tile_rows=tile, **kw)
-    torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), K.ck_cmux_step64_plain(a, acc, wm, **kw))
+              key_shift=max(0, 64 - 8 * L), planes=P)
+    return a, acc, K.ck_wmt(wm), kw
+
+
+@pytest.mark.parametrize("extreme", [False, True])
+@pytest.mark.parametrize("B,N,l,kp1,L,m,P", CK64_ATOMIC_CASES)
+def test_ck_cmux_step64(cuda, B, N, l, kp1, L, m, P, extreme):
+    """The chosen plan, both row tiles and forced window splits (one, two,
+    every window its own slice), against the plain version on the card;
+    extreme digits from the offsets that make every digit -half, every
+    digit half - 1, and at P = 2 every digit 64 (planes -64 and 1)."""
+    r = np.random.default_rng(13)
+    a, acc, wmt, kw = _step64_case(r, B, N, l, kp1, L, m, P, extreme)
+    nw = K.ck_work(N, m, 64)
+    bg = kw["bgbit"]
+    offsets = (kw["offset"],)
+    if extreme:
+        offsets = (0, 2**64 - 1) + ((sum(((1 << (bg - 1)) + 64)
+                                         << (64 - (lv + 1) * bg)
+                                         for lv in range(l)) % 2**64,)
+                                    if P == 2 else ())
+    for offset in offsets:
+        kw["offset"] = offset
+        da, dacc, dwmt = a.to(cuda), acc.to(cuda), wmt.to(cuda)
+        want = K.ck_cmux_step64_plain(da, dacc, dwmt, **kw)
+        assert torch.equal(K.ck_cmux_step64(da, dacc, dwmt, **kw), want)
+        chosen = K.ck_cmux_step64_plan(B, kp1, N, m, kp1 * l * m, L, P, cuda)
+        for plan in ((64, 1), (128, 1), (64, 2), (128, 2), (128, nw),
+                     (64, chosen[1])):
+            got = _ck_cmux_step64_plan(da, dacc, dwmt, plan=plan, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), plan
+
+
+def test_ck_cmux_step64_plan(cuda):
+    """The plan: 128 rows above B = 64 where the ring holds two 32 KB key
+    stages beside the two digit buffers, else 64; the C query of the ring's
+    stages; a narrow batch splits its tiles' windows, and m = 2 (not a
+    multiple of 4) has no plan."""
+    assert K._occupancy("ck_cmux_step64_stages", 128, 640) == 2
+    assert K._occupancy("ck_cmux_step64_stages", 64, 640) == 4
+    assert K._occupancy("ck_cmux_step64_stages", 128, 1280) == 0
+    assert K._occupancy("ck_cmux_step64_stages", 64, 1280) == 2
+    plan = K.ck_cmux_step64_plan
+    assert plan(256, 2, 2048, 64, 640, 6, 1, cuda)[0] == 128
+    assert plan(64, 2, 2048, 64, 640, 6, 1, cuda)[0] == 64
+    assert plan(256, 2, 2048, 64, 1280, 6, 1, cuda)[0] == 64
+    assert 1 <= plan(256, 2, 2048, 64, 640, 6, 1, cuda)[1] <= 33
+    assert plan(1, 2, 2048, 64, 640, 6, 1, cuda)[1] > 1
+    with pytest.raises(ValueError, match="m % 4 == 0"):
+        plan(1, 2, 64, 2, 16, 6, 1, cuda)

@@ -168,12 +168,12 @@ def test_ck_cmux_step64_matches_pallas(N, k, l, bgbit, klimbs, m, tm):
                                  tm=tm, kp1=k + 1, interpret=True)
     want = i64pair.to_i64(olo, ohi)
     ta, tacc = torch.from_numpy(a), torch.from_numpy(acc)
-    twm = torch.from_numpy(np.array(wm))
-    _same(K.ck_cmux_step64(ta, tacc, twm, l=l, bgbit=bgbit, offset=tp.offset,
-                           m=m, key_shift=cfg.key_shift, planes=P,
-                           kp1=k + 1), want)
+    twmt = K.ck_wmt(torch.from_numpy(np.array(wm)))
+    _same(K.ck_cmux_step64(ta, tacc, twmt, l=l, bgbit=bgbit,
+                           offset=tp.offset, m=m, key_shift=cfg.key_shift,
+                           planes=P, kp1=k + 1), want)
     te = engine.ChunkedEngine(tgsw.engine_config(tp), m=m)
-    _same(te.cmux_step_flat(ta, tacc, {"wm": twm}, kp1=k + 1, l=l,
+    _same(te.cmux_step_flat(ta, tacc, {"wmt": twmt}, kp1=k + 1, l=l,
                             bgbit=bgbit, offset=tp.offset), want)
 
 
@@ -195,14 +195,83 @@ def test_ck_dot64p_sacc_matches_pallas(N, k, l, bgbit, klimbs, m, tm):
                                  kp1=k + 1, interpret=True)
     want = i64pair.to_i64(slo, shi)
     ta, tacc = torch.from_numpy(a), torch.from_numpy(acc)
-    twm = torch.from_numpy(np.array(wm))
+    twmt = K.ck_wmt(torch.from_numpy(np.array(wm)))
     tx = K.rotate_decompose64_ck_flat(ta, tacc, N=N, l=l, bgbit=bgbit,
                                       offset=tp.offset, m=m, planes=P)
-    _same(K.ck_dot64p_sacc(tx, twm, tacc, N=N, m=m, key_shift=cfg.key_shift,
+    _same(K.ck_dot64p_sacc(tx, twmt, tacc, N=N, m=m, key_shift=cfg.key_shift,
                            planes=P, kp1=k + 1, digit_bits=bgbit), want)
     te = engine.ChunkedEngine(tgsw.engine_config(tp), m=m)
-    _same(te.cmux_step_sacc(ta, tacc, {"wm": twm}, kp1=k + 1, l=l,
+    _same(te.cmux_step_sacc(ta, tacc, {"wmt": twmt}, kp1=k + 1, l=l,
                             bgbit=bgbit, offset=tp.offset), want)
+
+
+def _step64_slice(x, wmt, *, i0, windows, N, m, P, kp1, key_shift):
+    """A Python mirror of one ck_cmux_step64 block's slice over every limb:
+    for the folded columns [i0, i0+64), each limb row g's signed sum of its
+    ``windows`` (chunk, sign) products over every plane (<< 7p), widened
+    and shifted by 8 (g mod L) + key_shift into polynomial g div L (mod
+    2^64); and the largest |fold| of a limb row.  Key rows outside [0,
+    N+m) read as zero."""
+    B = x.shape[0]
+    UL, Npm, Jm = wmt.shape
+    L = UL // kp1
+    xr = x.reshape(B, N // m, P, -1)[..., :Jm].to(torch.float64)
+    wpad = torch.nn.functional.pad(wmt.transpose(1, 2).to(torch.float64),
+                                   (N, N))
+    cols = torch.arange(i0, i0 + 64)
+    out = torch.zeros((B, kp1, 64), dtype=torch.int64)
+    worst = 0
+    for g in range(UL):
+        fold = torch.zeros((B, 64), dtype=torch.int64)
+        for p in range(P):
+            for c, sign in windows:
+                q = (0 if sign > 0 else N) + cols - c * m
+                fold += sign * ((xr[:, c, p] @ wpad[g][:, q + N])
+                                .to(torch.int64) << (7 * p))
+        worst = max(worst, int(fold.abs().max()))
+        u, lm = divmod(g, L)
+        if 8 * lm + key_shift < 64:
+            out[:, u] += fold << (8 * lm + key_shift)
+    return out, worst
+
+
+@pytest.mark.parametrize("N,m,L,P,split", [
+    (128, 64, 6, 1, 1), (128, 64, 6, 1, 2), (128, 64, 3, 2, 3),
+    (128, 32, 5, 1, 4), (128, 32, 4, 2, 6)])
+def test_ck_cmux_step64_window_partition(N, m, L, P, split):
+    """The kernel's window split (ck_windows over 64-column tiles,
+    window_slice, every slice running its windows for every plane): each
+    window of each tile falls in exactly one slice, each slice's limb folds
+    stay inside int32 (so they widen exactly), and the slices' sums added
+    onto acc mod 2^64, as the atomics do, give ck_cmux_step64_plain bit for
+    bit."""
+    r = np.random.default_rng(21)
+    B, kp1, l = 3, 2, 2
+    bgbit = 8 if P == 1 else 9
+    acc = torch.from_numpy(_i64(r, (B, kp1 * N)))
+    a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
+    a[0] = N
+    wmt = torch.from_numpy(r.integers(-128, 128, (kp1 * L, N + m, kp1 * l * m))
+                           .astype(np.int8))
+    kw = dict(l=l, bgbit=bgbit, offset=0x8040201008040201, m=m, planes=P)
+    key_shift = max(0, 64 - 8 * L)
+    x = K.rotate_decompose64_ck_flat_plain(a, acc, N=N, **kw)
+    want = K.ck_cmux_step64_plain(a, acc, wmt, key_shift=key_shift, kp1=kp1,
+                                  **kw)
+    got = acc.reshape(B, kp1, N).clone()
+    for i0 in range(0, N, 64):
+        wins = K.ck_windows(i0, N, m, 64)
+        assert len(wins) <= K.ck_work(N, m, 64)
+        seen = []
+        for s in range(split):
+            part = [wins[w] for w in K.window_slice(len(wins), split, s)]
+            seen += part
+            y, worst = _step64_slice(x, wmt, i0=i0, windows=part, N=N, m=m,
+                                     P=P, kp1=kp1, key_shift=key_shift)
+            assert worst < 2**31
+            got[:, :, i0:i0 + 64] += y
+        assert seen == wins                     # each window exactly once
+    assert torch.equal(got.reshape(B, -1), want)
 
 
 # ---------------------------------------------------------------------------
@@ -356,27 +425,30 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         K.rotate_decompose64(a, acc64, l=4, bgbit=9, offset=0, planes=1)
 
     L = 3
-    wm = torch.zeros((kp1 * L, kp1 * l * m, N + m), dtype=torch.int8)
+    wmt = torch.zeros((kp1 * L, N + m, kp1 * l * m), dtype=torch.int8)
     flat = acc64.reshape(2, -1)
     step = dict(l=l, bgbit=8, offset=0, m=m, key_shift=40, kp1=kp1)
     for planes in (0, 3):
         with pytest.raises(ValueError, match="planes 1 or 2"):
-            K.ck_cmux_step64(a, flat, wm, planes=planes, **step)
+            K.ck_cmux_step64(a, flat, wmt, planes=planes, **step)
     with pytest.raises(ValueError, match="2-D"):
-        K.ck_cmux_step64(a, acc64, wm, planes=1, **step)
+        K.ck_cmux_step64(a, acc64, wmt, planes=1, **step)
     with pytest.raises(ValueError, match="acc must be"):
-        K.ck_cmux_step64(a, flat[:, :-N].contiguous(), wm, planes=1, **step)
-    with pytest.raises(ValueError, match="tile_rows"):
-        K.ck_cmux_step64(a, flat, wm, planes=1, tile_rows=16, **step)
+        K.ck_cmux_step64(a, flat[:, :-N].contiguous(), wmt, planes=1, **step)
+    with pytest.raises(ValueError, match="acc must be"):    # wm, not wmt
+        K.ck_cmux_step64(a, flat, wmt.transpose(1, 2).contiguous(), planes=1,
+                         **step)
 
     x = torch.zeros((2, (N // m) * K.ck_width(kp1 * l * m)), dtype=torch.int8)
     dot = dict(N=N, m=m, key_shift=40, kp1=kp1)
     for planes in (0, 3):
         with pytest.raises(ValueError, match="planes must be 1 or 2"):
-            K.ck_dot64p_sacc(x, wm, flat, planes=planes, **dot)
+            K.ck_dot64p_sacc(x, wmt, flat, planes=planes, **dot)
     with pytest.raises(ValueError, match="x must be"):
-        K.ck_dot64p_sacc(x[:, :-1].contiguous(), wm, flat, **dot)
+        K.ck_dot64p_sacc(x[:, :-1].contiguous(), wmt, flat, **dot)
     with pytest.raises(ValueError, match="int64"):
-        K.ck_dot64p_sacc(x, wm, flat.to(torch.int32), **dot)
+        K.ck_dot64p_sacc(x, wmt, flat.to(torch.int32), **dot)
     with pytest.raises(ValueError, match="int32 accumulation bound"):
-        K.ck_dot64p_sacc(x, wm, flat, digit_bits=30, **dot)
+        K.ck_dot64p_sacc(x, wmt, flat, digit_bits=30, **dot)
+    with pytest.raises(ValueError, match="wmt must be"):    # wm, not wmt
+        K.ck_dot64p_sacc(x, wmt.transpose(1, 2).contiguous(), flat, **dot)

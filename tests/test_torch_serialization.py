@@ -24,6 +24,7 @@ from tfhe_tpu.rng import TfheRng as JRng
 from tfhe_tpu.utils import serialization as jser
 from tfhe_tpu_torch import lwe
 from tfhe_tpu_torch.boot import circuit, gate
+from tfhe_tpu_torch.ops import kernels as K
 from tfhe_tpu_torch.params import CB_TOY as T_CB_TOY, GATE_TOY as T_TOY
 from tfhe_tpu_torch.rng import TfheRng
 from tfhe_tpu_torch.utils import serialization as ser
@@ -98,11 +99,15 @@ def _circuit_keys(seed=9):
 
 
 def _same_circuit_data(data, ref):
+    """The same keys; the bk as each package prepares it (the port's K-packed
+    wmt, the JAX package's wm)."""
     for name in ("preks", "privks"):
         np.testing.assert_array_equal(np.asarray(data[name]),
                                       np.asarray(ref[name]), err_msg=name)
-    np.testing.assert_array_equal(np.asarray(data["bk"]["wm"]),
-                                  np.asarray(ref["bk"]["wm"]))
+    assert set(data["bk"]) == set(ref["bk"])
+    for name in data["bk"]:
+        np.testing.assert_array_equal(np.asarray(data["bk"][name]),
+                                      np.asarray(ref["bk"][name]))
 
 
 def test_circuit_key_files_cross_load(tmp_path):
@@ -115,9 +120,11 @@ def test_circuit_key_files_cross_load(tmp_path):
     data, params = ser.load_circuit_key(jpath, device="cpu")
     assert params == T_CB_TOY
     _same_circuit_data(data, ck.data)
-    # the reloaded key carries the K-packed key of the 64-bit steps
-    assert torch.equal(data["bk"]["wmt"], ck.data["bk"]["wmt"])
-    assert torch.equal(data["bk"]["wmt"], data["bk"]["wm"].transpose(-1, -2))
+    # the reloaded key is the K-packed key of the 64-bit steps alone, ck_wmt
+    # of the JAX package's wm
+    assert set(data["bk"]) == {"wmt"}
+    assert torch.equal(data["bk"]["wmt"], K.ck_wmt(torch.from_numpy(
+        np.asarray(jck.data["bk"]["wm"]))))
     assert torch.equal(circuit.circuit_bootstrap(ct, data, params), want)
     # port -> JAX
     tpath = str(tmp_path / "port_cb.npz")

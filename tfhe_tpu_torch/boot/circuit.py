@@ -152,7 +152,7 @@ def priv_keyswitch(x64, pksk: PrivKeySwitchKey, z: int):
 def prepare_circuit_bk(gsw, p: CircuitParams, backend: str = "chunked"):
     """Raw TRGSW64 bk (n0, k+1, l2, k+1, N2) -> the engine-prepared key
     stacked over the n0 steps, on gsw's device (for the chunked backend the
-    pre-shifted wm is ~m/2 times the raw bk: 8.1 GB at CB_MXU)."""
+    pre-shifted K-packed wmt is ~m/2 times the raw bk: 8.1 GB at CB_MXU)."""
     eng = make_engine(tgsw.engine_config(p.tgsw_lvl2), backend)
     rows = tgsw.rows(gsw)                                 # (n0, kpl, k+1, N)
     if backend == "chunked":
@@ -170,7 +170,7 @@ class CircuitCloudKey:
     privks: PrivKeySwitchKey
     bk_raw: torch.Tensor | None = None   # host copy of the raw TRGSW64 bk
                                          # (for serialization: 164 MB at
-                                         # CB_MXU against 8.1 GB of wm)
+                                         # CB_MXU against 8.1 GB of wmt)
 
     @staticmethod
     def generate(sk: CircuitSecretKey, rng: TfheRng,

@@ -16,8 +16,11 @@ Both functions take plain numpy arrays (convert a JAX array with
     ``tfhe_tpu.boot.circuit.CircuitCloudKey.data`` — ``preks`` (4,
     n1*t*base, n0+1) int8 limbs, ``bk`` ``{"wm": (n0, U*L, J*m, N2+m)
     int8}`` for ``chunked`` (``{"mat": ...}`` for ``naive``), ``privks``
-    (k+1, 4, (n2+1)*t*base, (k+1)*N1) int8 limbs.  A chunked ``bk`` gains
-    the K-packed ``wmt`` here, as ``ChunkedEngine.prepare`` gives it.
+    (k+1, 4, (n2+1)*t*base, (k+1)*N1) int8 limbs.  A chunked ``bk`` is
+    converted to the port's 64-bit prepared key, the K-packed ``{"wmt":
+    (n0, U*L, N2+m, J*m) int8}`` that ``ChunkedEngine.prepare`` builds (each
+    step's ``wm`` transposed on the device in turn, so the two stacks never
+    share the card).
 
 Both packages then compute the same function on the same keys.
 """
@@ -28,10 +31,10 @@ import numpy as np
 import torch
 
 from tfhe_tpu_torch import device as _device
-from tfhe_tpu_torch import lwe, tgsw, tlwe
+from tfhe_tpu_torch import lwe, tlwe
 from tfhe_tpu_torch.boot import circuit
 from tfhe_tpu_torch.boot.gate import CloudKey, SecretKey
-from tfhe_tpu_torch.ops.engine import make_engine
+from tfhe_tpu_torch.ops import kernels
 from tfhe_tpu_torch.params import CircuitParams, GateParams, LweParams
 
 _BK_LEAF = {"onthefly": "v", "matmul": "w", "naive": "mat", "chunked": "wm"}
@@ -45,6 +48,22 @@ def _bk(key_data, backend, dev):
                          f"{_BK_LEAF[backend]!r}, got {sorted(key_data['bk'])}")
     return {name: torch.tensor(np.asarray(v)).to(dev)
             for name, v in key_data["bk"].items()}
+
+
+def _k_packed_bk(key_data, dev):
+    """The JAX package's 64-bit chunked bk {"wm": (n0, U*L, J*m, N+m)} ->
+    {"wmt": (n0, U*L, N+m, J*m)} on ``dev``, one step's wm moved and
+    transposed at a time."""
+    if set(key_data["bk"]) != {"wm"}:
+        raise ValueError(f"backend 'chunked' expects bk key 'wm', got "
+                         f"{sorted(key_data['bk'])}")
+    wm = np.asarray(key_data["bk"]["wm"])
+    n, UL, Jm, Npm = wm.shape
+    wmt = torch.empty((n, UL, Npm, Jm), dtype=torch.int8, device=dev)
+    for i in range(n):
+        wmt[i] = kernels.ck_wmt(torch.from_numpy(
+            np.ascontiguousarray(wm[i])).to(dev))
+    return {"wmt": wmt}
 
 
 def secret_key_from_numpy(params: GateParams, lwe_key_bits,
@@ -78,10 +97,8 @@ def circuit_cloud_key_from_numpy(key_data, params: CircuitParams,
                                  backend: str = "chunked",
                                  device=None) -> circuit.CircuitCloudKey:
     dev = _device.resolve(device)
-    bk = _bk(key_data, backend, dev)
-    if backend == "chunked":              # the K-packed key of the 64-bit steps
-        bk = make_engine(tgsw.engine_config(params.tgsw_lvl2),
-                         "chunked").with_k_packed(bk)
+    bk = (_k_packed_bk(key_data, dev) if backend == "chunked"
+          else _bk(key_data, backend, dev))
     preks = lwe.KeySwitchKey.from_limbs(np.array(key_data["preks"], np.int8),
                                         params.ks10, params.n_lvl1,
                                         params.n_lvl0, device=dev)

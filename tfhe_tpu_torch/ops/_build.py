@@ -34,7 +34,8 @@ _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _U64 = ctypes.c_uint64
 # Every C entry point: name -> (symbol, argtypes[, source]); the source is
 # csrc/<name>.cu unless named.  Each returns the cudaError_t of its launch,
-# but the *_occupancy queries, which return blocks per SM (or -cudaError).
+# but the *_occupancy queries, which return blocks per SM (or -cudaError),
+# and ck_cmux_step64_stages, which returns a plan's key-ring stages.
 SIGNATURES = {
     "materialize_w": ("tfhe_materialize_w", [_P, _P, _I, _I, _I, _I, _P]),
     "materialize_wt": ("tfhe_materialize_wt", [_P, _P, _I, _I, _I, _I, _P],
@@ -67,10 +68,13 @@ SIGNATURES = {
                            [_P, _P, _P, _I, _I, _I, _I, _I, _U64, _I, _P],
                            "rotate_decompose64_ck"),
     "ck_dot64p_sacc": ("tfhe_ck_dot64p_sacc", [_P, _P, _P, _P, _I, _I, _I,
-                                               _I, _I, _I, _I, _I, _I, _P]),
+                                               _I, _I, _I, _I, _I, _I, _I,
+                                               _P]),
     "ck_cmux_step64": ("tfhe_ck_cmux_step64",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _U64,
-                        _I, _I, _P]),
+                        _I, _I, _I, _P]),
+    "ck_cmux_step64_stages": ("tfhe_ck_cmux_step64_stages", [_I, _I],
+                              "ck_cmux_step64"),
 }
 
 

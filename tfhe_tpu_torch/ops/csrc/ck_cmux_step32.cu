@@ -14,7 +14,7 @@
 // kernel builds a whole batch tile's digits by log2(N) rolls into ping-pong
 // VMEM buffers and adds C full-width chunk products into a 2N ring.  Here an
 // output tile is 128 folded columns of one polynomial u for 64 (or 32) batch
-// rows, and its sum is chunked.cuh's windows: the chunks whose key columns
+// rows, and its sum is the chunk windows: the chunks whose key columns
 // reach the tile, added (windows 0 .. add_end-1, chunk w), then those whose
 // X^N wrap reaches it, subtracted (windows add_end .., chunks sub_begin ..
 // C-1): C + 1 windows of depth J*m when m is a multiple of 128.  The L limbs

@@ -1,130 +1,104 @@
-// ck_dot64p_sacc: ck_dot64p_acc's function with the limb axis in the grid.
-// x (B, C*P*ckp) int8 (rotate_decompose64_ck's chunk layout), wm (kp1*L, Jm,
-// N+m) int8 (ChunkedEngine.prepare), acc / out (B, kp1*N) int64 (the native
+// ck_dot64p_sacc: ck_dot64p_acc's function with the limb axis in the grid,
+// on Hopper.  x (B, C*P*ckp) int8 (rotate_decompose64_ck's chunk layout),
+// wmt (kp1*L, N+m, Jm) int8 (the K-packed chunked key of
+// ChunkedEngine.prepare), acc / out (B, kp1*N) int64 (the native
 // (B, k+1, N) Torus64 accumulator, the same bytes):
 //
 //   out[b, u*N + i] = acc[b, u*N + i]
-//                     + sum_l fold(x . wm[u*L + l])[b, i] << (8 l + key_shift)
+//                     + sum_l fold(x . wmt[u*L + l])[b, i] << (8 l + key_shift)
 //
 // mod 2^64, fold as in ck_dot64p.cu (planes combined with << 7p).
 //
 // Replaces tfhe_tpu/ops/pallas_kernels.py:ck_dot64p_sacc.  Bound by int8
-// tensor-core MACs, as ck_dot64p.  On the TPU the limb axis is an
+// tensor-core MACs on paper, on the card by the L2 -> shared-memory traffic
+// of the operand tiles, as ck_dot64p.  On the TPU the limb axis is an
 // "arbitrary" grid dimension and the 64-bit sum is carried in VMEM scratch
 // from one limb cell to the next; blocks on the GPU carry nothing between
-// them.  Here one block owns one (row tile, 128-column tile, polynomial u,
-// limb l) cell, runs ck_dot64p.cu's chunk windows for that limb alone
-// (chunked.cuh, one key tile per K step), keeps its (plane, sign) passes as
-// (int64) pass << (8 l + key_shift + 7 p) in uint64 registers, and adds the
-// result into out with 64-bit atomicAdd.  The entry point first copies acc
-// into out on the same stream.  Integer addition mod 2^64 commutes, so the
-// result is bit-identical whatever order the L blocks of an output land in
-// (a cluster of the L limb blocks reducing through distributed shared
-// memory would also be deterministic, but needs L <= 8 blocks co-scheduled
-// and a second code path; the atomics need neither).  The grid is L times
-// ck_dot64p_acc's: 768 blocks at CB_MXU B=256 against 128, with one limb's
-// pass sums (32 registers) beside the 64 of the uint64 outputs.  Exact:
-// each pass's int32 sum is bounded by J*(N+m)*|digit|*128 < 2^31, which the
-// wrapper asserts.
-#include "chunked.cuh"
+// them.  Here the grid is ck_dot64p's: a block owns 64 folded columns of a
+// group of LG = 4 consecutive limb rows of wmt (stacked along the wgmma's
+// N: one m64n256k32 a k32 step) for 64 WG batch rows, on ck_wgmma.cuh's
+// mainloop (TMA of x and wmt into an mbarrier ring, the window mask done by
+// TMA's zero fill, every pass in one register set).  Its epilogue
+// (ck_add_atomic) widens each limb's folded int32, shifts it by
+// 8 (g mod L) + key_shift into polynomial g div L (a group may straddle
+// two), sums the limbs of one polynomial in registers and adds the sum into
+// out with one 64-bit atomicAdd, after the launcher has copied acc there on
+// the same stream.  At CB_MXU B=256 (128 rows) that is 32 x 2 x 3 = 192
+// blocks and two atomic adds per output (limbs 0-3, 4-5 of u = 0; 0-1,
+// 2-5 of u = 1).  Exact: each limb's int32 fold is bounded by
+// J*(N+m)*|digit|*128 < 2^31, which the wrapper asserts; the 64-bit sums
+// wrap as the torus does.
+// Registers: -Xptxas -v (sm_90a), PERF.md §6.
+#include "ck_wgmma.cuh"
 
 namespace {
 
 using namespace tfhe;
 
-constexpr int BM = CK_BM, THREADS = 8 * CK_BK;
+template <class Pl>
+__global__ void __launch_bounds__(Pl::THREADS, 1)
+ck_dot64p_sacc_kernel(__grid_constant__ const CUtensorMap xmap,
+                      __grid_constant__ const CUtensorMap wmap,
+                      const CkShape g, const CkAtomicOut o) {
+  extern __shared__ uint8_t smem_raw[];
+  const CkRing<Pl> r(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int i0 = blockIdx.x * Pl::TN, b0 = blockIdx.y * Pl::ROWS;
+  const int g0 = blockIdx.z * Pl::LG;
+  r.init(tid);
+  CkCursor cur;
 
-template <int P>
-__global__ void __launch_bounds__(THREADS)
-ck_dot64p_sacc_kernel(const int8_t* __restrict__ x,
-                      const int8_t* __restrict__ wm,
-                      int64_t* __restrict__ out, int B, int N, int m, int Jm,
-                      int kp1, int L, int ckp, int key_shift) {
-  __shared__ __align__(16) uint8_t sA[BM * CK_SA_STRIDE];
-  __shared__ uint32_t sB[BN * SB_WORDS<CK_BK>];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int warp_m = warp >> 2, warp_n = warp & 3;
-  const int gr = lane >> 2, t = lane & 3;
-  const int i0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int u = blockIdx.z / L, lm = blockIdx.z - u * L;
-  const int npm = N + m, C = N / m;
-  const size_t xrow = (size_t)C * P * ckp;
-  const size_t gstride = (size_t)Jm * npm;
-  const int add_end = min((i0 + BN - 1) / m + 1, C);  // added: [0, add_end)
-  const int sub_begin = i0 / m;                       // subtracted: [.., C)
-  const int8_t* w = wm + (size_t)blockIdx.z * gstride;
-
-  uint64_t z[2][4][4];                 // this thread's 32 outputs
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) z[mi][nj][e] = 0;
-
-  int32_t acc[1][2][4][4];
-  for (int p = 0; p < P; ++p) {
-    const int s = 8 * lm + key_shift + 7 * p;
-    if (s >= 64) continue;             // vanishes mod 2^64
-    for (int sub = 0; sub < 2; ++sub) {
-      zero<1>(acc);
-      ck_window_pass<1>(acc, sA, sB, x, xrow, w, gstride, npm, B, m0, Jm, m,
-                        P, p, ckp, sub ? sub_begin : 0, sub ? C : add_end,
-                        (sub ? N : 0) + i0, tid);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const uint64_t v = (uint64_t)(int64_t)acc[0][mi][nj][e] << s;
-            z[mi][nj][e] = sub ? z[mi][nj][e] - v : z[mi][nj][e] + v;
-          }
+  if (warp == 4 * Pl::WG) {                   // the producer warp
+    if (CK_MAIN && CK_LOADS && lane == 0) {
+      prefetch_map(&xmap);
+      prefetch_map(&wmap);
+      ck_produce(r, cur, &xmap, &wmap, g, i0, b0, g0);
     }
+    return;
   }
-
-  const int UN = kp1 * N;
+  uint32_t d[Pl::R];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + warp_m * 32 + mi * 16 + gr + 8 * h;
-      if (row >= B) continue;
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        const int col = u * N + i0 + warp_n * 32 + nj * 8 + 2 * t;
-        unsigned long long* o =
-            reinterpret_cast<unsigned long long*>(out + (size_t)row * UN + col);
-        atomicAdd(o, (unsigned long long)z[mi][nj][2 * h]);
-        atomicAdd(o + 1, (unsigned long long)z[mi][nj][2 * h + 1]);
-      }
-    }
+  for (int i = 0; i < Pl::R; ++i) d[i] = 0;
+  if (CK_MAIN) ck_consume(d, r, cur, g, i0, warp >> 2, lane);
+  ck_add_atomic<Pl>(d, g, o, i0, b0, g0, warp >> 2, warp & 3, lane);
 }
 
-template <int P>
-int launch(const void* x, const void* wm, const void* acc, void* out, int B,
-           int N, int m, int Jm, int kp1, int L, int ckp, int key_shift,
+template <int WG>
+int launch(const void* x, const void* wmt, const void* acc,
+           const CkAtomicOut& o, const CkShape& g, int Jm,
            cudaStream_t stream) {
-  cudaError_t e = cudaMemcpyAsync(out, acc, (size_t)B * kp1 * N * 8,
-                                  cudaMemcpyDeviceToDevice, stream);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(N / BN, (B + BM - 1) / BM, kp1 * L);
-  ck_dot64p_sacc_kernel<P><<<grid, THREADS, 0, stream>>>(
-      (const int8_t*)x, (const int8_t*)wm, (int64_t*)out, B, N, m, Jm, kp1,
-      L, ckp, key_shift);
-  return (int)cudaGetLastError();
+  using Pl = CkPlan<WG, 64, 256>;
+  if (g.N % Pl::TN != 0) return (int)cudaErrorInvalidValue;
+  if (tensor_map_encoder() == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap xmap, wmap;
+  if (!ck_maps<Pl>(&xmap, &wmap, x, wmt, g, Jm))
+    return (int)cudaErrorInvalidValue;
+  const int e = ck_copy_acc(o.out, acc, (size_t)g.B * o.kp1 * g.N * 8,
+                            stream);
+  if (e != 0) return e;
+  const dim3 grid(g.N / Pl::TN, (g.B + Pl::ROWS - 1) / Pl::ROWS,
+                  (g.UL + Pl::LG - 1) / Pl::LG);
+  return ck_launch<Pl>(ck_dot64p_sacc_kernel<Pl>, grid, stream, xmap, wmap,
+                       g, o);
 }
 
 }  // namespace
 
-extern "C" int tfhe_ck_dot64p_sacc(const void* x, const void* wm,
+// ``rows`` 64 or 128 (one or two consumer warpgroups; kernels.ck_dot64p_plan
+// chooses, as for ck_dot64p), 64 folded columns of 4 limb rows a block.
+// N a multiple of 64, Jm a multiple of 16, P 1 or 2.
+extern "C" int tfhe_ck_dot64p_sacc(const void* x, const void* wmt,
                                    const void* acc, void* out, int B, int N,
                                    int m, int Jm, int kp1, int L, int P,
-                                   int ckp, int key_shift, void* stream) {
+                                   int ckp, int key_shift, int rows,
+                                   void* stream) {
+  if (Jm % 16 != 0 || (P != 1 && P != 2) || N % m != 0)
+    return (int)cudaErrorInvalidValue;
+  const CkShape g{B, N, m, N / m, P, ckp, (Jm + CKW_BK - 1) / CKW_BK,
+                  kp1 * L};
+  const CkAtomicOut o{(int64_t*)out, kp1, L, key_shift};
   cudaStream_t s = (cudaStream_t)stream;
-  if (P == 1)
-    return launch<1>(x, wm, acc, out, B, N, m, Jm, kp1, L, ckp, key_shift, s);
-  if (P == 2)
-    return launch<2>(x, wm, acc, out, B, N, m, Jm, kp1, L, ckp, key_shift, s);
+  if (rows == 64) return launch<1>(x, wmt, acc, o, g, Jm, s);
+  if (rows == 128) return launch<2>(x, wmt, acc, o, g, Jm, s);
   return (int)cudaErrorInvalidValue;
 }

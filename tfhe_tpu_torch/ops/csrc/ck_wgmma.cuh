@@ -1,7 +1,8 @@
 // The mainloop of the chunked-key contractions on Hopper (ck_dot64p.cu,
-// ck_dot64p_acc.cu): int8 wgmma on operands that TMA loads into an mbarrier
+// ck_dot64p_acc.cu, ck_dot64p_sacc.cu; ck_cmux_step64.cu takes its key side
+// and its epilogue): int8 wgmma on operands that TMA loads into an mbarrier
 // ring, over the K-packed chunked key wmt (UL, N+m, J*m) int8,
-// wmt[g, q, (j,s)] = wm[g, (j,s), q] (ChunkedEngine.prepare).
+// wmt[g, q, (j,s)] = limb[q - s] (ChunkedEngine.prepare).
 //
 // A block owns a tile of FOLDED output columns [i0, i0 + TN) of LG
 // consecutive limb groups g0 .. g0 + LG - 1 for 64 WG batch rows (WG
@@ -225,6 +226,78 @@ inline bool ck_maps(CUtensorMap* xmap, CUtensorMap* wmap, const void* x,
   const cuuint32_t wb[3] = {CKW_BK, (cuuint32_t)Pl::TN, (cuuint32_t)Pl::LG};
   return encode_i8_map(xmap, x, 2, xd, xs, xb)
          && encode_i8_map(wmap, wmt, 3, wd, ws, wb);
+}
+
+// The epilogue of the kernels that add their folded products into an
+// acc-filled output with 64-bit atomics (ck_dot64p_sacc.cu,
+// ck_cmux_step64.cu; the launcher first copies acc into out on the same
+// stream).  A block's LG stacked limb rows g0 .. g0 + LG - 1 of wmt are
+// limbs g % L of polynomials u = g / L, and a group may straddle two (at
+// L = 6, rows 4-7 are limbs 4, 5 of u = 0 and 0, 1 of u = 1): each limb's
+// folded int32 is widened to int64 and shifted by 8 (g % L) + key_shift
+// (shifts of 64 or more vanish), the limbs of one polynomial are summed in
+// registers, and each sum lands with one atomicAdd per output.  Addition
+// mod 2^64 commutes, so the bits do not depend on the order in which
+// blocks land.  Rows past B are not stored.
+struct CkAtomicOut {
+  int64_t* out;
+  int kp1, L, key_shift;
+};
+
+template <class Pl>
+__device__ __forceinline__ void ck_add_atomic(const uint32_t (&d)[Pl::R],
+                                              const CkShape& g,
+                                              const CkAtomicOut& o, int i0,
+                                              int b0, int g0, int wg, int wl,
+                                              int lane) {
+  // register 4j + e: row 16 wl + g4 + 8 (e >> 1), stacked column
+  // n = 8j + 2 t4 + (e & 1), limb row n / TN, folded column n % TN
+  constexpr int JT = Pl::TN / 8;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const size_t UN = (size_t)o.kp1 * g.N;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int b = b0 + 64 * wg + 16 * wl + g4 + 8 * h;
+    if (b >= g.B) continue;
+#pragma unroll
+    for (int jj = 0; jj < JT; ++jj) {
+      unsigned long long* row = reinterpret_cast<unsigned long long*>(
+          o.out + (size_t)b * UN + i0 + 8 * jj + 2 * t4);
+      uint64_t z0 = 0, z1 = 0;
+      int cur = -1;
+#pragma unroll
+      for (int lg = 0; lg < Pl::LG; ++lg) {
+        const int gi = g0 + lg;
+        if (gi >= g.UL) break;
+        const int u = gi / o.L, s = 8 * (gi - u * o.L) + o.key_shift;
+        if (u != cur) {
+          if (cur >= 0) {
+            atomicAdd(row + (size_t)cur * g.N, (unsigned long long)z0);
+            atomicAdd(row + (size_t)cur * g.N + 1, (unsigned long long)z1);
+          }
+          z0 = z1 = 0;
+          cur = u;
+        }
+        if (s < 64) {
+          z0 += (uint64_t)(int64_t)(int32_t)d[4 * (lg * JT + jj) + 2 * h] << s;
+          z1 += (uint64_t)(int64_t)(int32_t)d[4 * (lg * JT + jj) + 2 * h + 1]
+                << s;
+        }
+      }
+      if (cur >= 0) {
+        atomicAdd(row + (size_t)cur * g.N, (unsigned long long)z0);
+        atomicAdd(row + (size_t)cur * g.N + 1, (unsigned long long)z1);
+      }
+    }
+  }
+}
+
+// Copies acc into out on ``stream``: the first term of the atomic
+// epilogue's sum, ordered before the kernel that adds the rest.
+inline int ck_copy_acc(void* out, const void* acc, size_t bytes,
+                       cudaStream_t stream) {
+  return (int)cudaMemcpyAsync(out, acc, bytes, cudaMemcpyDeviceToDevice,
+                              stream);
 }
 
 // Launches ``kernel`` on ``grid`` with the plan's threads and shared

@@ -1,5 +1,5 @@
-// Shared pieces of the int8 tensor-core GEMM used by mm_recombine_acc.cu,
-// fused_cmux_step.cu and the chunked-key kernels (chunked.cuh).
+// Shared pieces of the int8 mma.sync GEMM used by mm_recombine_acc.cu,
+// ck_cmux_step32.cu (both through pipeline.cuh) and fused_cmux_step_v1.cu.
 //
 // Block tile: BM rows x BN=128 output columns, K consumed BK at a time, with
 // THREADS = 8*BK threads = BM/32 x 4 warps; each warp owns a 32x32 output

@@ -1,6 +1,6 @@
 // Pipelined key staging and the split-reduction epilogue of the two
 // redesigned 32-bit kernels (mm_recombine_acc.cu, ck_cmux_step32.cu); the
-// other kernels keep common.cuh's and chunked.cuh's synchronous loaders.
+// v1 fused step keeps common.cuh's synchronous loader.
 //
 // The key tile of one 32-deep step sits in shared memory transposed (words
 // of four consecutive k per column, as mma's B operand wants them) in an
@@ -17,9 +17,11 @@
 // 2^32 commutes, so every run gives the same bits.
 #pragma once
 
-#include "chunked.cuh"
+#include "common.cuh"
 
 namespace tfhe {
+
+constexpr int CK_BK = 32;                 // K bytes of one mma.sync step
 
 // The key tile in shared memory: sB[lg][col][k-word], 8 words (32 k) a
 // column with no padding, word kw of column n stored at n*8 + (kw ^ swz(n)).

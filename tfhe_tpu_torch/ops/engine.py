@@ -249,15 +249,15 @@ class ChunkedEngine(_EngineBase):
     times wm lands at ring offset c*m; the 2N ring folds once with X^N = -1
     (``kernels.ck_dot64p``).  m = 128 at 32 bits and 64 at 64 bits are the
     JAX package's defaults, so its keys carry over byte for byte (3.34 GB
-    of wm at GATE_MXU, 8.1 GB at CB_MXU).
+    of wm at GATE_MXU).
 
-    At 64 bits the prepared key also holds wm K-packed,
+    The prepared key is {"wm"} at 32 bits, the layout ``ck_cmux_step32``
+    reads.  At 64 bits it is {"wmt"} alone, the same copies K-packed,
         wmt[(u,l), q, (j,s)] = wm[(u,l), (j,s), q],
-    the operand of the wgmma contractions (``kernels.ck_dot64p`` and
-    ``ck_dot64p_acc``): another 8.1 GB at CB_MXU, derived on the key's
-    device and never written to a key file.  The 32-bit step
-    (``ck_cmux_step32``) and the 64-bit ``sacc`` and ``FUSED`` steps read
-    wm."""
+    the operand that every 64-bit step's contraction reads by TMA
+    (``kernels.ck_dot64p``, ``ck_dot64p_acc``, ``ck_dot64p_sacc``,
+    ``ck_cmux_step64``): 8.1 GB at CB_MXU, built on the key's device and
+    never written to a key file (key files hold the raw TRGSW bk)."""
 
     def __init__(self, cfg: EngineConfig, m: int | None = None):
         self.cfg = cfg
@@ -277,10 +277,11 @@ class ChunkedEngine(_EngineBase):
                 < 2**31)
 
     def prepare(self, key_polys):
-        """key_polys (..., J, U, N) -> {"wm": (..., U*L, J*m, N+m) int8},
-        plus "wmt" (..., U*L, N+m, J*m) at 64 bits (with_k_packed); leading
-        axes (the steps of a bootstrapping key) are prepared in one
-        pass."""
+        """key_polys (..., J, U, N) -> {"wm": (..., U*L, J*m, N+m) int8} at
+        32 bits, {"wmt": (..., U*L, N+m, J*m) int8} at 64 bits, built
+        directly (wmt[..., g, s + q, (j, s)] = limb[g, j, q]: wm is never
+        made); leading axes (the steps of a bootstrapping key) are prepared
+        in one pass."""
         cfg = self.cfg
         *lead, J, U, N = key_polys.shape
         assert N == cfg.N
@@ -292,53 +293,57 @@ class ChunkedEngine(_EngineBase):
                                  cfg.limb_bits)            # (L, ..., J, U, N)
         n = len(lead)
         lj = limbs.permute(*range(1, n + 1), n + 2, 0, n + 1, n + 3)
-        # lj: (..., U, L, J, N); wm[..., u, l, j, s, q] = lj[..., q - s]
+        # lj: (..., U, L, J, N)
+        if cfg.out_bits == 64:
+            # wmt[..., u, l, s + q, j, s] = lj[..., u, l, j, q]
+            ljt = lj.transpose(-1, -2)
+            wmt = torch.zeros((*lead, U, L, N + m, J, m), dtype=torch.int8,
+                              device=key_polys.device)
+            for s in range(m):
+                wmt[..., s:s + N, :, s] = ljt
+            return {"wmt": wmt.reshape(*lead, U * L, N + m, J * m)}
+        # wm[..., u, l, j, s, q] = lj[..., q - s]
         wm = torch.zeros((*lead, U, L, J, m, N + m), dtype=torch.int8,
                          device=key_polys.device)
         for s in range(m):
             wm[..., s, s:s + N] = lj
-        return self.with_k_packed(
-            {"wm": wm.reshape(*lead, U * L, J * m, N + m)})
+        return {"wm": wm.reshape(*lead, U * L, J * m, N + m)}
 
-    def with_k_packed(self, prepared):
-        """``prepared`` with its K-packed key: at 64 bits "wmt" =
-        kernels.ck_wmt(prepared["wm"]), one transpose copy of every step on
-        wm's device; at 32 bits unchanged.  prepare and the conversion of
-        JAX circuit keys (``convert``) both go through it."""
-        if self.cfg.out_bits != 64:
-            return prepared
-        return {**prepared, "wmt": kernels.ck_wmt(prepared["wm"])}
-
-    def _ck64_ok(self, acc, Jm: int, P: int) -> bool:
-        """Whether the 64-bit steps that read wmt (the default and ``acc``)
-        apply: on a card only shapes in their kernels' domain
-        (kernels.ck64_kernel_ok); the CPU's plain versions take any."""
-        return (acc.device.type == "cpu"
-                or kernels.ck64_kernel_ok(self.cfg.N, self.m, Jm, P))
+    def _ck64_ok(self, acc, Jm: int, P: int, fused: bool = False) -> bool:
+        """Whether the 64-bit steps apply: on a card only shapes in their
+        kernels' domain (kernels.ck64_kernel_ok; ck_cmux_step64_ok for the
+        ``fused`` one-kernel step); the CPU's plain versions take any."""
+        ok = kernels.ck_cmux_step64_ok if fused else kernels.ck64_kernel_ok
+        return acc.device.type == "cpu" or ok(self.cfg.N, self.m, Jm, P)
 
     def accumulate(self, x, prepared):
         cfg = self.cfg
-        wm = prepared["wm"]
-        UL, Jm, Npm = wm.shape
-        U = UL // cfg.num_limbs
         pb, P = cfg.plane_split
+        if cfg.out_bits == 64:
+            wmt = prepared["wmt"]
+            UL, _, Jm = wmt.shape
+        else:
+            wm = prepared["wm"]
+            UL, Jm, _ = wm.shape
+        U = UL // cfg.num_limbs
         planes = _digit_planes(cfg, x)                      # (P, ..., J, N)
         lead = planes.shape[1:-2]
         flat = planes.reshape(P, -1, Jm // self.m, cfg.N)
         if cfg.out_bits == 64:
             xc = kernels.ck_layout(flat, self.m)
-            y = kernels.ck_dot64p(xc, wm, N=cfg.N, m=self.m, planes=P,
-                                  digit_bits=cfg.digit_bits,
-                                  wmt=prepared.get("wmt"))
+            y = kernels.ck_dot64p(xc, wmt, N=cfg.N, m=self.m, planes=P,
+                                  digit_bits=cfg.digit_bits)
             return kernels.recombine(y, U, cfg.key_shift).reshape(
                 *lead, U, cfg.N)
         # 32 bits: one contraction per digit plane (balanced 7-bit planes
-        # above 8-bit digits), recombined with the plane shift mod 2^32
+        # above 8-bit digits), recombined with the plane shift mod 2^32; the
+        # key is transposed per call (the 32-bit steps read wm)
         out = 0
         for p in range(P):
-            y = kernels.ck_dot64p(kernels.ck_layout(flat[p:p + 1], self.m),
-                                  wm, N=cfg.N, m=self.m,
-                                  digit_bits=cfg.digit_bits if P == 1 else 7)
+            y = kernels.ck_dot64p_wm(kernels.ck_layout(flat[p:p + 1], self.m),
+                                     wm, N=cfg.N, m=self.m,
+                                     digit_bits=cfg.digit_bits if P == 1
+                                     else 7)
             out = out + kernels.recombine(y, U, cfg.key_shift + pb * p)
         return T.wrap32(out).reshape(*lead, U, cfg.N)
 
@@ -358,10 +363,9 @@ class ChunkedEngine(_EngineBase):
 
         32 bits: one ck_cmux_step32 kernel.  64 bits, on the native int64
         accumulator: rotate_decompose64_ck (digits straight into the chunk
-        layout) -> ck_dot64p -> limb recombination + accumulator add in
-        int64 torch ops (the JAX package's XLA epilogue).  The contraction
-        reads prepared["wmt"] (a prepared dict without it costs a transpose
-        copy a step); None on a card outside its kernel's domain."""
+        layout) -> ck_dot64p on prepared["wmt"] -> limb recombination +
+        accumulator add in int64 torch ops (the JAX package's XLA
+        epilogue); None on a card outside its kernel's domain."""
         cfg = self.cfg
         if acc.ndim != 3:
             return None
@@ -372,22 +376,24 @@ class ChunkedEngine(_EngineBase):
                                           bgbit=bgbit, offset=offset,
                                           m=self.m, key_shift=cfg.key_shift)
         pb, P = cfg.plane_split
-        wm = prepared["wm"]
-        if P > 2 or not self._ck64_ok(acc, wm.shape[-2], P):
+        wmt = prepared["wmt"]
+        if P > 2 or not self._ck64_ok(acc, wmt.shape[-1], P):
             return None
         B, kp1, N = acc.shape
         x = kernels.rotate_decompose64_ck(a, acc, l=l, bgbit=bgbit,
                                           offset=offset, m=self.m, planes=P)
-        y = kernels.ck_dot64p(x, wm, N=N, m=self.m, planes=P,
-                              digit_bits=cfg.digit_bits,
-                              wmt=prepared.get("wmt"))
+        y = kernels.ck_dot64p(x, wmt, N=N, m=self.m, planes=P,
+                              digit_bits=cfg.digit_bits)
         return acc + kernels.recombine(y, kp1, cfg.key_shift)
 
-    def _flat64_planes(self, acc_flat):
+    def _flat64_planes(self, acc_flat, prepared, fused: bool = False):
         """The digit planes of the 64-bit steps on the flat accumulator (the
-        JAX package's predicate: a 64-bit result, P in (1, 2)), or None."""
+        JAX package's predicate: a 64-bit result, P in (1, 2); on a card
+        also the kernels' domain), or None."""
         pb, P = self.cfg.plane_split
-        if self.cfg.out_bits != 64 or acc_flat.ndim != 2 or P > 2:
+        if (self.cfg.out_bits != 64 or acc_flat.ndim != 2 or P > 2
+                or not self._ck64_ok(acc_flat, prepared["wmt"].shape[-1], P,
+                                     fused)):
             return None
         return P
 
@@ -396,13 +402,14 @@ class ChunkedEngine(_EngineBase):
         """One step in one kernel on the flat (B, (k+1)*N) layout, or None
         when ineligible: at 32 bits ck_cmux_step32 (the same kernel as
         cmux_step), at 64 bits ck_cmux_step64 on the int64 accumulator (the
-        JAX package's TFHE_CK64_FUSED step, cmux_pair_step_flat)."""
+        JAX package's TFHE_CK64_FUSED step, cmux_pair_step_flat), which
+        reads prepared["wmt"]."""
         cfg = self.cfg
         if cfg.out_bits == 64:
-            P = self._flat64_planes(acc_flat)
+            P = self._flat64_planes(acc_flat, prepared, fused=True)
             if P is None:
                 return None
-            return kernels.ck_cmux_step64(a, acc_flat, prepared["wm"], l=l,
+            return kernels.ck_cmux_step64(a, acc_flat, prepared["wmt"], l=l,
                                           bgbit=bgbit, offset=offset,
                                           m=self.m, key_shift=cfg.key_shift,
                                           planes=P, kp1=kp1)
@@ -413,30 +420,27 @@ class ChunkedEngine(_EngineBase):
                                       key_shift=cfg.key_shift, kp1=kp1)
 
     def _two_kernel_step(self, dot, a, acc_flat, prepared, *, kp1, l, bgbit,
-                         offset, **key):
-        P = self._flat64_planes(acc_flat)
+                         offset):
+        P = self._flat64_planes(acc_flat, prepared)
         if P is None:
             return None
         cfg = self.cfg
         x = kernels.rotate_decompose64_ck_flat(a, acc_flat, N=cfg.N, l=l,
                                                bgbit=bgbit, offset=offset,
                                                m=self.m, planes=P)
-        return dot(x, prepared["wm"], acc_flat, N=cfg.N, m=self.m,
+        return dot(x, prepared["wmt"], acc_flat, N=cfg.N, m=self.m,
                    key_shift=cfg.key_shift, planes=P, kp1=kp1,
-                   digit_bits=cfg.digit_bits, **key)
+                   digit_bits=cfg.digit_bits)
 
     def cmux_step_acc(self, a, acc_flat, prepared, *, kp1, l, bgbit, offset):
         """The 64-bit step with the epilogue fused into the contraction, on
         the flat (B, (k+1)*N) int64 accumulator: rotate_decompose64_ck_flat
-        -> ck_dot64p_acc (the JAX package's TFHE_CK64_PATH=acc step), which
-        reads prepared["wmt"].  None when ineligible, on a card also outside
-        its kernel's domain."""
-        if not self._ck64_ok(acc_flat, prepared["wm"].shape[-2],
-                             self.cfg.plane_split[1]):
-            return None
+        -> ck_dot64p_acc (the JAX package's TFHE_CK64_PATH=acc step) on
+        prepared["wmt"].  None when ineligible, on a card also outside its
+        kernel's domain."""
         return self._two_kernel_step(kernels.ck_dot64p_acc, a, acc_flat,
                                      prepared, kp1=kp1, l=l, bgbit=bgbit,
-                                     offset=offset, wmt=prepared.get("wmt"))
+                                     offset=offset)
 
     def cmux_step_sacc(self, a, acc_flat, prepared, *, kp1, l, bgbit,
                        offset):

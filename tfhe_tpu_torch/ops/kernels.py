@@ -24,15 +24,18 @@ exact) and the mod-2^32 recombination runs in int64.
   rotate_decompose64_ck       rotate_decompose64_ck         bytes moved (8 + l*P per coeff)
   rotate_decompose64_ck_flat  rotate_decompose64_ck_flat    the same kernel, flat acc
   ck_dot64p                   ck_dot64p                     int8 MACs (reads wmt)
-  ck_dot64p_sacc              ck_dot64p_sacc                int8 MACs
+  ck_dot64p_sacc              ck_dot64p_sacc                int8 MACs (reads wmt)
   ck_dot64p_acc               ck_dot64p_acc                 int8 MACs (reads wmt)
-  ck_cmux_step32              ck_cmux_step32                int8 MACs
-  ck_cmux_step64              ck_cmux_step64                int8 MACs
+  ck_cmux_step32              ck_cmux_step32                int8 MACs (reads wm)
+  ck_cmux_step64              ck_cmux_step64                int8 MACs (reads wmt)
 
 fused_cmux_step (v1) and rotate_decompose64 run on no path of the port, as
-in the JAX package, where only its tests call them.  ck_dot64p and
-ck_dot64p_acc read the chunked key K-packed (wmt, ck_wmt), which the
-chunked engine prepares once at 64 bits beside wm.
+in the JAX package, where only its tests call them.  The four 64-bit
+contractions (ck_dot64p, ck_dot64p_sacc, ck_dot64p_acc, ck_cmux_step64)
+take the chunked key K-packed, wmt (ck_wmt), the only layout the chunked
+engine prepares at 64 bits; their plain versions contract
+wmt.transpose(-1, -2).  The 32-bit ck_cmux_step32 reads wm, and the 32-bit
+generic contraction transposes it per call (ck_dot64p_wm).
 """
 
 from __future__ import annotations
@@ -611,7 +614,8 @@ rotate_decompose64.launches = 0
 # ck_dot64p
 # ---------------------------------------------------------------------------
 
-def ck_dot64p_plain(x, wm, *, N: int, m: int, planes: int = 1):
+def ck_dot64p_plain(x, wmt, *, N: int, m: int, planes: int = 1):
+    wm = wmt.transpose(-1, -2)
     UL, Jm, Npm = wm.shape
     B = x.shape[0]
     C = N // m
@@ -643,35 +647,46 @@ def _ck_exact_check(name, Jm, N, m, digit_bits):
 def ck_wmt(wm):
     """The K-packed chunked key: wm (..., U*L, J*m, N+m) -> wmt (..., U*L,
     N+m, J*m) int8, wmt[..., g, q, k] = wm[..., g, k, q] (one transpose
-    copy), the layout the wgmma contractions' TMA loads read."""
+    copy), the layout the 64-bit contractions' TMA loads read.  The chunked
+    engine builds wmt directly at 64 bits; this serves the 32-bit generic
+    contraction, the conversion of the JAX package's keys and the tests."""
     return wm.transpose(-1, -2).contiguous()
 
 
 def ck64_kernel_ok(N: int, m: int, Jm: int, planes: int) -> bool:
-    """The domain of the wgmma chunked contractions, shared by their
+    """The domain of the four 64-bit contractions on wmt, shared by their
     wrappers and the chunked engine's 64-bit steps: N a multiple of m and
     of the 64-column tile, J*m a multiple of 16 (the K-packed key's row
     stride, which TMA needs in 16-byte units), one or two digit planes.
-    Any B >= 1 and any limb count."""
+    Any B >= 1 and any limb count.  ck_cmux_step64 also needs m % 4 == 0
+    (ck_cmux_step64_ok)."""
     return (N % m == 0 and N % 64 == 0 and Jm > 0 and Jm % 16 == 0
             and planes in (1, 2))
 
 
-def _ck64_require(name, N, m, Jm, planes):
-    _require(ck64_kernel_ok(N, m, Jm, planes),
+def ck_cmux_step64_ok(N: int, m: int, Jm: int, planes: int) -> bool:
+    """ck_cmux_step64's domain: ck64_kernel_ok's, and m a multiple of 4
+    (its digit builds take four coefficients at a time)."""
+    return ck64_kernel_ok(N, m, Jm, planes) and m % 4 == 0
+
+
+def _ck64_require(name, N, m, Jm, planes, ok=ck64_kernel_ok):
+    _require(ok(N, m, Jm, planes),
              f"{name}: the kernel needs N % 64 == 0, J*m % 16 == 0 and 1 or 2 "
-             f"planes, got N={N}, m={m}, J*m={Jm}, planes={planes}")
+             f"planes{', m % 4 == 0' if ok is ck_cmux_step64_ok else ''}, "
+             f"got N={N}, m={m}, J*m={Jm}, planes={planes}")
 
 
-# The plans of the wgmma contractions (csrc/ck_dot64p.cu, ck_dot64p_acc.cu):
-# a block owns 64 folded columns for 64 or 128 batch rows (one or two
-# consumer warpgroups sharing each key tile), the rows chosen from B.
+# The plans of the wgmma contractions (csrc/ck_dot64p.cu, ck_dot64p_sacc.cu,
+# ck_dot64p_acc.cu): a block owns 64 folded columns for 64 or 128 batch rows
+# (one or two consumer warpgroups sharing each key tile), the rows chosen
+# from B.
 # Memoized: the 1,000 steps of a circuit bootstrap ask with the same shapes.
 
 @functools.lru_cache(maxsize=None)
 def ck_dot64p_plan(B: int, N: int, m: int, Jm: int, planes: int) -> int:
-    """The batch rows of a ck_dot64p block (its 64 columns of 4 limb groups
-    are fixed).  Raises outside ck64_kernel_ok."""
+    """The batch rows of a ck_dot64p or ck_dot64p_sacc block (its 64 columns
+    of 4 limb rows are fixed).  Raises outside ck64_kernel_ok."""
     _ck64_require("ck_dot64p", N, m, Jm, planes)
     return 128 if B > 64 else 64
 
@@ -686,70 +701,49 @@ def ck_dot64p_acc_plan(B: int, N: int, m: int, Jm: int, L: int,
     return 128 if B > 64 else 64, 2 if L % 2 == 0 else 1
 
 
-def _ck_key(name, wrapper, wm, wmt):
-    """The K-packed key of a launch: ``wmt`` as given (checked against
-    wm's shape), else one transpose copy of wm counted on
-    ``wrapper.transposes``."""
-    UL, Jm, Npm = wm.shape
-    if wmt is not None:
-        _check(wmt, f"{name} wmt", torch.int8, 3)
-        _require(tuple(wmt.shape) == (UL, Npm, Jm),
-                 f"{name}: wmt must be wm's shape transposed, "
-                 f"{(UL, Npm, Jm)}")
-        return wmt
-    wrapper.transposes += 1
-    return ck_wmt(wm)
+def _ck_key_shape(name, wmt, N, m):
+    """(UL, Jm) of the K-packed key wmt (UL, N+m, J*m) int8, checked."""
+    _check(wmt, f"{name} wmt", torch.int8, 3)
+    UL, Npm, Jm = wmt.shape
+    _require(_is_pow2(N) and N % m == 0 and Npm == N + m,
+             f"{name}: wmt must be (U*L, N+m, J*m) with N a power of two and "
+             f"a multiple of m")
+    return UL, Jm
 
 
-def _plain_key(wm, wmt):
-    """What the plain versions contract: the key the kernel would read."""
-    return wm if wmt is None else wmt.transpose(1, 2)
-
-
-def ck_dot64p(x, wm, *, N: int, m: int, planes: int = 1,
-              digit_bits: int | None = None, wmt=None):
+def ck_dot64p(x, wmt, *, N: int, m: int, planes: int = 1,
+              digit_bits: int | None = None):
     """Chunked-key negacyclic contraction with per-limb int32 outputs:
 
-        ring[g, b, c*m + q] += sum_p (x[b, (c*P+p)*ckp : +J*m] . wm[g, :, q]) << 7p
+        ring[g, b, c*m + q] += sum_p (x[b, (c*P+p)*ckp : +J*m] . wmt[g, q, :]) << 7p
         out[g, b, i] = ring[g, b, i] - ring[g, b, N + i]
 
-    x: (B, C*P*ckp) int8 (rotate_decompose64_ck's layout); wm: (U*L, J*m,
-    N+m) int8 (ChunkedEngine.prepare); wmt: the same key K-packed, (U*L,
-    N+m, J*m) (ck_wmt; the engine prepares it once at 64 bits).  Returns
-    (U*L, B, N) int32.  The sums are exact in int32 when J*(N+m) *
-    2^(digit_bits-1) * 128 < 2^31 (digit_bits: the width of the digits the
-    planes encode; 8 for one plane, 9 for two), which the wrapper asserts.
+    x: (B, C*P*ckp) int8 (rotate_decompose64_ck's layout); wmt: (U*L, N+m,
+    J*m) int8, the K-packed chunked key (ChunkedEngine.prepare at 64 bits,
+    ck_wmt).  Returns (U*L, B, N) int32.  The sums are exact in int32 when
+    J*(N+m) * 2^(digit_bits-1) * 128 < 2^31 (digit_bits: the width of the
+    digits the planes encode; 8 for one plane, 9 for two), which the
+    wrapper asserts.
 
     Kernel: csrc/ck_dot64p.cu (replaces pallas_kernels.ck_dot64p).  Bound by
-    int8 tensor-core MACs.  It reads wmt, by TMA, and runs int8 wgmma; a
-    caller that passes no wmt gets one transpose copy of wm per call,
-    counted on ``ck_dot64p.transposes``.  A block owns 64 folded columns
-    of 4 limb groups for 64 or 128 batch rows (ck_dot64p_plan), and runs,
-    per plane, the chunk
-    windows that reach its columns (added) or their X^N wrap (subtracted):
-    C + 1 or C + 2 chunk products of depth J*m, key rows outside [0, N+m)
-    read as zero.  The 2N ring never reaches memory.  On the CPU the plain
-    version contracts wmt when given, else wm."""
+    int8 tensor-core MACs.  It reads wmt by TMA and runs int8 wgmma.  A
+    block owns 64 folded columns of 4 limb rows for 64 or 128 batch rows
+    (ck_dot64p_plan), and runs, per plane, the chunk windows that reach its
+    columns (added) or their X^N wrap (subtracted): C + 1 or C + 2 chunk
+    products of depth J*m, key rows outside [0, N+m) read as zero.  The 2N
+    ring never reaches memory."""
     _check(x, "ck_dot64p x", torch.int8, 2)
-    _check(wm, "ck_dot64p wm", torch.int8, 3)
-    UL, Jm, Npm = wm.shape
+    UL, Jm = _ck_key_shape("ck_dot64p", wmt, N, m)
     B = x.shape[0]
-    _require(_is_pow2(N) and N % m == 0 and Npm == N + m,
-             "ck_dot64p: wm must be (U*L, J*m, N+m) with N a power of two "
-             "and a multiple of m")
     _require(planes in (1, 2), "ck_dot64p: planes must be 1 or 2")
     ckp = ck_width(Jm)
     _require(x.shape[1] == (N // m) * planes * ckp,
              "ck_dot64p: x must be (B, C*P*ckp)")
     _ck_exact_check("ck_dot64p", Jm, N, m,
                     digit_bits or (8 if planes == 1 else 9))
-    if _on_cpu(x, wm, *(() if wmt is None else (wmt,))):
-        if wmt is not None:
-            _ck_key("ck_dot64p", ck_dot64p, wm, wmt)
-        return ck_dot64p_plain(x, _plain_key(wm, wmt), N=N, m=m,
-                               planes=planes)
+    if _on_cpu(x, wmt):
+        return ck_dot64p_plain(x, wmt, N=N, m=m, planes=planes)
     rows = ck_dot64p_plan(B, N, m, Jm, planes)
-    wmt = _ck_key("ck_dot64p", ck_dot64p, wm, wmt)
     out = torch.empty((UL, B, N), dtype=torch.int32, device=x.device)
     ck_dot64p.launches += 1
     _launch("ck_dot64p", x.data_ptr(), wmt.data_ptr(), out.data_ptr(), B, N,
@@ -759,6 +753,15 @@ def ck_dot64p(x, wm, *, N: int, m: int, planes: int = 1,
 
 ck_dot64p.launches = 0
 ck_dot64p.transposes = 0
+
+
+def ck_dot64p_wm(x, wm, **kw):
+    """ck_dot64p on the chunked key as the engine prepares it at 32 bits
+    (wm (U*L, J*m, N+m), N contiguous): one transpose copy a call (ck_wmt),
+    counted on ``ck_dot64p.transposes``.  The 32-bit generic contraction
+    (ChunkedEngine.accumulate), off the gate paths' own step."""
+    ck_dot64p.transposes += 1
+    return ck_dot64p(x, ck_wmt(wm), **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -777,26 +780,22 @@ def recombine(y, kp1: int, shift_base: int = 0):
     return out.permute(1, 0, 2)
 
 
-def ck_dot64p_acc_plain(x, wm, acc, *, N: int, m: int, key_shift: int,
+def ck_dot64p_acc_plain(x, wmt, acc, *, N: int, m: int, key_shift: int,
                         planes: int = 1, kp1: int):
-    y = ck_dot64p_plain(x, wm, N=N, m=m, planes=planes)
+    y = ck_dot64p_plain(x, wmt, N=N, m=m, planes=planes)
     return acc + recombine(y, kp1, key_shift).reshape(acc.shape)
 
 
-def _ck_acc_checks(name, x, wm, acc, *, N, m, planes, kp1, digit_bits):
+def _ck_acc_checks(name, x, wmt, acc, *, N, m, planes, kp1, digit_bits):
     """The checks ck_dot64p_acc and ck_dot64p_sacc share; returns (UL, Jm,
     ckp)."""
     _check(x, f"{name} x", torch.int8, 2)
-    _check(wm, f"{name} wm", torch.int8, 3)
     _check(acc, f"{name} acc", torch.int64, 2)
-    UL, Jm, Npm = wm.shape
+    UL, Jm = _ck_key_shape(name, wmt, N, m)
     B = x.shape[0]
-    _require(_is_pow2(N) and N % m == 0 and Npm == N + m,
-             f"{name}: wm must be (kp1*L, J*m, N+m) with N a power of two and "
-             f"a multiple of m")
     _require(planes in (1, 2), f"{name}: planes must be 1 or 2")
     _require(UL % kp1 == 0 and acc.shape == (B, kp1 * N),
-             f"{name}: acc must be (B, kp1*N) and wm (kp1*L, ...)")
+             f"{name}: acc must be (B, kp1*N) and wmt (kp1*L, ...)")
     ckp = ck_width(Jm)
     _require(x.shape[1] == (N // m) * planes * ckp,
              f"{name}: x must be (B, C*P*ckp)")
@@ -804,39 +803,34 @@ def _ck_acc_checks(name, x, wm, acc, *, N, m, planes, kp1, digit_bits):
     return UL, Jm, ckp
 
 
-def ck_dot64p_acc(x, wm, acc, *, N: int, m: int, key_shift: int,
-                  planes: int = 1, kp1: int, digit_bits: int | None = None,
-                  wmt=None):
+def ck_dot64p_acc(x, wmt, acc, *, N: int, m: int, key_shift: int,
+                  planes: int = 1, kp1: int, digit_bits: int | None = None):
     """ck_dot64p with the 64-bit limb recombination and the accumulator add
     inside:
 
-        out = acc + sum_l ck_dot64p(x, wm)[u*L + l] << (8l + key_shift)
+        out = acc + sum_l ck_dot64p(x, wmt)[u*L + l] << (8l + key_shift)
 
-    mod 2^64.  x: (B, C*P*ckp) int8 (rotate_decompose64_ck's layout); wm:
-    (kp1*L, J*m, N+m) int8; wmt: the same key K-packed (ck_wmt); acc:
-    (B, kp1*N) int64, the flat accumulator.  Returns acc's shape.  The same
-    int32 bound as ck_dot64p is asserted.
+    mod 2^64.  x: (B, C*P*ckp) int8 (rotate_decompose64_ck's layout); wmt:
+    (kp1*L, N+m, J*m) int8, the K-packed chunked key; acc: (B, kp1*N)
+    int64, the flat accumulator.  Returns acc's shape.  The same int32
+    bound as ck_dot64p is asserted.
 
     Kernel: csrc/ck_dot64p_acc.cu (replaces pallas_kernels.ck_dot64p_acc).
     Bound by int8 tensor-core MACs, as ck_dot64p, on its mainloop (TMA
-    loads of wmt and the digits, int8 wgmma; no wmt: one transpose copy a
-    call, counted on ``ck_dot64p_acc.transposes``).  A block owns 64 folded
+    loads of wmt and the digits, int8 wgmma).  A block owns 64 folded
     columns of one polynomial for 64 or 128 rows, loops over its L limbs
     one or two at a time (ck_dot64p_acc_plan) and keeps the 64-bit sums in
     registers, so the (U*L, B, N) int32 products never reach device
     memory."""
-    UL, Jm, ckp = _ck_acc_checks("ck_dot64p_acc", x, wm, acc, N=N, m=m,
+    UL, Jm, ckp = _ck_acc_checks("ck_dot64p_acc", x, wmt, acc, N=N, m=m,
                                  planes=planes, kp1=kp1,
                                  digit_bits=digit_bits)
-    if _on_cpu(x, wm, acc, *(() if wmt is None else (wmt,))):
-        if wmt is not None:
-            _ck_key("ck_dot64p_acc", ck_dot64p_acc, wm, wmt)
-        return ck_dot64p_acc_plain(x, _plain_key(wm, wmt), acc, N=N, m=m,
+    if _on_cpu(x, wmt, acc):
+        return ck_dot64p_acc_plain(x, wmt, acc, N=N, m=m,
                                    key_shift=key_shift, planes=planes,
                                    kp1=kp1)
     B, L = x.shape[0], UL // kp1
     rows, limbs = ck_dot64p_acc_plan(B, N, m, Jm, L, planes)
-    wmt = _ck_key("ck_dot64p_acc", ck_dot64p_acc, wm, wmt)
     out = torch.empty_like(acc)
     ck_dot64p_acc.launches += 1
     _launch("ck_dot64p_acc", x.data_ptr(), wmt.data_ptr(), acc.data_ptr(),
@@ -846,34 +840,35 @@ def ck_dot64p_acc(x, wm, acc, *, N: int, m: int, key_shift: int,
 
 
 ck_dot64p_acc.launches = 0
-ck_dot64p_acc.transposes = 0
 
 
-def ck_dot64p_sacc(x, wm, acc, *, N: int, m: int, key_shift: int,
+def ck_dot64p_sacc(x, wmt, acc, *, N: int, m: int, key_shift: int,
                    planes: int = 1, kp1: int, digit_bits: int | None = None):
     """ck_dot64p_acc's function and contract (its plain version is
-    ck_dot64p_acc_plain) with the limb axis in the grid, on wm.
+    ck_dot64p_acc_plain) with the limb axis in the grid, on the K-packed
+    key wmt.
 
     Kernel: csrc/ck_dot64p_sacc.cu (replaces pallas_kernels.ck_dot64p_sacc).
-    Bound by int8 tensor-core MACs.  A block owns one (64-row tile,
-    128-column tile, polynomial, limb) cell and adds its limb's shifted
-    folded product into the output with 64-bit atomicAdd, after acc is
+    Bound by int8 tensor-core MACs, on ck_dot64p's mainloop and grid (64
+    folded columns of 4 limb rows for 64 or 128 batch rows,
+    ck_dot64p_plan).  A block widens and shifts its limbs' folded products,
+    sums those of one polynomial (a group of 4 limb rows may straddle two)
+    and adds the sum into the output with 64-bit atomicAdd, after acc is
     copied there on the same stream; the additions commute mod 2^64, so the
     result is the same bits whatever the order."""
-    UL, Jm, ckp = _ck_acc_checks("ck_dot64p_sacc", x, wm, acc, N=N, m=m,
+    UL, Jm, ckp = _ck_acc_checks("ck_dot64p_sacc", x, wmt, acc, N=N, m=m,
                                  planes=planes, kp1=kp1,
                                  digit_bits=digit_bits)
-    if _on_cpu(x, wm, acc):
-        return ck_dot64p_acc_plain(x, wm, acc, N=N, m=m, key_shift=key_shift,
-                                   planes=planes, kp1=kp1)
-    _require(N % _BN == 0 and m % 4 == 0 and Jm % _BK == 0,
-             f"ck_dot64p_sacc: the kernel needs N % {_BN} == 0, m % 4 == 0 "
-             f"and J*m % {_BK} == 0")
+    if _on_cpu(x, wmt, acc):
+        return ck_dot64p_acc_plain(x, wmt, acc, N=N, m=m,
+                                   key_shift=key_shift, planes=planes,
+                                   kp1=kp1)
+    rows = ck_dot64p_plan(x.shape[0], N, m, Jm, planes)
     out = torch.empty_like(acc)
     ck_dot64p_sacc.launches += 1
-    _launch("ck_dot64p_sacc", x.data_ptr(), wm.data_ptr(), acc.data_ptr(),
+    _launch("ck_dot64p_sacc", x.data_ptr(), wmt.data_ptr(), acc.data_ptr(),
             out.data_ptr(), x.shape[0], N, m, Jm, kp1, UL // kp1, planes, ckp,
-            key_shift)
+            key_shift, rows)
     return out
 
 
@@ -902,24 +897,6 @@ def sm_count(device) -> int:
     return _SM_COUNT[idx]
 
 
-def choose_tile_rows(blocks, smem, sms: int, tiles=(64, 32)):
-    """The batch tile of a kernel whose blocks own ``rows`` batch rows:
-    the largest of ``tiles`` (descending) that fits the shared memory a
-    block may use and still gives every one of ``sms`` SMs a block, else
-    the smallest that fits, else None.  ``blocks(rows)`` and ``smem(rows)``
-    are the kernel's grid size and shared memory per block.  The TPU
-    package chooses from its VMEM budget instead (tiles.py); on the card a
-    grid smaller than the SM count leaves SMs idle, and a smaller tile
-    costs more key traffic and barriers per multiply-add."""
-    fitting = [t for t in tiles if smem(t) <= MAX_SMEM]
-    if not fitting:
-        return None
-    for t in fitting:
-        if blocks(t) >= sms:
-            return t
-    return fitting[-1]
-
-
 def split_plan(steps: int, split: int) -> tuple:
     """(slice length, slices) of a reduction of ``steps`` steps cut
     ``split`` ways, as mm_recombine_acc's kernel cuts its K walk
@@ -930,21 +907,23 @@ def split_plan(steps: int, split: int) -> tuple:
     return n, -(-steps // n)
 
 
-def ck_windows(i0: int, N: int, m: int) -> list:
-    """The chunk windows of ck_cmux_step32's output tile of folded columns
-    [i0, i0 + 128), in the kernel's order: (chunk, +1) for the chunks whose
-    key columns reach the tile, then (chunk, -1) for those whose X^N wrap
-    reaches it (chunked.cuh); C + 1 of them when m is a multiple of 128."""
+def ck_windows(i0: int, N: int, m: int, tile: int = _BN) -> list:
+    """The chunk windows of an output tile of folded columns [i0, i0 +
+    tile) (128 in ck_cmux_step32, 64 in ck_cmux_step64), in the kernels'
+    order: (chunk, +1) for the chunks whose key columns reach the tile, then
+    (chunk, -1) for those whose X^N wrap reaches it; C + 1 of them when m
+    is a multiple of the tile."""
     C = N // m
-    add_end = min((i0 + _BN - 1) // m + 1, C)
+    add_end = min((i0 + tile - 1) // m + 1, C)
     return ([(c, 1) for c in range(add_end)]
             + [(c, -1) for c in range(i0 // m, C)])
 
 
 @functools.lru_cache(maxsize=None)
-def ck_work(N: int, m: int) -> int:
-    """The most windows any 128-column output tile has (ck_windows)."""
-    return max(len(ck_windows(i0, N, m)) for i0 in range(0, N, _BN))
+def ck_work(N: int, m: int, tile: int = _BN) -> int:
+    """The most windows any output tile of ``tile`` columns has
+    (ck_windows)."""
+    return max(len(ck_windows(i0, N, m, tile)) for i0 in range(0, N, tile))
 
 
 def window_slice(nw: int, split: int, s: int) -> range:
@@ -986,8 +965,9 @@ def choose_split(blocks, resident, sms: int, work: int, tiles=(64, 32),
 
 @functools.lru_cache(maxsize=None)
 def _occupancy(entry: str, *args) -> int:
-    """Blocks of a kernel resident per SM, from its C occupancy query
-    (memoized per arguments)."""
+    """A kernel's C launch-configuration query, memoized per arguments:
+    blocks resident per SM (the *_occupancy entries), or the key ring's
+    stages (ck_cmux_step64_stages)."""
     n = _build.entry(entry)(*args)
     if n < 0:
         raise RuntimeError(f"{entry}: occupancy query failed with "
@@ -1014,7 +994,8 @@ def ck_cmux_step32_plain(a, acc, wm, *, l: int, bgbit: int, offset: int,
     N = wm.shape[2] - m
     acc3 = acc.reshape(B, kp1, N)
     digits = rotate_decompose_plain(a, acc3, l=l, bgbit=bgbit, offset=offset)
-    y = ck_dot64p_plain(ck_layout(digits[None], m), wm, N=N, m=m)
+    y = ck_dot64p_plain(ck_layout(digits[None], m), wm.transpose(1, 2), N=N,
+                        m=m)
     return T.wrap32(acc3.to(torch.int64)
                     + recombine(y, kp1, key_shift)).reshape(acc.shape)
 
@@ -1123,88 +1104,98 @@ def _ck32_plan(B, kp1, N, m, Jm, L, dev, tile_rows, split):
 # ck_cmux_step64
 # ---------------------------------------------------------------------------
 
-def ck_cmux_step64_smem(tile_rows: int, Jm: int, planes: int, L: int) -> int:
-    """Shared memory of one ck_cmux_step64 block: one chunk window's digit
-    planes (tile_rows x (P*J*m + 16) bytes) and the key tiles of one limb
-    group (two limbs for one plane and an even L, else one)."""
-    lg = 2 if planes == 1 and L % 2 == 0 else 1
-    return tile_rows * (planes * Jm + 16) + lg * _BN * _SB_WORDS * 4
-
-
-def ck_cmux_step64_plain(a, acc, wm, *, l: int, bgbit: int, offset: int,
+def ck_cmux_step64_plain(a, acc, wmt, *, l: int, bgbit: int, offset: int,
                          m: int, key_shift: int, planes: int, kp1: int):
     B = acc.shape[0]
-    N = wm.shape[2] - m
+    N = wmt.shape[1] - m
     x = rotate_decompose64_ck_flat_plain(a, acc, N=N, l=l, bgbit=bgbit,
                                          offset=offset, m=m, planes=planes)
-    return ck_dot64p_acc_plain(x, wm, acc.reshape(B, kp1 * N), N=N, m=m,
+    return ck_dot64p_acc_plain(x, wmt, acc.reshape(B, kp1 * N), N=N, m=m,
                                key_shift=key_shift, planes=planes, kp1=kp1)
 
 
-def ck_cmux_step64(a, acc, wm, *, l: int, bgbit: int, offset: int, m: int,
-                   key_shift: int, planes: int, kp1: int,
-                   tile_rows: int = 0):
+def ck_cmux_step64(a, acc, wmt, *, l: int, bgbit: int, offset: int, m: int,
+                   key_shift: int, planes: int, kp1: int):
     """One 64-bit blind-rotation step on chunked pre-shifted keys:
 
-        out = acc + recombine64(decompose64((X^a - 1) * acc) @ wm)  mod 2^64
+        out = acc + recombine64(decompose64((X^a - 1) * acc) @ wmt^T)  mod 2^64
 
     a: (B,) int32 exponents (taken mod 2N); acc: (B, kp1*N) int64, the flat
-    accumulator; offset the 64-bit gadget offset (unsigned); wm: (kp1*L,
-    kp1*l*m, N+m) int8 (ChunkedEngine.prepare); digits split into ``planes``
-    balanced base-2^7 planes where planes=2.  Returns acc's shape: the
-    function of rotate_decompose64_ck_flat then ck_dot64p_acc, whose plain
-    versions are its plain version.  The int32 bound of ck_dot64p is
-    asserted for bgbit-bit digits.
+    accumulator; offset the 64-bit gadget offset (unsigned); wmt: (kp1*L,
+    N+m, kp1*l*m) int8, the K-packed chunked key (ChunkedEngine.prepare);
+    digits split into ``planes`` balanced base-2^7 planes where planes=2.
+    Returns acc's shape: the function of rotate_decompose64_ck_flat then
+    ck_dot64p_acc, whose plain versions are its plain version.  The int32
+    bound of ck_dot64p is asserted for bgbit-bit digits.
 
-    Kernel: csrc/ck_cmux_step64.cu (replaces pallas_kernels.ck_cmux_step64).
-    Bound by int8 tensor-core MACs.  A block owns a 128-column tile of one
-    output polynomial, builds the digit planes one chunk window at a time
-    in shared memory straight from acc (each chunk once, for both signs and
-    every limb) and folds each (limb, plane, sign) pass into uint64
-    registers.  The batch tile (64 or 32 rows) comes from choose_tile_rows;
-    ``tile_rows`` 64 or 32 forces one (0 chooses).  Any B >= 1."""
-    _require(tile_rows in (0, 32, 64),
-             "ck_cmux_step64: tile_rows must be 0, 32 or 64")
+    Kernel: csrc/ck_cmux_step64.cu (replaces pallas_kernels.ck_cmux_step64),
+    one launch a step.  Bound by int8 tensor-core MACs.  ck_dot64p_sacc's
+    grid and epilogue (64 folded columns of 4 limb rows for 64 or 128 batch
+    rows, 64-bit atomic adds into an acc-filled output), with the digits
+    built by the block itself in shared memory from acc, one chunk window
+    at a time, beside TMA loads of wmt and int8 wgmma; the rows of a block
+    and the slices of each tile's windows (one block each) from
+    ck_cmux_step64_plan.  Any B >= 1."""
     _check(a, "ck_cmux_step64 a", torch.int32, 1)
     _check(acc, "ck_cmux_step64 acc", torch.int64, 2)
-    _check(wm, "ck_cmux_step64 wm", torch.int8, 3)
-    UL, Jm, Npm = wm.shape
+    _check(wmt, "ck_cmux_step64 wmt", torch.int8, 3)
+    UL, Npm, Jm = wmt.shape
     N = Npm - m
     B = acc.shape[0]
     _require(a.shape[0] == B, "ck_cmux_step64: a must have B entries")
     _require(N > 0 and _is_pow2(N) and N % m == 0 and acc.shape[1] == kp1 * N
              and Jm == kp1 * l * m and UL % kp1 == 0,
-             "ck_cmux_step64: acc must be (B, kp1*N) and wm (kp1*L, "
-             "kp1*l*m, N+m) with N a power of two and a multiple of m")
+             "ck_cmux_step64: acc must be (B, kp1*N) and wmt (kp1*L, N+m, "
+             "kp1*l*m) with N a power of two and a multiple of m")
     _check_digits64("ck_cmux_step64", planes, bgbit, l)
     _ck_exact_check("ck_cmux_step64", Jm, N, m, bgbit)
     L = UL // kp1
-    if _on_cpu(a, acc, wm):
-        return ck_cmux_step64_plain(a, acc, wm, l=l, bgbit=bgbit,
+    if _on_cpu(a, acc, wmt):
+        return ck_cmux_step64_plain(a, acc, wmt, l=l, bgbit=bgbit,
                                     offset=offset, m=m, key_shift=key_shift,
                                     planes=planes, kp1=kp1)
-    _require(N % _BN == 0 and m % 4 == 0 and Jm % _BK == 0,
-             f"ck_cmux_step64: the kernel needs N % {_BN} == 0, m % 4 == 0 "
-             f"and J*m % {_BK} == 0")
-    if not tile_rows:
-        tile_rows = choose_tile_rows(
-            lambda t: (N // _BN) * -(-B // t) * kp1,
-            lambda t: ck_cmux_step64_smem(t, Jm, planes, L),
-            sm_count(acc.device))
-    _require(tile_rows is not None
-             and ck_cmux_step64_smem(tile_rows, Jm, planes, L) <= MAX_SMEM,
-             f"ck_cmux_step64: the kernel's digit window needs "
-             f"{ck_cmux_step64_smem(32, Jm, planes, L)} bytes of shared "
-             f"memory or more, above {MAX_SMEM}")
+    rows, split = ck_cmux_step64_plan(B, kp1, N, m, Jm, L, planes,
+                                      acc.device)
     out = torch.empty_like(acc)
     ck_cmux_step64.launches += 1
-    _launch("ck_cmux_step64", a.data_ptr(), acc.data_ptr(), wm.data_ptr(),
+    _launch("ck_cmux_step64", a.data_ptr(), acc.data_ptr(), wmt.data_ptr(),
             out.data_ptr(), B, kp1, N, m, l, L, planes, bgbit,
-            offset & ((1 << 64) - 1), key_shift, tile_rows)
+            offset & ((1 << 64) - 1), key_shift, rows, split)
     return out
 
 
 ck_cmux_step64.launches = 0
+
+
+def ck_cmux_step64_plan(B: int, kp1: int, N: int, m: int, Jm: int, L: int,
+                        planes: int, device) -> tuple:
+    """(rows, split) of ck_cmux_step64's kernel for these shapes on the card
+    ``device`` lies on.  Rows as ck_dot64p's (128 above B = 64, else 64)
+    where the 128-row plan's key ring holds two stages beside its two digit
+    buffers (the C query ck_cmux_step64_stages), else 64; the split by
+    choose_split from one block an SM (each block takes nearly all shared
+    memory), a tile's chunk window as the unit of work and a block's fixed
+    cost (its first digit build, the atomic epilogue) about one window.
+    Memoized: the
+    1,000 steps of a circuit bootstrap ask with the same shapes.  Raises
+    outside ck_cmux_step64_ok or where no plan fits."""
+    return _ck64_plan(B, kp1, N, m, Jm, L, planes, _device_index(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _ck64_plan(B, kp1, N, m, Jm, L, planes, dev):
+    _ck64_require("ck_cmux_step64", N, m, Jm, planes, ck_cmux_step64_ok)
+    fits = [t for t in ((128, 64) if B > 64 else (64,))
+            if _occupancy("ck_cmux_step64_stages", t, Jm)]
+    _require(bool(fits), f"ck_cmux_step64: J*m = {Jm} leaves no room for a "
+             f"two-stage key ring beside the digit buffers")
+    t = fits[0]
+    _, S = choose_split(
+        lambda t: (N // 64) * -(-B // t) * -(-kp1 * L // 4),
+        lambda t: 1, sm_count(dev), ck_work(N, m, 64), tiles=(t,),
+        overhead=1.0)
+    return t, S
+
 
 # in the order of pallas_kernels.py (PERF.md's kernel table)
 KERNELS = (materialize_w, materialize_wt, rotate_decompose, fused_cmux_step,
@@ -1215,7 +1206,7 @@ KERNELS = (materialize_w, materialize_wt, rotate_decompose, fused_cmux_step,
 
 def reset_launches():
     """Every kernel's launch count, and the per-call key transposes of the
-    two wgmma contractions, to 0."""
+    32-bit generic contraction (ck_dot64p_wm), to 0."""
     for k in KERNELS:
         k.launches = 0
-    ck_dot64p.transposes = ck_dot64p_acc.transposes = 0
+    ck_dot64p.transposes = 0

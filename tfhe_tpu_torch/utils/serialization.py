@@ -124,7 +124,7 @@ def load_cloud_key(path: str, backend: str | None = None, device=None):
 
 def save_circuit_key(path: str, ck):
     """Serialize a CircuitCloudKey at raw-bk scale: {preks limbs, privks
-    limbs, raw TRGSW64 bk}.  The chunked engine's prepared wm is ~m/2 times
+    limbs, raw TRGSW64 bk}.  The chunked engine's prepared wmt is ~m/2 times
     the raw bk (8.1 GB at CB_MXU), so the prepared form is rebuilt on the
     device at load, as keygen does.  Needs
     CircuitCloudKey.generate(keep_raw_bk=True)."""
