@@ -7,12 +7,17 @@ Phases (each prints its own lines; any failure exits non-zero):
 
   1. device: the card's name and power limit (nvidia-smi), then the kernels'
      nvcc build (all sources in parallel) and its seconds;
-  2. kernels: every CUDA kernel on seeded inputs at the shapes its paths
+  2. kernels: the launch floor (an empty kernel back to back, in device
+     time), then every CUDA kernel on seeded inputs at the shapes its paths
      give it, required bit-identical (torch.equal) to its plain PyTorch
      version run on a CPU copy (or on the card, where the host would take
-     too long); its time (CUDA events), the plain version's time on the
-     card, a one-call library yardstick where one exists, and its bound on
-     an H100 SXM: materialize_w and its K-packed entry materialize_wt, the
+     too long); its device time (device_ms: the host's enqueue hidden
+     behind a stalled stream; for the digit emitters also torch.profiler's
+     kernel time) beside its call time (CUDA events around back-to-back
+     wrapper calls, which time the host for kernels faster than the
+     wrapper), the plain version's time on the card, a one-call library
+     yardstick where one exists, and its bound on an H100 SXM:
+     materialize_w and its K-packed entry materialize_wt, the
      fused step (wgmma + TMA on the K-packed key) at GATE_FAST2 B=8192 and
      B=1024 and GATE_MXU B=8192, the v1 fused step at GATE_FAST2 and
      GATE_MXU B=8192 (also equal to v2's kernel), the 64-bit kernels (and
@@ -21,6 +26,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      CB_MXU and CB_ACTIVE B=256, the four 64-bit contractions on the
      K-packed key wmt with their chosen plans, ck_dot64p and ck_dot64p_sacc
      also at CB_MXU tails B=1, 3, 100,
+     rotate_decompose64_ck also at CB_MXU B=1, 3, 100,
      the one-kernel 64-bit step there and at CB_MXU tails B=1, 3, 100
      (beside the two-kernel default and acc steps it replaces),
      ck_cmux_step32 at GATE_MXU B=8192, GATE_DEFAULT B=256, GATE_MXU
@@ -41,7 +47,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      gate_nand and gate_mux truth tables on a small batch;
   4. generic step: GATE_DEFAULT (N=1024, 4 key limbs, so the fused step is
      ineligible) at B=256: rotate_decompose + materialize_w +
-     mm_recombine_acc, 630 of each per launch, decrypt-correct;
+     mm_recombine_acc, 630 of each per launch, decrypt-correct; each
+     kernel's device time and share of a step and of the launch;
   5. circuit bootstrap: CB_MXU (n0=500, N1=1024, N2=2048 Torus64, lvl2
      Bg=2^8/l=5, 6-limb bk) at B=256 on the chunked engine through
      CircuitCloudKey.generate (seconds per keygen.circuit.* span) /
@@ -52,7 +59,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      kernel; every
      TRGSW row phase, a CMux driven by each TRGSW and a 4-bit LUT over 64
      instances (lut.eval_lut_batch) must be right; then where one launch's
-     time goes (CUDA events) and the peak device memory, read two ways:
+     time goes (CUDA events; the digit emitters' and steps' device time and
+     the emitter's share of a step) and the peak device memory, read two
+     ways:
      from before keygen to after the launches (the whole run, keygen's
      transients included) and of the two launches alone, beside the
      resident keys;
@@ -84,6 +93,7 @@ when no CUDA device is present.  Imports nothing of JAX or of ``tfhe_tpu``.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -128,6 +138,86 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+@functools.lru_cache(maxsize=None)
+def _sleep_cycles_per_ms() -> float:
+    """Cycles of torch.cuda._sleep per millisecond on this card, from CUDA
+    events around one long sleep (measured once)."""
+    cycles = 20_000_000
+    torch.cuda._sleep(1000)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 2) -> float:
+    """Mean device milliseconds of fn() over ``reps`` back-to-back calls,
+    with the host's enqueue hidden: the stream is first stalled by
+    torch.cuda._sleep for longer than the host takes to enqueue all reps
+    calls (sized from a host clock of one enqueue), so that the start event
+    fires after the calls are queued and the events time the card's work
+    alone.  A stall the enqueue outlasted is lengthened and the run
+    repeated."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    one = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    stall_ms = 2 * reps * one * 1e3 + 0.2
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(4):
+        torch.cuda._sleep(int(stall_ms * _sleep_cycles_per_ms()))
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if enqueue_ms < 0.8 * stall_ms:
+            return start.elapsed_time(end) / reps
+        stall_ms = 4 * enqueue_ms + 0.2
+    raise SmokeFailure(f"device_ms: the host's enqueue ({enqueue_ms:.3f} ms) "
+                       f"outlasted every stall")
+
+
+@functools.lru_cache(maxsize=None)
+def launch_floor_ms(reps: int = 50) -> float:
+    """Device milliseconds of one empty kernel (torch.cuda._sleep(0), one
+    thread) launched back to back, timed by device_ms (measured once): no
+    standalone kernel takes less on this card."""
+    return device_ms(lambda: torch.cuda._sleep(0), reps)
+
+
+def profiler_ms(fn, name_part: str, reps: int = 20):
+    """Mean device milliseconds of the kernels whose name contains
+    ``name_part`` over ``reps`` calls of fn(), from torch.profiler; None
+    where the profiler records no device time for them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for ev in prof.key_averages():
+        if name_part in ev.key:
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = getattr(ev, "cuda_time_total", 0.0)
+            total_us += us
+            count += ev.count
+    return total_us / count / 1e3 if count and total_us > 0 else None
 
 
 def bound_ms(nbytes: int, int8_macs: int = 0):
@@ -351,6 +441,16 @@ def _kernel_cases(seed: int = 0):
     Jm, UL = kp1 * p.l * m, kp1 * L
     wmt = i8((UL, N + m, Jm))
     for B in (1, 3, 100):
+        acc = torch.from_numpy(r.integers(-2**63, 2**63, (B, kp1, N),
+                                          dtype=np.int64))
+        a = expo(B, N)
+        cases.append(("rotate_decompose64_ck", f"CB_MXU B={B}",
+                      "csrc/rotate_decompose64_ck.cu", f"{PALLAS}:740",
+                      K.rotate_decompose64_ck, K.rotate_decompose64_ck_plain,
+                      (a, acc), dict(l=p.l, bgbit=p.bgbit, offset=p.offset,
+                                     planes=1, m=m),
+                      bound_ms(_nbytes(a, acc) + B * C * K.ck_width(Jm)),
+                      None, False))
         x = i8((B, C * K.ck_width(Jm)))
         acc_flat = torch.from_numpy(r.integers(-2**63, 2**63, (B, kp1 * N),
                                                dtype=np.int64))
@@ -439,6 +539,8 @@ def phase_kernels(reps: int = 20):
     other cases go under the entry's "other_shapes"."""
     from tfhe_tpu_torch.ops import kernels as K
     results = {}
+    print(f"phase 2 launch floor: an empty kernel back to back takes "
+          f"{launch_floor_ms():.4f} ms of device time")
     for (name, shape, src, replaces, wrapper, plain, args, kw, (bnd, by),
          lib, plain_on_card) in _kernel_cases():
         dev_args = tuple(t.cuda() for t in args)
@@ -473,6 +575,7 @@ def phase_kernels(reps: int = 20):
             _compare(f"{name} split=1", wrapper(*dev_args, **forced), got)
             split1_ms = cuda_ms(lambda: wrapper(*dev_args, **forced), reps)
         ms = cuda_ms(lambda: wrapper(*dev_args, **kw), reps)
+        dev_ms = device_ms(lambda: wrapper(*dev_args, **kw), reps)
         plain_ms = cuda_ms(lambda: plain(*dev_args, **kw), 3, warmup=1)
         if name in SPLIT_KERNELS:
             split_txt = (f", chosen (tile_rows, S) = {plan}; S = 1 "
@@ -483,8 +586,11 @@ def phase_kernels(reps: int = 20):
             library_ms = cuda_ms(lambda: torch._int_mm(x, wcat), reps)
             del x, wcat
         numbers = {"shape": shape, "max_abs_err": err, "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-                   "library_ms": library_ms}
+                   "device_ms": dev_ms, "plain_ms": plain_ms,
+                   "bound_ms": bnd, "bound_by": by, "library_ms": library_ms}
+        if name in EMITTERS and "profiler_ms" not in results.get(name, {}):
+            numbers["profiler_ms"] = profiler_ms(
+                lambda: wrapper(*dev_args, **kw), EMITTERS[name])
         if name in SPLIT_KERNELS:
             numbers.update(tile_rows=plan[0], split=plan[1],
                            split1_ms=split1_ms)
@@ -518,14 +624,23 @@ def phase_kernels(reps: int = 20):
             two_txt = (f", default two-kernel step "
                        f"{numbers['default_step_ms']:.4f} ms, acc step "
                        f"{numbers['acc_step_ms']:.4f} ms")
+        prof = numbers.get("profiler_ms", "")
+        if name in EMITTERS and prof != "":
+            prof = (", torch.profiler: no device time" if prof is None else
+                    f", torch.profiler {prof:.4f} ms")
         print(f"phase 2 kernel {name} at {shape}: bit-identical to plain, "
-              f"{ms:.4f} ms (bound {bnd:.4f} ms by {by}, "
-              f"{bnd / ms:.1%} of it), plain {plain_ms:.4f} ms, "
-              f"library {lib_txt}{two_txt}{split_txt}")
+              f"device {dev_ms:.4f} ms (bound {bnd:.4f} ms by {by}, "
+              f"{bnd / dev_ms:.1%} of it), call {ms:.4f} ms{prof}, plain "
+              f"{plain_ms:.4f} ms, library {lib_txt}{two_txt}{split_txt}")
     torch.cuda.empty_cache()
     return results
 
 
+# the digit emitters (their device time is cross-checked against
+# torch.profiler's, by a part of the kernel's name)
+EMITTERS = {"rotate_decompose": "rotate_decompose_kernel",
+            "rotate_decompose64_ck": "rotate_decompose64_kernel",
+            "rotate_decompose64_ck_flat": "rotate_decompose64_kernel"}
 # the kernels whose reduction is split over blocks (K slices, chunk windows)
 SPLIT_KERNELS = ("mm_recombine_acc", "ck_cmux_step32")
 # the 64-bit contractions on the K-packed key wmt, and what their plans hold
@@ -847,6 +962,35 @@ def phase_generic(smi: str, batch: int = 256):
           f"{batch / wall:.1f} ct/s ({wall:.3f} s for one launch), all "
           f"{batch} bits decrypt, launches {counts}, keygen {keygen_s:.1f} s "
           f"[{smi}]")
+
+    # where one launch's time goes, in device time at this batch
+    from tfhe_tpu_torch import tgsw
+    from tfhe_tpu_torch.boot import blind_rotate
+    from tfhe_tpu_torch.ops.engine import make_engine
+    p = P.tgsw
+    kp1, N = p.tlwe.k + 1, p.tlwe.N
+    eng = make_engine(tgsw.engine_config(p), "onthefly")
+    prep0 = {"v": ck.data["bk"]["v"][0]}
+    acc = torch.zeros((batch, kp1, N), dtype=torch.int32, device="cuda")
+    acc.random_(-2**31, 2**31 - 1)
+    a0 = torch.randint(0, 2 * N, (batch,), dtype=torch.int32, device="cuda")
+    kw = dict(l=p.l, bgbit=p.bgbit, offset=p.offset)
+    x = K.rotate_decompose(a0, acc, **kw).reshape(batch, -1)
+    w = K.materialize_w(prep0["v"])
+    parts = {
+        "rotate_decompose": device_ms(lambda: K.rotate_decompose(a0, acc,
+                                                                 **kw)),
+        "materialize_w": device_ms(lambda: K.materialize_w(prep0["v"])),
+        "mm_recombine_acc": device_ms(lambda: K.mm_recombine_acc(
+            x, w, acc.reshape(batch, -1), shift_base=eng.cfg.key_shift))}
+    step = device_ms(lambda: blind_rotate.cmux_step(eng, a0, acc, prep0, p))
+    launch_ms = wall * 1e3
+    print(f"phase 4 breakdown B={batch} (device time): " + ", ".join(
+        f"{k} {v:.4f} ms x {n} ({v / step:.1%} of a step, "
+        f"{v * n / launch_ms:.1%} of the launch)" for k, v in parts.items())
+        + f"; whole step {step:.4f} ms x {n} = {step * n:.1f} ms vs "
+        f"{launch_ms:.1f} ms per launch; launch floor "
+        f"{launch_floor_ms():.4f} ms")
     return counts, out
 
 
@@ -1012,13 +1156,23 @@ def phase_circuit(smi: str):
     rot_ms = cuda_ms(lambda: K.rotate_decompose64_ck(a0, acc, **kw), 20)
     dot_ms = cuda_ms(lambda: K.ck_dot64p(x, wmt0, N=P.n_lvl2, m=eng.m,
                                          planes=kw["planes"]), 10)
+    accf = acc.reshape(batch, -1)
+    dev_ms = {"rotate_decompose64_ck": device_ms(
+                  lambda: K.rotate_decompose64_ck(a0, acc, **kw)),
+              "rotate_decompose64_ck_flat": device_ms(
+                  lambda: K.rotate_decompose64_ck_flat(a0, accf, N=P.n_lvl2,
+                                                       **kw)),
+              "ck_dot64p": device_ms(lambda: K.ck_dot64p(
+                  x, wmt0, N=P.n_lvl2, m=eng.m, planes=kw["planes"]), 10),
+              "step": device_ms(lambda: eng.cmux_step(
+                  a0, acc, prep0, l=p2.l, bgbit=p2.bgbit, offset=p2.offset),
+                  10)}
     epi_ms = cuda_ms(lambda: acc + K.recombine(y, k + 1,
                                                eng.cfg.key_shift), 20)
     step_ms = cuda_ms(lambda: eng.cmux_step(a0, acc, prep0, l=p2.l,
                                             bgbit=p2.bgbit,
                                             offset=p2.offset), 10)
-    accf = acc.reshape(batch, -1)
-    opt_step_ms = {name: cuda_ms(lambda: getattr(eng, method)(
+    opt_step_ms = {name: device_ms(lambda: getattr(eng, method)(
         a0, accf, prep0, kp1=k + 1, l=p2.l, bgbit=p2.bgbit,
         offset=p2.offset), 10)
         for name, method in (("acc", "cmux_step_acc"),
@@ -1044,8 +1198,16 @@ def phase_circuit(smi: str):
           f"launches {peak_gb:.2f} GB (the keys {keys_gb:.2f} GB resident, "
           f"their K-packed wmt {_nbytes(ck.data['bk']['wmt']) / 1e9:.2f} GB, "
           f"no wm; keygen's peak {keygen_peak_gb:.2f} GB)")
+    rot, one = dev_ms["rotate_decompose64_ck"], dev_ms["step"]
+    print(f"phase 5 device time B={batch}: rotate_decompose64_ck {rot:.4f} "
+          f"ms x {steps} ({rot / one:.1%} of a default step of {one:.4f} "
+          f"ms, {rot * steps / (wall * 1e3):.1%} of the launch), ck_dot64p "
+          f"{dev_ms['ck_dot64p']:.4f} ms, rotate_decompose64_ck_flat "
+          f"{dev_ms['rotate_decompose64_ck_flat']:.4f} ms; launch floor "
+          f"{launch_floor_ms():.4f} ms")
     state = {"ck": ck, "ct": ct, "gsw": gsw, "wall": wall,
-             "step_ms": step_ms, "opt_step_ms": opt_step_ms, "steps": steps}
+             "step_ms": one, "opt_step_ms": opt_step_ms, "steps": steps,
+             "flat_rot_ms": dev_ms["rotate_decompose64_ck_flat"]}
     return counts, state
 
 
@@ -1086,12 +1248,19 @@ def phase_circuit_step(smi: str, state: dict, phase: str, step: str,
     check(torch.equal(gsw, state["gsw"]),
           f"CB_MXU {step}: the TRGSWs differ from the default step's")
     _only(counts, {name: steps for name in kernels}, f"CB_MXU {step}")
+    one = state["opt_step_ms"][step]
+    share = ""
+    if "rotate_decompose64_ck_flat" in kernels:
+        rot = state["flat_rot_ms"]
+        share = (f"; rotate_decompose64_ck_flat {rot:.4f} ms x {steps} "
+                 f"({rot / one:.1%} of a step, "
+                 f"{rot * steps / (wall * 1e3):.1%} of the launch)")
     print(f"phase {phase} CB_MXU chunked {var}={value} B={batch}: "
           f"{wall * 1e3 / batch:.3f} ms per ciphertext ({wall:.3f} s for one "
           f"launch) against phase 5's {state['wall'] * 1e3 / batch:.3f}; "
-          f"TRGSWs bit-identical to phase 5's; one step "
-          f"{state['opt_step_ms'][step]:.4f} ms against the default "
-          f"{state['step_ms']:.4f} ms; launches {counts} [{smi}]")
+          f"TRGSWs bit-identical to phase 5's; one step {one:.4f} ms of "
+          f"device time against the default {state['step_ms']:.4f} "
+          f"ms{share}; launches {counts} [{smi}]")
     return counts
 
 

@@ -64,16 +64,47 @@ def test_materialize_wt(cuda, L, J, U, N):
                        K.materialize_w(dv).transpose(1, 2).contiguous())
 
 
-@pytest.mark.parametrize("B,k,N,l,bgbit", [(5, 1, 64, 3, 7),
-                                           (33, 2, 512, 3, 7),
-                                           (16, 1, 1024, 2, 8)])
+def _rotate_decompose_plan(a, acc, *, l, bgbit, offset, plan):
+    """rotate_decompose's kernel at a forced (rows, split, threads) plan,
+    through its raw entry."""
+    B, kp1, N = acc.shape
+    out = torch.empty((B, kp1 * l, N), dtype=torch.int8, device=acc.device)
+    K._launch("rotate_decompose", a.data_ptr(), acc.data_ptr(),
+              out.data_ptr(), B, kp1, N, l, bgbit, offset & 0xFFFFFFFF, *plan)
+    return out
+
+
+def _forced_rotdec_plans(chosen):
+    """Forced emitter plans beside the chosen one: one row at splits 1, 2
+    and 7 (a ragged slice), and two and four rows a block (a ragged last
+    block where B is odd)."""
+    threads = chosen[2]
+    return [(1, 1, threads), (1, 2, threads), (1, 7, threads),
+            (2, 1, threads), (4, 1, min(threads, 128)), (1, 3, 32)]
+
+
+@pytest.mark.parametrize("B,k,N,l,bgbit", [
+    (1, 1, 1024, 3, 7), (3, 1, 1024, 3, 7), (100, 1, 1024, 3, 7),
+    (256, 1, 1024, 3, 7), (5, 1, 64, 3, 7), (33, 2, 512, 3, 7),
+    (16, 1, 1024, 2, 8), (300, 1, 64, 3, 7)])
 def test_rotate_decompose(cuda, B, k, N, l, bgbit):
+    """GATE_DEFAULT's shape at B = 1, 3, 100, 256, GATE_TOY's N = 64 and
+    GATE_FAST2-shaped k = 2; the chosen plan and forced ones, bit for
+    bit."""
     r = np.random.default_rng(1)
     acc = _i32(r, (B, k + 1, N))
     a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
+    a[0] = N
     kw = dict(l=l, bgbit=bgbit, offset=0x81020400)
     _same_on_card(K.rotate_decompose, K.rotate_decompose_plain, (a, acc), kw,
                   cuda)
+    want = K.rotate_decompose_plain(a, acc, **kw)
+    da, dacc = a.to(cuda), acc.to(cuda)
+    chosen = K.rotdec_plan(B, k + 1, N, 4, K.sm_count(cuda))
+    for plan in _forced_rotdec_plans(chosen):
+        got = _rotate_decompose_plan(da, dacc, plan=plan, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), plan
 
 
 _PLAIN: dict = {}
@@ -258,21 +289,83 @@ def _i64(r, shape):
     return torch.from_numpy(r.integers(-2**63, 2**63, shape, dtype=np.int64))
 
 
-@pytest.mark.parametrize("B,k,N,l,bgbit,m", [(256, 1, 2048, 5, 8, 64),
-                                             (3, 1, 2048, 4, 9, 64),
-                                             (7, 2, 256, 4, 9, 64),
-                                             (5, 1, 128, 5, 8, 32)])
+def _rotate_decompose64_ck_plan(a, acc, *, l, bgbit, offset, m, planes,
+                                plan):
+    """rotate_decompose64_ck's kernel at a forced (rows, split, threads)
+    plan, through its raw entry."""
+    B, kp1, N = acc.shape
+    ckp = K.ck_width(kp1 * l * m)
+    out = torch.empty((B, (N // m) * planes * ckp), dtype=torch.int8,
+                      device=acc.device)
+    K._launch("rotate_decompose64_ck", a.data_ptr(), acc.data_ptr(),
+              out.data_ptr(), B, kp1, N, l, bgbit, offset & ((1 << 64) - 1),
+              m, planes, ckp, *plan)
+    return out
+
+
+def _cb_offset(l, bgbit):
+    return sum(1 << (63 - i * bgbit) for i in range(l + 1)) % 2**64
+
+
+# the 64-bit emitter's cases (B, k, N, l, bgbit, m): CB_MXU at the steps'
+# batches (256, and the narrow 1, 3, 100), CB_ACTIVE (two planes), k = 2,
+# m = 16, 32 and 64, and pad shapes (J*m = 96, 160, 320: not a multiple of
+# 128)
+RD64_CASES = [(B, 1, 2048, 5, 8, 64) for B in (1, 3, 100, 256)] + [
+    (256, 1, 2048, 4, 9, 64), (3, 1, 2048, 4, 9, 64), (7, 2, 256, 4, 9, 64),
+    (5, 1, 128, 5, 8, 32), (100, 1, 256, 5, 8, 16), (9, 2, 128, 2, 9, 16),
+    (3, 1, 128, 3, 8, 16), (33, 1, 512, 5, 8, 16), (70, 1, 256, 5, 8, 32)]
+
+
+@pytest.mark.parametrize("B,k,N,l,bgbit,m", RD64_CASES)
 def test_rotate_decompose64_ck(cuda, B, k, N, l, bgbit, m):
+    """The chosen plan (through the wrapper) and forced plans, bit for bit,
+    pad columns included."""
     r = np.random.default_rng(5)
     acc = _i64(r, (B, k + 1, N))
     acc.view(-1)[:3] = torch.tensor([-2**63, 2**63 - 1, 0])
     a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
     a[0] = N                                   # a pure sign flip
-    offset = sum(1 << (63 - i * bgbit) for i in range(l + 1)) % 2**64
-    kw = dict(l=l, bgbit=bgbit, offset=offset, m=m,
+    kw = dict(l=l, bgbit=bgbit, offset=_cb_offset(l, bgbit), m=m,
               planes=1 if bgbit <= 8 else 2)
     _same_on_card(K.rotate_decompose64_ck, K.rotate_decompose64_ck_plain,
                   (a, acc), kw, cuda)
+    want = K.rotate_decompose64_ck_plain(a, acc, **kw)
+    da, dacc = a.to(cuda), acc.to(cuda)
+    chosen = K.rotdec_plan(B, k + 1, N, 8, K.sm_count(cuda))
+    for plan in _forced_rotdec_plans(chosen):
+        got = _rotate_decompose64_ck_plan(da, dacc, plan=plan, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), plan
+
+
+@pytest.mark.parametrize("B,k,N,l,bgbit,m", [(5, 1, 128, 3, 8, 16),
+                                             (3, 1, 256, 5, 9, 16),
+                                             (100, 2, 128, 3, 8, 32)])
+def test_rotate_decompose64_ck_writes_its_pad_columns(cuda, B, k, N, l,
+                                                      bgbit, m):
+    """J*m % 128 != 0: the wrapper allocates with torch.empty from a caching
+    allocator whose block was just filled with -1 bytes, and the kernel
+    writes the pad columns' zeros itself."""
+    r = np.random.default_rng(15)
+    acc = _i64(r, (B, k + 1, N))
+    a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
+    P = 1 if bgbit <= 8 else 2
+    kw = dict(l=l, bgbit=bgbit, offset=_cb_offset(l, bgbit), m=m, planes=P)
+    jm = (k + 1) * l * m
+    assert jm % 128 != 0
+    want = K.rotate_decompose64_ck_plain(a, acc, **kw)
+    da, dacc = a.to(cuda), acc.to(cuda)
+    poison = torch.full(want.shape, -1, dtype=torch.int8, device=cuda)
+    ptr = poison.data_ptr()
+    torch.cuda.synchronize()
+    del poison
+    got = K.rotate_decompose64_ck(da, dacc, **kw)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr               # the poisoned block
+    assert torch.equal(got.cpu(), want)
+    ckp = K.ck_width(jm)
+    assert not got.reshape(B, -1, ckp)[..., jm:].any()
 
 
 # the wgmma contractions' cases: CB_MXU's shape (J = 10, 12 limb groups, one
@@ -387,7 +480,9 @@ def test_ck_dot64p_unsupported_shape_raises(cuda):
     multiple of 16 (TMA's row stride): the four 64-bit wrappers raise
     instead of running the plain version on the card.  m = 2 is not a
     multiple of 4, which only ck_cmux_step64's digit builds need: it
-    raises there, and the contractions run."""
+    raises there, and the contractions run.  m = 8 and 2 are not multiples
+    of 16, which the digit emitter's 16-coefficient runs need: it raises
+    there."""
     for N, m, J in ((32, 16, 4), (128, 8, 3), (64, 2, 8)):
         ckp = K.ck_width(J * m)
         x = torch.zeros((4, (N // m) * ckp), dtype=torch.int8, device=cuda)
@@ -407,6 +502,10 @@ def test_ck_dot64p_unsupported_shape_raises(cuda):
             for fn in (K.ck_dot64p_acc, K.ck_dot64p_sacc):
                 assert torch.equal(fn(x, wmt, acc, **kw),
                                    K.ck_dot64p_acc_plain(x, wmt, acc, **kw))
+        if m % 16:
+            with pytest.raises(ValueError, match="kernel"):
+                K.rotate_decompose64_ck_flat(a, acc, N=N, l=J // 2, bgbit=4,
+                                             offset=0, m=m)
         if J % 2 == 0:                         # J = kp1 * l with kp1 = 2
             with pytest.raises(ValueError, match="kernel"):
                 K.ck_cmux_step64(a, acc, wmt, l=J // 2, bgbit=4, offset=0,
@@ -499,13 +598,16 @@ def test_ck_dot64p_acc_every_plan(cuda, B, N, l, kp1, L, m, P, plan,
 
 
 @pytest.mark.parametrize("B,k,N,l,bgbit,m", [(256, 1, 2048, 5, 8, 64),
-                                             (3, 1, 2048, 4, 9, 64)])
+                                             (1, 1, 2048, 5, 8, 64),
+                                             (100, 1, 2048, 5, 8, 64),
+                                             (256, 1, 2048, 4, 9, 64),
+                                             (3, 1, 2048, 4, 9, 64),
+                                             (9, 1, 128, 3, 8, 16)])
 def test_rotate_decompose64_ck_flat(cuda, B, k, N, l, bgbit, m):
     r = np.random.default_rng(9)
     acc = _i64(r, (B, (k + 1) * N))
     a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
-    offset = sum(1 << (63 - i * bgbit) for i in range(l + 1)) % 2**64
-    kw = dict(N=N, l=l, bgbit=bgbit, offset=offset, m=m,
+    kw = dict(N=N, l=l, bgbit=bgbit, offset=_cb_offset(l, bgbit), m=m,
               planes=1 if bgbit <= 8 else 2)
     before = K.rotate_decompose64_ck.launches
     _same_on_card(K.rotate_decompose64_ck_flat,
@@ -579,12 +681,15 @@ def test_fused_cmux_step_v1(cuda, B, k, N, L, key_shift):
 
 
 @pytest.mark.parametrize("B,k,N,l,bgbit", [(256, 1, 2048, 5, 8),
+                                           (1, 1, 2048, 5, 8),
+                                           (100, 1, 2048, 5, 8),
                                            (3, 1, 2048, 4, 9),
                                            (7, 2, 256, 4, 9),
                                            (5, 1, 128, 5, 8)])
 def test_rotate_decompose64(cuda, B, k, N, l, bgbit):
-    """The plain-layout emitter against its plain version; re-laid out, it
-    is rotate_decompose64_ck's kernel output."""
+    """The plain-layout emitter (rotate_decompose64_ck's kernel writing
+    the other layout) against its plain version, at the chosen plan and
+    forced ones; re-laid out, it is rotate_decompose64_ck's output."""
     r = np.random.default_rng(11)
     acc = _i64(r, (B, k + 1, N))
     acc.view(-1)[:3] = torch.tensor([-2**63, 2**63 - 1, 0])
@@ -600,6 +705,14 @@ def test_rotate_decompose64(cuda, B, k, N, l, bgbit):
         B, k + 1, l, P, N).permute(3, 0, 1, 2, 4).reshape(P, B, -1, N)
     assert torch.equal(K.ck_layout(planes, 64),
                        K.rotate_decompose64_ck(da, dacc, m=64, **kw))
+    want = K.rotate_decompose64_plain(a, acc, **kw)
+    chosen = K.rotdec_plan(B, k + 1, N, 8, K.sm_count(cuda))
+    for plan in _forced_rotdec_plans(chosen):
+        got = torch.empty_like(want, device=cuda)
+        K._launch("rotate_decompose64", da.data_ptr(), dacc.data_ptr(),
+                  got.data_ptr(), B, k + 1, N, l, bgbit, offset, P, *plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), plan
 
 
 def _ck_dot64p_sacc_rows(x, wmt, acc, *, N, m, planes, kp1, key_shift,

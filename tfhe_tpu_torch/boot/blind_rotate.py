@@ -80,7 +80,8 @@ def cmux_step(eng, a, acc, prep, p: TGswParams):
         raise ValueError(
             "no 64-bit step for the card takes these parameters: the 64-bit "
             "blind rotation runs on the 'chunked' backend, in its kernels' "
-            "domain (kernels.ck64_kernel_ok)")
+            "domain (kernels.ck64_kernel_ok and rotdec_ok, or "
+            "ck_cmux_step64_ok for TFHE_CK64_FUSED)")
     if p.tlwe.bits == 32 and p.bgbit <= 8:
         digits = kernels.rotate_decompose(a, acc, l=p.l, bgbit=p.bgbit,
                                           offset=p.offset)

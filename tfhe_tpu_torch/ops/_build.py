@@ -41,7 +41,8 @@ SIGNATURES = {
     "materialize_wt": ("tfhe_materialize_wt", [_P, _P, _I, _I, _I, _I, _P],
                        "materialize_w"),
     "rotate_decompose": ("tfhe_rotate_decompose",
-                         [_P, _P, _P, _I, _I, _I, _I, _I, _U, _P]),
+                         [_P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _I,
+                          _P]),
     "mm_recombine_acc": ("tfhe_mm_recombine_acc",
                          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "mm_recombine_acc_occupancy": ("tfhe_mm_recombine_acc_occupancy", [_I],
@@ -51,7 +52,7 @@ SIGNATURES = {
                          _P]),
     "rotate_decompose64_ck": ("tfhe_rotate_decompose64_ck",
                               [_P, _P, _P, _I, _I, _I, _I, _I, _U64, _I, _I,
-                               _I, _P]),
+                               _I, _I, _I, _I, _P]),
     "ck_dot64p": ("tfhe_ck_dot64p", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                      _I, _P]),
     "ck_dot64p_acc": ("tfhe_ck_dot64p_acc", [_P, _P, _P, _P, _I, _I, _I, _I,
@@ -65,7 +66,8 @@ SIGNATURES = {
     "fused_cmux_step_v1": ("tfhe_fused_cmux_step_v1",
                            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _P]),
     "rotate_decompose64": ("tfhe_rotate_decompose64",
-                           [_P, _P, _P, _I, _I, _I, _I, _I, _U64, _I, _P],
+                           [_P, _P, _P, _I, _I, _I, _I, _I, _U64, _I, _I,
+                            _I, _I, _P],
                            "rotate_decompose64_ck"),
     "ck_dot64p_sacc": ("tfhe_ck_dot64p_sacc", [_P, _P, _P, _P, _I, _I, _I,
                                                _I, _I, _I, _I, _I, _I, _I,

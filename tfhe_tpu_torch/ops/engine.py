@@ -311,10 +311,15 @@ class ChunkedEngine(_EngineBase):
 
     def _ck64_ok(self, acc, Jm: int, P: int, fused: bool = False) -> bool:
         """Whether the 64-bit steps apply: on a card only shapes in their
-        kernels' domain (kernels.ck64_kernel_ok; ck_cmux_step64_ok for the
-        ``fused`` one-kernel step); the CPU's plain versions take any."""
-        ok = kernels.ck_cmux_step64_ok if fused else kernels.ck64_kernel_ok
-        return acc.device.type == "cpu" or ok(self.cfg.N, self.m, Jm, P)
+        kernels' domain (kernels.ck64_kernel_ok and the digit emitter's
+        kernels.rotdec_ok; ck_cmux_step64_ok for the ``fused`` one-kernel
+        step); the CPU's plain versions take any."""
+        if acc.device.type == "cpu":
+            return True
+        N, m = self.cfg.N, self.m
+        if fused:
+            return kernels.ck_cmux_step64_ok(N, m, Jm, P)
+        return kernels.ck64_kernel_ok(N, m, Jm, P) and kernels.rotdec_ok(N, m)
 
     def accumulate(self, x, prepared):
         cfg = self.cfg

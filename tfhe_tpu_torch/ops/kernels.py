@@ -151,6 +151,65 @@ materialize_wt.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# the rotate-decompose digit emitters' domain and plan (csrc/rotdec.cuh)
+# ---------------------------------------------------------------------------
+
+ROTDEC_THREADS = 256       # threads a block gives its staged rows, at most
+
+
+def rotdec_ok(N: int, m: int) -> bool:
+    """The domain of the two digit emitters' kernels (rotate_decompose, and
+    rotate_decompose64_ck with its flat entry and rotate_decompose64): N a
+    power of two, m (the chunk width; 16 for the plain layouts) a multiple
+    of 16 dividing N, so a 16-coefficient work item lies in one chunk and
+    every digit run is one aligned 16-byte store."""
+    return _is_pow2(N) and m % 16 == 0 and N % m == 0
+
+
+def rotdec_smem(rows: int, kp1: int, N: int, word_bytes: int) -> int:
+    """Shared memory of one emitter block: ``rows`` staged rows of
+    (k+1)*N words, one padding word after every 16 (csrc/rotdec.cuh)."""
+    words = kp1 * N
+    return rows * (words + words // 16) * word_bytes
+
+
+@functools.lru_cache(maxsize=None)
+def rotdec_plan(B: int, kp1: int, N: int, word_bytes: int,
+                sms: int) -> tuple:
+    """(rows, split, threads) of an emitter launch (csrc/rotdec.cuh): a
+    block of (threads, rows) threads stages ``rows`` batch rows and works
+    on one of ``split`` slices of each row's (k+1)*N/16 work items; the
+    grid is (ceil(B / rows), split).
+
+    A row with fewer work items than ROTDEC_THREADS shares its block with
+    more rows (powers of two) as long as the grid still covers half of the
+    ``sms`` SMs; a batch too narrow for that splits each row's items over
+    more blocks (each stages the whole row), at least one warp of items a
+    slice.  (On an H100 80GB HBM3 at 700 W, CB_MXU B=100 ran 0.0049 ms of
+    device time unsplit against 0.0050-0.0051 split in two, and B=1 and 3
+    ran 0.0043-0.0044 at four and eight slices against 0.0046-0.0047
+    unsplit: tools/torch_rotdec_ab.py.)  Threads are a row's items rounded
+    up to a warp, at most ROTDEC_THREADS, whatever the split: they all
+    stage the row.  Pure and memoized: the steps of a rotation ask with the
+    same shapes.  Raises where one row does not fit in shared memory."""
+    _require(rotdec_smem(1, kp1, N, word_bytes) <= MAX_SMEM,
+             f"rotdec_plan: a row of {kp1} x {N} words needs more than "
+             f"{MAX_SMEM} bytes of shared memory")
+    items = kp1 * N // 16
+    target = -(-sms // 2)
+    threads = min(ROTDEC_THREADS, -(-items // 32) * 32)
+    rows = 1
+    while (2 * rows * threads <= ROTDEC_THREADS
+           and rotdec_smem(2 * rows, kp1, N, word_bytes) <= MAX_SMEM
+           and -(-B // (2 * rows)) >= target):
+        rows *= 2
+    split = 1
+    if rows == 1 and B < target:
+        split = max(1, min(-(-target // B), items // 32))
+    return rows, split, threads
+
+
+# ---------------------------------------------------------------------------
 # rotate_decompose
 # ---------------------------------------------------------------------------
 
@@ -171,8 +230,9 @@ def rotate_decompose(a, acc, *, l: int, bgbit: int, offset: int):
 
     Kernel: csrc/rotate_decompose.cu (replaces
     pallas_kernels.rotate_decompose).  Bound by bytes (4 read + l written
-    per coefficient); one block per polynomial row, rotation computed per
-    coefficient from a shared-memory copy of the row."""
+    per coefficient); rows staged in shared memory, a thread per 16
+    coefficients writing each digit run with one 16-byte store, the grid
+    from rotdec_plan.  The card takes N a multiple of 16 (rotdec_ok)."""
     _check(a, "rotate_decompose a", torch.int32, 1)
     _check(acc, "rotate_decompose acc", torch.int32, 3)
     B, kp1, N = acc.shape
@@ -182,10 +242,13 @@ def rotate_decompose(a, acc, *, l: int, bgbit: int, offset: int):
              "rotate_decompose: digits must fit int8 (bgbit <= 8, l*bgbit <= 32)")
     if _on_cpu(a, acc):
         return rotate_decompose_plain(a, acc, l=l, bgbit=bgbit, offset=offset)
+    _require(rotdec_ok(N, 16), f"rotate_decompose: the kernel needs N % 16 "
+             f"== 0, got N={N}")
     out = torch.empty((B, kp1 * l, N), dtype=torch.int8, device=acc.device)
     rotate_decompose.launches += 1
     _launch("rotate_decompose", a.data_ptr(), acc.data_ptr(), out.data_ptr(),
-            B, kp1, N, l, bgbit, offset & T.MASK32)
+            B, kp1, N, l, bgbit, offset & T.MASK32,
+            *rotdec_plan(B, kp1, N, 4, sm_count(acc.device)))
     return out
 
 
@@ -498,15 +561,15 @@ def _rotate_decompose64_ck(wrapper, a, acc, *, l, bgbit, offset, m, planes):
     if _on_cpu(a, acc):
         return rotate_decompose64_ck_plain(a, acc, l=l, bgbit=bgbit,
                                            offset=offset, m=m, planes=planes)
-    jm = kp1 * l * m
-    ckp = ck_width(jm)
-    shape = (B, (N // m) * planes * ckp)
-    out = (torch.empty if ckp == jm else torch.zeros)(
-        shape, dtype=torch.int8, device=acc.device)
+    _require(rotdec_ok(N, m), f"{name}: the kernel needs m a multiple of "
+             f"16, got m={m}")
+    ckp = ck_width(kp1 * l * m)
+    out = torch.empty((B, (N // m) * planes * ckp), dtype=torch.int8,
+                      device=acc.device)
     wrapper.launches += 1
     _launch("rotate_decompose64_ck", a.data_ptr(), acc.data_ptr(),
             out.data_ptr(), B, kp1, N, l, bgbit, offset & ((1 << 64) - 1), m,
-            planes, ckp)
+            planes, ckp, *rotdec_plan(B, kp1, N, 8, sm_count(acc.device)))
     return out
 
 
@@ -523,9 +586,10 @@ def rotate_decompose64_ck(a, acc, *, l: int, bgbit: int, offset: int, m: int,
 
     Kernel: csrc/rotate_decompose64_ck.cu (replaces
     pallas_kernels.rotate_decompose64_ck).  Bound by bytes (8 read and l*P
-    written per coefficient); one block per (batch row, polynomial), the row
-    in shared memory, each coefficient of X^a*x read directly at (n - a)
-    mod N with one sign flip per wrap, native uint64 arithmetic."""
+    written per coefficient); rows staged in shared memory, a thread per 16
+    coefficients of one chunk writing each digit run with one 16-byte
+    store and the pad columns zeroed by the kernel, the grid from
+    rotdec_plan.  The card takes m a multiple of 16 (rotdec_ok)."""
     _require(acc.ndim == 3, "rotate_decompose64_ck acc: (B, k+1, N)")
     return _rotate_decompose64_ck(rotate_decompose64_ck, a, acc, l=l,
                                   bgbit=bgbit, offset=offset, m=m,
@@ -585,8 +649,9 @@ def rotate_decompose64(a, acc, *, l: int, bgbit: int, offset: int,
 
     Kernel: csrc/rotate_decompose64_ck.cu, its second entry point (replaces
     pallas_kernels.rotate_decompose64).  Bound by bytes (8 read and l*P
-    written per coefficient); one block per (batch row, polynomial) with
-    the row in shared memory, four coefficients per thread and item."""
+    written per coefficient); rotate_decompose64_ck's kernel, writing each
+    16-coefficient digit run to the plain layout instead, at the plan from
+    rotdec_plan.  The card takes N a multiple of 16 (rotdec_ok)."""
     _check(a, "rotate_decompose64 a", torch.int32, 1)
     _check(acc, "rotate_decompose64 acc", torch.int64, 3)
     B, kp1, N = acc.shape
@@ -597,13 +662,14 @@ def rotate_decompose64(a, acc, *, l: int, bgbit: int, offset: int,
     if _on_cpu(a, acc):
         return rotate_decompose64_plain(a, acc, l=l, bgbit=bgbit,
                                         offset=offset, planes=planes)
-    _require(N >= 4, "rotate_decompose64: the kernel needs N >= 4")
+    _require(rotdec_ok(N, 16), f"rotate_decompose64: the kernel needs N % "
+             f"16 == 0, got N={N}")
     out = torch.empty((B * kp1, l * planes, N), dtype=torch.int8,
                       device=acc.device)
     rotate_decompose64.launches += 1
     _launch("rotate_decompose64", a.data_ptr(), acc.data_ptr(),
             out.data_ptr(), B, kp1, N, l, bgbit, offset & ((1 << 64) - 1),
-            planes)
+            planes, *rotdec_plan(B, kp1, N, 8, sm_count(acc.device)))
     return out
 
 
