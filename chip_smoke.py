@@ -15,9 +15,13 @@ Phases (each prints its own lines; any failure exits non-zero):
      behind a stalled stream; for the digit emitters also torch.profiler's
      kernel time) beside its call time (CUDA events around back-to-back
      wrapper calls, which time the host for kernels faster than the
-     wrapper), the plain version's time on the card, a one-call library
-     yardstick where one exists, and its bound on an H100 SXM:
-     materialize_w and its K-packed entry materialize_wt, the
+     wrapper), the plain version's time on the card, the device time of a
+     library yardstick where one exists (torch._int_mm of the same int8
+     product; for materialize_w and materialize_wt torch.flip of the
+     vector's windows, flip_w and flip_wt), and its bound on an H100 SXM:
+     materialize_w (GATE_DEFAULT's key, the one a path runs, and
+     GATE_FAST2's) and its K-packed entry materialize_wt (GATE_FAST2's and
+     GATE_MXU's keys), the
      fused step (wgmma + TMA on the K-packed key) at GATE_FAST2 B=8192 and
      B=1024 and GATE_MXU B=8192, the v1 fused step at GATE_FAST2 and
      GATE_MXU B=8192 (also equal to v2's kernel), the 64-bit kernels (and
@@ -292,22 +296,24 @@ def _kernel_cases(seed: int = 0):
     def expo(B, N):
         return torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
 
-    # materialize_w: GATE_FAST2's step key (L=3, J=9, U=3, 2N=1024)
-    v = i8((3, 9, 3, 1024))
-    N = 512
-    out_bytes = 3 * 9 * N * 3 * N
-    cases.append(("materialize_w", "v (3,9,3,1024)", "csrc/materialize_w.cu",
-                  f"{PALLAS}:77", K.materialize_w, K.materialize_w_plain,
-                  (v,), {}, bound_ms(v.numel() + out_bytes), None, False))
-    # materialize_wt, the K-packed entry: GATE_FAST2's key, then GATE_MXU's
-    # (L=3, J=6, U=2, 2N=2048)
-    for v in (v, i8((3, 6, 2, 2048))):
-        L, J, U, twoN = v.shape
-        out_bytes = L * J * U * (twoN // 2) ** 2
-        cases.append(("materialize_wt", f"v {tuple(v.shape)}",
-                      "csrc/materialize_w.cu", f"{PALLAS}:77",
-                      K.materialize_wt, K.materialize_wt_plain, (v,), {},
-                      bound_ms(v.numel() + out_bytes), None, False))
+    # materialize_w: GATE_DEFAULT's step key (L=4, J=6, U=2, 2N=2048), the
+    # one a path runs (GATE_DEFAULT onthefly), then GATE_FAST2's (L=3, J=9,
+    # U=3, 2N=1024); materialize_wt, the K-packed entry: GATE_FAST2's key,
+    # then GATE_MXU's (L=3, J=6, U=2, 2N=2048).  Library: torch.flip of the
+    # rotated vector's windows (flip_w, flip_wt)
+    v_fast2 = i8((3, 9, 3, 1024))
+    for name, wrapper, plain, lib, keys in (
+            ("materialize_w", K.materialize_w, K.materialize_w_plain,
+             "flip_w", (i8((4, 6, 2, 2048)), v_fast2)),
+            ("materialize_wt", K.materialize_wt, K.materialize_wt_plain,
+             "flip_wt", (v_fast2, i8((3, 6, 2, 2048))))):
+        for v in keys:
+            L, J, U, twoN = v.shape
+            out_bytes = L * J * U * (twoN // 2) ** 2
+            cases.append((name, f"v {tuple(v.shape)}", "csrc/materialize_w.cu",
+                          f"{PALLAS}:77", wrapper, plain, (v,), {},
+                          bound_ms(v.numel() + out_bytes), (lib, (v,)),
+                          False))
 
     # fused_cmux_step_v2 on the K-packed key: GATE_FAST2 (k=2, l=3, L=3,
     # key_shift=8) at the main path's B=8192, then at B=1024, then GATE_MXU
@@ -526,6 +532,30 @@ def _kernel_cases(seed: int = 0):
     return cases
 
 
+def flip_w(v):
+    """materialize_w's function as library calls (the yardstick of its row
+    in the kernel table; no path calls it): row (l, j, t) of block u is the
+    window x[N - t .. 2N - t) of x = v rolled by N, so the windows of x,
+    flipped over t, are W."""
+    L, J, U, twoN = v.shape
+    N = twoN // 2
+    h = torch.roll(v, N, -1).unfold(-1, N, 1)[..., 1:, :]   # (L,J,U,N,N)
+    return torch.flip(h.permute(0, 1, 3, 2, 4), [2]).reshape(L, J * N, U * N)
+
+
+def flip_wt(v):
+    """materialize_wt's function as library calls: flip_w's windows laid
+    out K-packed, flipped over t."""
+    L, J, U, twoN = v.shape
+    N = twoN // 2
+    h = torch.roll(v, N, -1).unfold(-1, N, 1)[..., 1:, :]
+    return torch.flip(h.permute(0, 2, 4, 1, 3), [-1]).reshape(L, U * N, J * N)
+
+
+# the library yardsticks of phase 2's cases, by name
+LIBRARY = {"_int_mm": torch._int_mm, "flip_w": flip_w, "flip_wt": flip_wt}
+
+
 def _wcat(wmt):
     """The K-packed chunked key as one (J*m, U*L*(N+m)) int8 matrix: the
     library yardstick's operand (one torch._int_mm of every chunk's digits
@@ -581,10 +611,11 @@ def phase_kernels(reps: int = 20):
             split_txt = (f", chosen (tile_rows, S) = {plan}; S = 1 "
                          f"{split1_ms:.4f} ms, bit-identical")
         library_ms = None
-        if lib is not None:
-            x, wcat = (t.cuda().contiguous() for t in lib[1])
-            library_ms = cuda_ms(lambda: torch._int_mm(x, wcat), reps)
-            del x, wcat
+        if lib is not None:                    # one library call, on the card
+            fn, lib_args = LIBRARY[lib[0]], [t.cuda().contiguous()
+                                             for t in lib[1]]
+            library_ms = device_ms(lambda: fn(*lib_args), reps)
+            del lib_args
         numbers = {"shape": shape, "max_abs_err": err, "ms": ms,
                    "device_ms": dev_ms, "plain_ms": plain_ms,
                    "bound_ms": bnd, "bound_by": by, "library_ms": library_ms}

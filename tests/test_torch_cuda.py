@@ -45,23 +45,77 @@ def _same_on_card(fn, plain, args, kw, cuda):
     assert torch.equal(got.cpu(), plain(*args, **kw))
 
 
-@pytest.mark.parametrize("L,J,U,N", [(3, 9, 3, 512), (1, 2, 1, 16),
-                                     (4, 6, 2, 1024)])
+# every path's key (GATE_FAST2, GATE_MXU, GATE_DEFAULT) and small ones: N =
+# 16 (a run is one 16-byte word), 32, 64; one column block (U = 1) and one
+# digit row (J = 1)
+_MATW_SHAPES = [(3, 9, 3, 512), (3, 6, 2, 1024), (4, 6, 2, 1024),
+                (1, 2, 1, 16), (2, 3, 2, 32), (2, 1, 3, 64), (3, 4, 1, 64),
+                (1, 1, 1, 128)]
+
+
+def _poisoned(shape, cuda):
+    """The address of a caching-allocator block of ``shape`` int8 just
+    filled with -1 bytes and freed: the next torch.empty of that size
+    returns it, so a byte the kernel leaves unwritten stays -1."""
+    poison = torch.full(shape, -1, dtype=torch.int8, device=cuda)
+    ptr = poison.data_ptr()
+    torch.cuda.synchronize()
+    del poison
+    return ptr
+
+
+def _materialize_case(cuda, wrapper, plain, shape, seed):
+    L, J, U, N = shape
+    v = _i8(np.random.default_rng(seed), (L, J, U, 2 * N))
+    want, dv = plain(v), v.to(cuda)
+    ptr = _poisoned(want.shape, cuda)
+    got = wrapper(dv)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr               # the poisoned block
+    assert torch.equal(got.cpu(), want)
+    return v
+
+
+@pytest.mark.parametrize("L,J,U,N", _MATW_SHAPES)
 def test_materialize_w(cuda, L, J, U, N):
-    v = _i8(np.random.default_rng(0), (L, J, U, 2 * N))
-    _same_on_card(K.materialize_w, K.materialize_w_plain, (v,), {}, cuda)
+    """W at every path's key and small ones, into a poisoned output."""
+    _materialize_case(cuda, K.materialize_w, K.materialize_w_plain,
+                      (L, J, U, N), 0)
 
 
-@pytest.mark.parametrize("L,J,U,N", [(3, 9, 3, 512), (3, 6, 2, 1024),
-                                     (1, 2, 1, 16), (2, 3, 1, 64)])
+@pytest.mark.parametrize("L,J,U,N", _MATW_SHAPES)
 def test_materialize_wt(cuda, L, J, U, N):
-    """The K-packed key at the paths' shapes (GATE_FAST2, GATE_MXU) and
-    small ones; equal to materialize_w's kernel transposed."""
-    v = _i8(np.random.default_rng(14), (L, J, U, 2 * N))
-    _same_on_card(K.materialize_wt, K.materialize_wt_plain, (v,), {}, cuda)
+    """The K-packed key at every path's key and small ones, into a
+    poisoned output; equal to materialize_w's kernel transposed."""
+    v = _materialize_case(cuda, K.materialize_wt, K.materialize_wt_plain,
+                          (L, J, U, N), 14)
     dv = v.to(cuda)
     assert torch.equal(K.materialize_wt(dv),
                        K.materialize_w(dv).transpose(1, 2).contiguous())
+
+
+@pytest.mark.parametrize("name", ["materialize_w", "materialize_wt"])
+@pytest.mark.parametrize("L,J,U,N,rows,cols,threads", [
+    (3, 9, 3, 512, 512, 512, 256), (3, 9, 3, 512, 16, 512, 256),
+    (3, 9, 3, 512, 64, 128, 96), (4, 6, 2, 1024, 256, 256, 32),
+    (2, 3, 2, 64, 16, 16, 32), (1, 2, 1, 16, 16, 16, 64),
+    (2, 1, 1, 2048, 32, 64, 128)])
+def test_materialize_forced_plans(cuda, name, L, J, U, N, rows, cols,
+                                  threads):
+    """Forced (rows, cols, threads) plans through the raw entry: whole
+    vectors, 16-row bands, column bands (cols < N, the plan of N > 4096),
+    fewer threads than a block's words and more; every byte written."""
+    v = _i8(np.random.default_rng(16), (L, J, U, 2 * N))
+    wt = name == "materialize_wt"
+    want = (K.materialize_wt_plain if wt else K.materialize_w_plain)(v)
+    dv = v.to(cuda)
+    ptr = _poisoned(want.shape, cuda)
+    got = torch.empty(want.shape, dtype=torch.int8, device=cuda)
+    assert got.data_ptr() == ptr
+    K._launch(name, dv.data_ptr(), got.data_ptr(), L, J, U, N, rows, cols,
+              threads)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
 
 
 def _rotate_decompose_plan(a, acc, *, l, bgbit, offset, plan):
@@ -660,24 +714,46 @@ def test_cb_toy_each_64_bit_step(cuda, monkeypatch, env, kernels):
     assert len({steps[k] for k in kernels}) == 1
 
 
-@pytest.mark.parametrize("B,k,N,L,key_shift", [(3, 2, 512, 3, 8),
-                                               (130, 1, 1024, 3, 8),
-                                               (64, 1, 128, 3, 0)])
-def test_fused_cmux_step_v1(cuda, B, k, N, L, key_shift):
-    """The v1 kernel against its plain version and against v2's kernel."""
-    r = np.random.default_rng(10)
-    l = 3
-    acc = _i32(r, (B, k + 1, N))
+def _v1_case(cuda, B, k, N, l, bgbit, key_shift, seed):
+    """v1 on the card against its plain version (run on the card: float64
+    sums are exact there too) and against v2's kernel on the transposed
+    key, where v2 takes the shape."""
+    r = np.random.default_rng(seed)
+    acc = _i32(r, (B, k + 1, N)).to(cuda)
     a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
     a[0] = N
-    w = _i8(r, (L, (k + 1) * l * N, (k + 1) * N))
-    kw = dict(l=l, bgbit=7, offset=0x81020400, key_shift=key_shift)
-    _same_on_card(K.fused_cmux_step, K.fused_cmux_step_plain, (a, acc, w),
-                  kw, cuda)
-    da, dacc, dw = (t.to(cuda) for t in (a, acc, w))
-    assert torch.equal(K.fused_cmux_step(da, dacc, dw, **kw),
-                       K.fused_cmux_step_v2(da, dacc, dw.transpose(1, 2)
-                                            .contiguous(), **kw))
+    a = a.to(cuda)
+    w = _i8(r, (3, (k + 1) * l * N, (k + 1) * N)).to(cuda)
+    offset = sum(1 << (32 - (i + 1) * bgbit + bgbit - 1)
+                 for i in range(l)) % 2**32
+    kw = dict(l=l, bgbit=bgbit, offset=offset, key_shift=key_shift)
+    got = K.fused_cmux_step(a, acc, w, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.fused_cmux_step_plain(a, acc, w, **kw))
+    if K.fused_cmux_step_v2_plan(N, l, 3):
+        assert torch.equal(got, K.fused_cmux_step_v2(
+            a, acc, w.transpose(1, 2).contiguous(), **kw))
+
+
+@pytest.mark.parametrize("B", [1, 3, 100, 130, 1024])
+@pytest.mark.parametrize("k,N", [(1, 128), (1, 512), (1, 1024), (2, 128),
+                                 (2, 512), (2, 1024)])
+def test_fused_cmux_step_v1(cuda, B, k, N):
+    """The v1 kernel at l = 3 (one 3-level digit build a group) for tail
+    and full batches, k = 1 and 2, N = 128, 512 and 1024, against its plain
+    version and against v2's kernel."""
+    _v1_case(cuda, B, k, N, 3, 7, 8, 10)
+
+
+@pytest.mark.parametrize("B,k,N,l,bgbit,key_shift", [
+    (65, 1, 128, 1, 8, 8), (100, 1, 256, 2, 8, 0), (3, 2, 128, 4, 8, 8),
+    (130, 1, 128, 5, 6, 0), (64, 1, 256, 7, 4, 8), (5, 1, 128, 32, 1, 8)])
+def test_fused_cmux_step_v1_levels(cuda, B, k, N, l, bgbit, key_shift):
+    """Level blocks of every size: l = 1 and 2 (one build a group, lb = l,
+    more raw stages), 4 (two builds of 2), 5 (3 + 2), 7 (3 + 3 + 1: a
+    one-level build after a longer one) and 32 at bgbit = 1 (ten builds of
+    3, then one of 2); both key shifts."""
+    _v1_case(cuda, B, k, N, l, bgbit, key_shift, 17)
 
 
 @pytest.mark.parametrize("B,k,N,l,bgbit", [(256, 1, 2048, 5, 8),

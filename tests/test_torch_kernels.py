@@ -64,24 +64,22 @@ def test_materialize_wt(N, J, U, L):
 
 def test_materialize_wt_reversed_runs():
     """The kernel's addressing: row (l, u, i) of Wt over t, for fixed j, is
-    the run sr[t - i + N ..] of sr[m] = v[(N - m) mod 2N], read from the
-    aligned words (t - i + N) >> 2 .. + 4 with byte offset (t - i + N) & 3."""
+    the run b[N - i .. 2N - i) of b[m] = v[(N - m) mod 2N]; it is read
+    from the staged copy s = (N - i) & 15 (copy s holds b shifted by s
+    bytes) as 16-byte chunks (N - i) >> 4 .. + N/16 - 1, all aligned."""
     N, J, U, L = 64, 3, 2, 2
     v = np.random.default_rng(6).integers(-128, 128, (L, J, U, 2 * N)
                                           ).astype(np.int8)
     wt = K.materialize_wt(torch.from_numpy(v)).numpy()
-    m = np.arange(2 * N)
+    m = np.arange(2 * N + 16)
     for l, j, u in np.ndindex(L, J, U):
-        sr = np.concatenate([v[l, j, u, (N - m) % (2 * N)],
-                             np.zeros(16, np.int8)])
+        b = v[l, j, u, (N - m) % (2 * N)]
+        copies = [b[s:s + 2 * N].reshape(-1, 16) for s in range(16)]
         for i in (0, 1, 17, N - 1):
-            for t0 in range(0, N, 16):
-                off = t0 - i + N
-                assert 1 <= off <= 2 * N - 16
-                words = sr[4 * (off >> 2):4 * (off >> 2) + 20]
-                run = words[(off & 3):(off & 3) + 16]
-                np.testing.assert_array_equal(
-                    wt[l, u * N + i, j * N + t0:j * N + t0 + 16], run)
+            s, k0 = (N - i) & 15, (N - i) >> 4
+            run = copies[s][k0:k0 + N // 16].reshape(-1)
+            np.testing.assert_array_equal(wt[l, u * N + i, j * N:j * N + N],
+                                          run)
 
 
 @pytest.mark.parametrize("bgbit,l", [(7, 3), (8, 3), (8, 4), (6, 5),

@@ -37,8 +37,8 @@ _U64 = ctypes.c_uint64
 # but the *_occupancy queries, which return blocks per SM (or -cudaError),
 # and ck_cmux_step64_stages, which returns a plan's key-ring stages.
 SIGNATURES = {
-    "materialize_w": ("tfhe_materialize_w", [_P, _P, _I, _I, _I, _I, _P]),
-    "materialize_wt": ("tfhe_materialize_wt", [_P, _P, _I, _I, _I, _I, _P],
+    "materialize_w": ("tfhe_materialize_w", [_P, _P] + [_I] * 7 + [_P]),
+    "materialize_wt": ("tfhe_materialize_wt", [_P, _P] + [_I] * 7 + [_P],
                        "materialize_w"),
     "rotate_decompose": ("tfhe_rotate_decompose",
                          [_P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _I,
@@ -64,7 +64,8 @@ SIGNATURES = {
     "ck_cmux_step32_occupancy": ("tfhe_ck_cmux_step32_occupancy",
                                  [_I, _I, _I], "ck_cmux_step32"),
     "fused_cmux_step_v1": ("tfhe_fused_cmux_step_v1",
-                           [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _P]),
+                           [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I,
+                            _P]),
     "rotate_decompose64": ("tfhe_rotate_decompose64",
                            [_P, _P, _P, _I, _I, _I, _I, _I, _U64, _I, _I,
                             _I, _I, _P],

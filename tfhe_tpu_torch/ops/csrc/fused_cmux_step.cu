@@ -44,7 +44,7 @@
 // timing the parts of a step (chip_smoke.py's phase_parts): 1 keeps the key
 // loads (consumers only wait and release), 2 the digit build, 3 the wgmmas
 // (on whatever the buffers hold).  Their outputs are meaningless.
-#include "wgmma.cuh"
+#include "fused_step.cuh"
 
 #ifndef FCS_PART
 #define FCS_PART 0
@@ -53,26 +53,14 @@
 namespace {
 
 using namespace tfhe;
+using namespace tfhe::fused;
 
 constexpr bool KEYS = FCS_PART == 0 || FCS_PART == 1;
 constexpr bool DIGITS = FCS_PART == 0 || FCS_PART == 2;
 constexpr bool MMAS = FCS_PART == 0 || FCS_PART == 3;
 
-constexpr int BN = 64;                  // output columns of a warpgroup
-constexpr int BK = 128;                 // K bytes of a slice: one swizzled row
-constexpr int TILE = 64 * BK;           // one 64-row operand tile, 8 KB
-constexpr int MAX_LEVELS = 4;
 constexpr int MAX_STAGES = 8;
 constexpr size_t MAX_SMEM = 232448;
-constexpr int ROWS = 2;                 // rows whose loads are in flight
-
-struct Args {
-  const int32_t* expo;
-  const int32_t* acc;
-  int32_t* out;
-  int B, kp1, N, logN, l, bgbit, key_shift, stages;
-  uint32_t offset;
-};
 
 // Dynamic shared memory of a block: 1 KB of alignment slack, the key ring,
 // the two digit buffers, the barriers and the rows' exponents.
@@ -90,77 +78,6 @@ constexpr int ring_stages(int L, int CW, int l) {
   return S >= l ? S : 0;
 }
 
-// The digits of group (u, t0) for rows [rlo, rhi) of the block: l swizzled
-// 64 x 128-byte tiles at dst, lane covering coefficients n0 = t0 + 4 lane ..
-// + 3.  rot holds the rows' exponents mod 2N.  ROWS rows at a time, every
-// load first: a row past B reads row B - 1 and stores zeros; acc[n0 ..] and
-// the two aligned vectors that hold acc[(n0 - r) mod N ..] (a vector never
-// wraps: N is a multiple of 4), from which a select network by
-// q = (n0 - r) & 3, the same for the whole warp, takes the four rotated
-// coefficients.  Two rows in flight measured faster than one, four or eight
-// (PERF.md §6).
-__device__ __forceinline__ void build_digits(uint8_t* dst, const Args p,
-                                             const int* rot, int b0, int u,
-                                             int t0, int lane, uint32_t xmask,
-                                             int rlo, int rhi) {
-  const int N = p.N, UN = p.kp1 * N, n0 = t0 + 4 * lane;
-  const uint32_t* accu = reinterpret_cast<const uint32_t*>(p.acc) + u * N;
-  const int chunk = lane >> 2, within = (lane & 3) * 4;
-#pragma unroll 1
-  for (int r0 = rlo; r0 < rhi; r0 += ROWS) {
-    uint4 xv[ROWS], v0[ROWS], v1[ROWS];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int row = r0 + i, b = b0 + row;
-      const uint32_t* x = accu + (size_t)(b < p.B ? b : p.B - 1) * UN;
-      const int s0 = (n0 - rot[row]) & (N - 1);
-      xv[i] = __ldg(reinterpret_cast<const uint4*>(x + n0));
-      v0[i] = __ldg(reinterpret_cast<const uint4*>(x + (s0 & ~3)));
-      v1[i] = __ldg(reinterpret_cast<const uint4*>(
-          x + ((s0 + 4) & (N - 1) & ~3)));
-    }
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int row = r0 + i;
-      const bool live = b0 + row < p.B;
-      const int av = rot[row], r = av & (N - 1);
-      const bool flip = (av >> p.logN) & 1;     // X^N = -1
-      const int q = (n0 - r) & 3;
-      const uint32_t e[8] = {v0[i].x, v0[i].y, v0[i].z, v0[i].w,
-                             v1[i].x, v1[i].y, v1[i].z, v1[i].w};
-      uint32_t f[6];
-#pragma unroll
-      for (int k = 0; k < 6; ++k) f[k] = (q & 1) ? e[k + 1] : e[k];
-      const uint32_t xs[4] = {xv[i].x, xv[i].y, xv[i].z, xv[i].w};
-      uint32_t dv[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const uint32_t y = (q & 2) ? f[k + 2] : f[k];  // acc[(n0+k-r) mod N]
-        const bool neg = (n0 + k < r) != flip;  // wrapped once: negate
-        // digit lv is ((d >> s) & mask) - half, s = 32 - (lv+1) bgbit: the
-        // bgbit-bit field of d ^ (half << s), sign-extended
-        dv[k] = ((neg ? 0u - y : y) - xs[k] + p.offset) ^ xmask;
-      }
-      const int off = row * BK + ((chunk ^ (row & 7)) << 4) + within;
-#pragma unroll
-      for (int lv = 0; lv < MAX_LEVELS; ++lv) {
-        if (lv < p.l) {
-          uint32_t w[4];
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            w[k] = (uint32_t)((int32_t)(dv[k] << (lv * p.bgbit))
-                              >> (32 - p.bgbit));
-          const uint32_t word = __byte_perm(
-              __byte_perm(w[0], w[1], 0x0040),
-              __byte_perm(w[2], w[3], 0x0040), 0x5410);
-          *reinterpret_cast<uint32_t*>(dst + lv * TILE + off) =
-              live ? word : 0u;
-        }
-      }
-    }
-  }
-}
-
 template <int L, int CW>
 __global__ void __launch_bounds__(CW * 128 + 32, 1)
 fused_cmux_kernel(__grid_constant__ const CUtensorMap wmap, const Args p) {
@@ -175,7 +92,7 @@ fused_cmux_kernel(__grid_constant__ const CUtensorMap wmap, const Args p) {
   int* rot = reinterpret_cast<int*>(empty + S);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int c0 = blockIdx.x * BN * CW, b0 = blockIdx.y * 64;
-  const int N = p.N, UN = p.kp1 * N, slices = N / BK, G = p.kp1 * slices;
+  const int N = p.N, slices = N / BK, G = p.kp1 * slices;
 
   for (int i = tid; i < 64; i += blockDim.x) {
     const int b = b0 + i;
@@ -214,14 +131,13 @@ fused_cmux_kernel(__grid_constant__ const CUtensorMap wmap, const Args p) {
   // warp wl builds rows (4 cw + wl) * MY_ROWS .. + MY_ROWS - 1 of the digits
   const int cw = warp >> 2, wl = warp & 3, cols = c0 + BN * cw;
   const int rlo = (4 * cw + wl) * MY_ROWS, rhi = rlo + MY_ROWS;
-  uint32_t xmask = 0;
-  for (int lv = 0; lv < l; ++lv)
-    xmask |= (1u << (p.bgbit - 1)) << (32 - (lv + 1) * p.bgbit);
+  const uint32_t xmask = level_xmask(l, p.bgbit);
   uint32_t d[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) d[i] = 0;
 
-  if (DIGITS) build_digits(digits, p, rot, b0, 0, 0, lane, xmask, rlo, rhi);
+  if (DIGITS)
+    build_digits(digits, p, rot, b0, 0, 0, 0, l, lane, xmask, rlo, rhi);
   fence_async_smem();
   named_sync(1, 128 * CW);
   int s = 0;
@@ -248,7 +164,8 @@ fused_cmux_kernel(__grid_constant__ const CUtensorMap wmap, const Args p) {
     const int gn = g + 1;                     // overlaps the wgmmas in flight
     if (DIGITS && gn < G)
       build_digits(digits + (size_t)(gn & 1) * l * TILE, p, rot, b0,
-                   gn / slices, (gn % slices) * BK, lane, xmask, rlo, rhi);
+                   gn / slices, (gn % slices) * BK, 0, l, lane, xmask, rlo,
+                   rhi);
     if (MMAS) {
       wgmma_wait<0>();
       fence_regs(d);
@@ -267,27 +184,7 @@ fused_cmux_kernel(__grid_constant__ const CUtensorMap wmap, const Args p) {
     named_sync(1, 128 * CW);
   }
 
-  const int g4 = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int b = b0 + 16 * wl + g4 + 8 * h;
-    if (b >= p.B) continue;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const size_t off = (size_t)b * UN + cols + 8 * j + 2 * t4;
-      const int2 in = *reinterpret_cast<const int2*>(p.acc + off);
-      uint32_t s0 = (uint32_t)in.x, s1 = (uint32_t)in.y;
-#pragma unroll
-      for (int lm = 0; lm < L; ++lm) {
-        const int sh = 8 * lm + p.key_shift;
-        if (sh < 32) {
-          s0 += d[(lm * 8 + j) * 4 + 2 * h] << sh;
-          s1 += d[(lm * 8 + j) * 4 + 2 * h + 1] << sh;
-        }
-      }
-      *reinterpret_cast<int2*>(p.out + off) = make_int2((int)s0, (int)s1);
-    }
-  }
+  store_out<L>(d, p, b0, wl, lane, cols);
 }
 
 template <int L, int CW>
@@ -338,7 +235,7 @@ extern "C" int tfhe_fused_cmux_step(const void* a, const void* acc,
   int logN = 0;
   while ((1 << logN) < N) ++logN;
   const Args p{(const int32_t*)a, (const int32_t*)acc, (int32_t*)out, B, kp1,
-               N, logN, l, bgbit, key_shift, 0, offset};
+               N, logN, l, bgbit, key_shift, 0, 0, offset};
   cudaStream_t s = (cudaStream_t)stream;
   switch (L) {
     case 1: return launch_plan<1>(wt, p, tile_cols, s);

@@ -1,6 +1,5 @@
 // Pipelined key staging and the split-reduction epilogue of the two
-// redesigned 32-bit kernels (mm_recombine_acc.cu, ck_cmux_step32.cu); the
-// v1 fused step keeps common.cuh's synchronous loader.
+// mma.sync 32-bit kernels (mm_recombine_acc.cu, ck_cmux_step32.cu).
 //
 // The key tile of one 32-deep step sits in shared memory transposed (words
 // of four consecutive k per column, as mma's B operand wants them) in an
@@ -66,7 +65,7 @@ __device__ __forceinline__ void store_block(uint32_t* sB,
 }
 
 // One 32-deep step on the swizzled sB: C[lm] += A x sB[lm] for this warp's
-// 32x32 sub-tile (common.cuh's mma_chunk on this layout).
+// 32x32 sub-tile.
 template <int L>
 __device__ __forceinline__ void mma_step(int32_t (&C)[L][2][4][4],
                                          const uint32_t (&a)[2][4],

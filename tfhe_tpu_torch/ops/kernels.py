@@ -49,7 +49,7 @@ from tfhe_tpu_torch.ops import _build, poly
 
 # dynamic shared memory a block may use on sm_90 (bytes)
 MAX_SMEM = 232448
-_BM, _BN, _BK, _SB_WORDS = 64, 128, 32, 9        # the 64-row tile (csrc/)
+_BM, _BN, _BK = 64, 128, 32                     # the 64-row tile (csrc/)
 
 
 def _on_cpu(*tensors) -> bool:
@@ -96,24 +96,66 @@ def materialize_w_plain(v):
     return m.permute(0, 1, 3, 2, 4).reshape(L, J * N, U * N)
 
 
+# the plan of both entries' kernel (csrc/materialize_w.cu)
+MATW_THREADS = 256         # threads of a block, at most
+MATW_COLS = 4096           # bytes of a row a block writes, at most
+
+
+@functools.lru_cache(maxsize=None)
+def materialize_w_plan(L: int, J: int, U: int, N: int, sms: int) -> tuple:
+    """(rows, cols, threads) of a materialize_w or materialize_wt launch
+    (csrc/materialize_w.cu): a block stages one (l, j, u) vector and
+    writes ``cols`` bytes of each of ``rows`` output rows (one run of the
+    vector each); the grid is (N / rows * N / cols, L*J*U).
+
+    cols is the whole row (N) up to MATW_COLS, so that the staging (16
+    copies, shifted by 0 .. 15 bytes, of the rows + cols bytes of the
+    vector the block's runs read) fits in shared memory at any N.  rows
+    starts at every row of the vector and halves, down to 16, until the
+    grid holds at least two blocks per SM of ``sms``: the staging's load
+    latency of one block then hides behind another's stores, and the
+    blocks stay long (128 rows at every path's key; PERF.md gives the
+    other plans' device times, alone and in each path's step, from
+    tools/torch_matw_ab.py).  Threads: a
+    block's 16-byte words, rounded up to a warp, at most MATW_THREADS.
+    Pure and memoized: the steps of a rotation ask with the same shapes."""
+    cols = rows = min(N, MATW_COLS)
+    while rows > 16 and L * J * U * (N // rows) * (N // cols) < 2 * sms:
+        rows //= 2
+    threads = min(MATW_THREADS, -(-rows * cols // 16 // 32) * 32)
+    return rows, cols, threads
+
+
+def _materialize(wrapper, plain, v, kpacked: bool):
+    """The checks and the launch of both entries."""
+    name = wrapper.__name__
+    _check(v, f"{name} v", torch.int8, 4)
+    L, J, U, twoN = v.shape
+    N = twoN // 2
+    _require(_is_pow2(twoN), f"{name}: 2N must be a power of two")
+    if _on_cpu(v):
+        return plain(v)
+    _require(N >= 16, f"{name}: the kernel needs N >= 16")
+    shape = (L, U * N, J * N) if kpacked else (L, J * N, U * N)
+    out = torch.empty(shape, dtype=torch.int8, device=v.device)
+    wrapper.launches += 1
+    _launch(name, v.data_ptr(), out.data_ptr(), L, J, U, N,
+            *materialize_w_plan(L, J, U, N, sm_count(v.device)))
+    return out
+
+
 def materialize_w(v):
     """v: (L, J, U, 2N) int8 doubled limb vectors ->
     W: (L, J*N, U*N) int8 with W[l, (j,t), (u,i)] = v[l,j,u,(i-t) mod 2N].
 
     Kernel: csrc/materialize_w.cu (replaces pallas_kernels.materialize_w).
-    Bound by the L*J*U*N^2 bytes it writes; one 16-byte store per thread
-    from a shared-memory copy of the vector."""
-    _check(v, "materialize_w v", torch.int8, 4)
-    L, J, U, twoN = v.shape
-    N = twoN // 2
-    _require(_is_pow2(twoN), "materialize_w: 2N must be a power of two")
-    if _on_cpu(v):
-        return materialize_w_plain(v)
-    _require(N >= 16, "materialize_w: the kernel needs N >= 16")
-    out = torch.empty((L, J * N, U * N), dtype=torch.int8, device=v.device)
-    materialize_w.launches += 1
-    _launch("materialize_w", v.data_ptr(), out.data_ptr(), L, J, U, N)
-    return out
+    Bound by the L*J*U*N^2 bytes it writes.  Each output run (row (l, j, t)
+    of column block u) is a contiguous run of the vector rotated by N;
+    a block stages 16 byte-shifted copies of its vector's runs in shared
+    memory, so that every run leaves as aligned 16-byte words, stored
+    evict-first (mm_recombine_acc, W's reader, streams it once); the grid
+    from materialize_w_plan."""
+    return _materialize(materialize_w, materialize_w_plain, v, False)
 
 
 materialize_w.launches = 0
@@ -130,21 +172,10 @@ def materialize_wt(v):
     fused_cmux_step_v2's wgmma reads it).
 
     Kernel: csrc/materialize_w.cu, its second entry (the K-packed layout of
-    pallas_kernels.materialize_w).  Bound by the L*J*U*N^2 bytes it writes;
-    a row of Wt is a reversed run of v, so each thread still issues one
-    16-byte store, built from five aligned words of a reversed
-    shared-memory copy of the vector."""
-    _check(v, "materialize_wt v", torch.int8, 4)
-    L, J, U, twoN = v.shape
-    N = twoN // 2
-    _require(_is_pow2(twoN), "materialize_wt: 2N must be a power of two")
-    if _on_cpu(v):
-        return materialize_wt_plain(v)
-    _require(N >= 16, "materialize_wt: the kernel needs N >= 16")
-    out = torch.empty((L, U * N, J * N), dtype=torch.int8, device=v.device)
-    materialize_wt.launches += 1
-    _launch("materialize_wt", v.data_ptr(), out.data_ptr(), L, J, U, N)
-    return out
+    pallas_kernels.materialize_w): materialize_w's kernel on the vector
+    reversed, b[m] = v[(N - m) mod 2N], whose run b[N - i ..] is row
+    (l, u, i) of column block j."""
+    return _materialize(materialize_wt, materialize_wt_plain, v, True)
 
 
 materialize_wt.launches = 0
@@ -449,10 +480,27 @@ def fused_cmux_step_v2(a, acc, wt, *, l: int, bgbit: int, offset: int,
 fused_cmux_step_v2.launches = 0
 
 
+# fused_cmux_step (v1)'s plan: a block of 64 rows x 128 columns on the key
+# in materialize_w's layout (csrc/fused_cmux_step_v1.cu)
+FUSED_V1_LEVELS = 3    # levels of one digit build, at most
+
+
+def fused_cmux_step_v1_plan(N: int, l: int) -> int:
+    """lb, the levels of one digit build of a fused_cmux_step (v1) launch:
+    the l levels of each 128-coefficient group take ceil(l / 3) builds of
+    at most lb = ceil(l / ceil(l / 3)) levels each (3 at GATE_FAST2 and
+    GATE_MXU, 2 at l = 4); 0 where the kernel cannot run: N not a multiple
+    of 128.  The kernel sizes its raw key ring from lb itself."""
+    if N % 128 or l < 1:
+        return 0
+    builds = -(-l // FUSED_V1_LEVELS)
+    return -(-l // builds)
+
+
 def fused_cmux_step(a, acc, w, *, l: int, bgbit: int, offset: int,
                     key_shift: int = 0):
-    """fused_cmux_step_v2's function on the (B, k+1, N) accumulator with the
-    v1 schedule: acc + recombine(decompose((X^a - 1) * acc) @ w), mod 2^32.
+    """fused_cmux_step_v2's function on materialize_w's key layout:
+    acc + recombine(decompose((X^a - 1) * acc) @ w), mod 2^32.
 
     a: (B,) int32; acc: (B, k+1, N) int32; w: (3, (k+1)*l*N, (k+1)*N) int8
     (materialize_w's layout; three key limbs, as the JAX kernel is
@@ -460,10 +508,14 @@ def fused_cmux_step(a, acc, w, *, l: int, bgbit: int, offset: int,
     fused_cmux_step_plain.
 
     Kernel: csrc/fused_cmux_step_v1.cu (replaces
-    pallas_kernels.fused_cmux_step).  Bound by int8 tensor-core MACs; a
-    block owns (128 output columns of one polynomial, 64 batch rows) and
-    builds one digit row j at a time in shared memory (64 x N bytes), then
-    multiplies it by the (N, 128) W block of (j, u) of every limb."""
+    pallas_kernels.fused_cmux_step).  Bound by int8 tensor-core MACs.
+    fused_cmux_step_v2's block (64 batch rows x 128 columns, digits built a
+    group ahead by the two consumer warpgroups, int8 wgmma) with the key
+    transposed inside the kernel by a third warpgroup: TMA loads the
+    MN-major boxes of w into a raw ring, and that warpgroup rewrites each
+    as the K-major tiles the wgmmas read, one slice ahead of them.  No copy
+    of w is made.  The plan is fused_cmux_step_v1_plan's; the kernel takes
+    N a multiple of 128."""
     _check(a, "fused_cmux_step a", torch.int32, 1)
     _check(acc, "fused_cmux_step acc", torch.int32, 3)
     _check(w, "fused_cmux_step w", torch.int8, 3)
@@ -480,14 +532,14 @@ def fused_cmux_step(a, acc, w, *, l: int, bgbit: int, offset: int,
     if _on_cpu(a, acc, w):
         return fused_cmux_step_plain(a, acc, w, l=l, bgbit=bgbit,
                                      offset=offset, key_shift=key_shift)
-    smem = _BM * (N + 16) + L * _BN * _SB_WORDS * 4
-    _require(N % _BN == 0 and smem <= MAX_SMEM,
-             f"fused_cmux_step: the kernel needs N % {_BN} == 0 and {smem} "
-             f"<= {MAX_SMEM} bytes of shared memory")
+    lb = fused_cmux_step_v1_plan(N, l)
+    _require(lb > 0, f"fused_cmux_step: the kernel needs N % 128 == 0, got "
+             f"N={N}")
     out = torch.empty_like(acc)
     fused_cmux_step.launches += 1
     _launch("fused_cmux_step_v1", a.data_ptr(), acc.data_ptr(), w.data_ptr(),
-            out.data_ptr(), B, kp1, N, l, bgbit, offset & T.MASK32, key_shift)
+            out.data_ptr(), B, kp1, N, l, bgbit, offset & T.MASK32, key_shift,
+            lb)
     return out
 
 

@@ -183,10 +183,13 @@ def main() -> int:
                               device="cuda")
             stream = torch.cuda.current_stream().cuda_stream
             name = "materialize_w" if who == "PARENT" else "materialize_wt"
+            # this tree's entry takes its plan (rows, cols, threads)
+            plan = () if who == "PARENT" else K.materialize_w_plan(
+                L, J, U, N, K.sm_count(v.device))
             fn = (parent["materialize_w"] if who == "PARENT"
                   else _build.entry("materialize_wt"))
             ms = c.cuda_ms(lambda: fn(v.data_ptr(), out.data_ptr(), L, J, U,
-                                      N, stream), 50)
+                                      N, *plan, stream), 50)
             print(f"{who} {name} v {tuple(v.shape)}: {ms:.4f} ms")
         if who == "NEW":                      # MatmulEngine's per-call copy
             w = main_cases[0].w
