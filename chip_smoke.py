@@ -20,8 +20,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      product; for materialize_w and materialize_wt torch.flip of the
      vector's windows, flip_w and flip_wt), and its bound on an H100 SXM:
      materialize_w (GATE_DEFAULT's key, the one a path runs, and
-     GATE_FAST2's) and its K-packed entry materialize_wt (GATE_FAST2's and
-     GATE_MXU's keys), the
+     GATE_FAST2's) and its K-packed entry materialize_wt (GATE_FAST2's,
+     GATE_MXU's and CB_MXU lvl2's, the conv circuit path's keys), the
      fused step (wgmma + TMA on the K-packed key) at GATE_FAST2 B=8192 and
      B=1024 and GATE_MXU B=8192, the v1 fused step at GATE_FAST2 and
      GATE_MXU B=8192 (also equal to v2's kernel), the 64-bit kernels (and
@@ -87,7 +87,24 @@ Phases (each prints its own lines; any failure exits non-zero):
      peak memory of each;
   7. circuits: a 32-bit ripple-carry adder and a 32-bit comparator, each
      over 256 instances, through runtime.scheduler.evaluate on the GATE_MXU
-     chunked keys; every sum and comparison must decode right.
+     chunked keys; every sum and comparison must decode right;
+  8. engines: conv, conv_bf16, nussbaumer, fft_f64 and fft_dd at
+     GATE_DEFAULT's engine config (N=1024, 32 bits, J=6, U=2, 4 limbs) and
+     conv and nussbaumer at CB_MXU lvl2's (N=2048, Torus64, J=10, U=2, 6
+     limbs), B=256, from one seed: the exact ones bit for bit against
+     onthefly (32 bits) and chunked (64 bits), nussbaumer on keys it is
+     exact on, fft_f64 within 2^4 and fft_dd within 2^8; each one
+     accumulate's device ms (call ms for nussbaumer and fft_dd, whose
+     hundreds of kernels a call overflow the launch queue) and launches of
+     materialize_w, materialize_wt and mm_recombine_acc;
+  9. engine paths: GATE_DEFAULT B=256 from phase 4's seed on conv (every
+     ciphertext equal to phase 4's onthefly ones; 630 rotate_decompose,
+     materialize_w and mm_recombine_acc a launch), on nussbaumer and on
+     fft_f64 (every bit decrypts, the gate_nand truth table holds); the
+     CB_MXU circuit bootstrap B=256 on conv, JAX's default backend, its key
+     prepared from phase 5's raw TRGSWs (every TRGSW equal to phase 5's
+     chunked ones; 1,000 materialize_wt a launch); ct/s and ms per
+     ciphertext.
 
 The line before the last is a JSON object with one entry per kernel (the
 two test-only kernels, fused_cmux_step v1 and rotate_decompose64, run on no
@@ -297,16 +314,18 @@ def _kernel_cases(seed: int = 0):
         return torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
 
     # materialize_w: GATE_DEFAULT's step key (L=4, J=6, U=2, 2N=2048), the
-    # one a path runs (GATE_DEFAULT onthefly), then GATE_FAST2's (L=3, J=9,
-    # U=3, 2N=1024); materialize_wt, the K-packed entry: GATE_FAST2's key,
-    # then GATE_MXU's (L=3, J=6, U=2, 2N=2048).  Library: torch.flip of the
-    # rotated vector's windows (flip_w, flip_wt)
+    # one a path runs (GATE_DEFAULT onthefly and conv), then GATE_FAST2's
+    # (L=3, J=9, U=3, 2N=1024); materialize_wt, the K-packed entry:
+    # GATE_FAST2's key, then GATE_MXU's (L=3, J=6, U=2, 2N=2048) and CB_MXU
+    # lvl2's (L=6, J=10, U=2, 2N=4096: the conv circuit path).  Library:
+    # torch.flip of the rotated vector's windows (flip_w, flip_wt)
     v_fast2 = i8((3, 9, 3, 1024))
     for name, wrapper, plain, lib, keys in (
             ("materialize_w", K.materialize_w, K.materialize_w_plain,
              "flip_w", (i8((4, 6, 2, 2048)), v_fast2)),
             ("materialize_wt", K.materialize_wt, K.materialize_wt_plain,
-             "flip_wt", (v_fast2, i8((3, 6, 2, 2048))))):
+             "flip_wt", (v_fast2, i8((3, 6, 2, 2048)),
+                         i8((6, 10, 2, 4096))))):
         for v in keys:
             L, J, U, twoN = v.shape
             out_bytes = L * J * U * (twoN // 2) ** 2
@@ -1105,7 +1124,8 @@ def phase_circuit(smi: str):
     sk = circuit.CircuitSecretKey.generate(P, rng)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    ck = circuit.CircuitCloudKey.generate(sk, rng, backend="chunked")
+    ck = circuit.CircuitCloudKey.generate(sk, rng, backend="chunked",
+                                          keep_raw_bk=True)
     keygen_s = time.perf_counter() - t0
     keygen_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     keys_gb = torch.cuda.memory_allocated() / 1e9
@@ -1510,6 +1530,200 @@ def phase_circuits(smi: str, keys, instances: int = 256):
 
 
 
+# ---------------------------------------------------------------------------
+# phases 8 and 9
+# ---------------------------------------------------------------------------
+
+# phase 8's backends at each torus width
+ENGINE_CHECKS = {32: ("conv", "conv_bf16", "nussbaumer", "fft_f64", "fft_dd"),
+                 64: ("conv", "nussbaumer")}
+FFT_BOUND = {"fft_f64": 2**4, "fft_dd": 2**8}   # tests/test_fft_engine.py
+CALL_TIMED = ("nussbaumer", "fft_dd")
+
+
+def phase_engines(smi: str, batch: int = 256, seed: int = 8):
+    """The conv, Nussbaumer and FFT engines on the card at the engine
+    configs the paths use: GATE_DEFAULT's (N=1024, 32 bits, l=3, Bg=2^7,
+    4 key limbs: J=6, U=2) and CB_MXU's lvl2 (N=2048, Torus64, l=5, Bg=2^8,
+    6 limbs: J=10, U=2), B=256, from one numpy seed.  The exact yardstick
+    is onthefly at 32 bits and chunked at 64: conv must equal it bit for
+    bit at both, conv_bf16 at 32, nussbaumer on a key it is exact on at
+    both; fft_f64 within 2^4 and fft_dd within 2^8 of it at 32.  Prints
+    each backend's device ms of one accumulate (call ms for the engines of
+    CALL_TIMED) and its launches of materialize_w, materialize_wt and
+    mm_recombine_acc."""
+    from tfhe_tpu_torch import tgsw
+    from tfhe_tpu_torch.ops import kernels as K
+    from tfhe_tpu_torch.ops.engine import make_engine
+    from tfhe_tpu_torch.ops.nussbaumer import split_mr
+    from tfhe_tpu_torch.params import CB_MXU, GATE_DEFAULT
+    r = np.random.default_rng(seed)
+    for bits, p in ((32, GATE_DEFAULT.tgsw), (64, CB_MXU.tgsw_lvl2)):
+        cfg = tgsw.engine_config(p)
+        J, U, N = (p.tlwe.k + 1) * p.l, p.tlwe.k + 1, p.tlwe.N
+        half = 1 << (p.bgbit - 1)               # gadget digits: [-Bg/2, Bg/2)
+        x = torch.from_numpy(r.integers(-half, half, (batch, J, N))
+                             .astype(np.int32)).cuda()
+        if bits == 32:
+            key = torch.from_numpy(r.integers(-2**31, 2**31, (J, U, N))
+                                   .astype(np.int32)).cuda()
+        else:
+            key = torch.from_numpy(r.integers(-2**63, 2**63, (J, U, N),
+                                              dtype=np.int64)).cuda()
+        if bits == 32:
+            s = (2 * split_mr(N)[0]).bit_length() - 1
+            key2m = (key >> s) << s                # divisible by 2m
+        else:
+            # the Nussbaumer engine splits its transformed key into the
+            # config's 6 limbs without the key_limbs rounding (as the JAX
+            # package's does), so at lvl2 it is exact on keys of the 2^16
+            # lattice below 2^40: divisible by 2m, their transform in 48 bits
+            key2m = torch.from_numpy(r.integers(-2**23, 2**23, (J, U, N))
+                                     .astype(np.int64) << 16).cuda()
+        exact = make_engine(cfg, "onthefly" if bits == 32 else "chunked")
+        prep_exact = exact.prepare(key)
+        want = {"key": exact.accumulate(x, prep_exact),
+                "key2m": exact.accumulate(x, exact.prepare(key2m))}
+        line = []
+        for backend in ENGINE_CHECKS[bits]:
+            eng = make_engine(cfg, backend)
+            k = key2m if backend == "nussbaumer" else key
+            prep = eng.prepare(k)
+            torch.cuda.synchronize()
+            K.reset_launches()
+            got = eng.accumulate(x, prep)
+            torch.cuda.synchronize()
+            counts = {n: getattr(K, n).launches
+                      for n in ("materialize_w", "materialize_wt",
+                                "mm_recombine_acc")}
+            ref = want["key2m" if backend == "nussbaumer" else "key"]
+            check(got.device == x.device and got.dtype == ref.dtype
+                  and got.shape == ref.shape,
+                  f"engine {backend} {bits}-bit: {got.dtype} "
+                  f"{tuple(got.shape)} on {got.device}")
+            if backend in FFT_BOUND:
+                d = (got.to(torch.int64) - ref.to(torch.int64)).to(
+                    torch.int32).abs().max()
+                err = int(d)
+                check(err <= FFT_BOUND[backend], f"engine {backend}: max "
+                      f"error {err} > {FFT_BOUND[backend]}")
+                what = f"max error {err} <= {FFT_BOUND[backend]}"
+            else:
+                check(torch.equal(got, ref), f"engine {backend} {bits}-bit: "
+                      f"differs from the exact yardstick")
+                what = "bit-exact"
+            if backend.startswith("conv"):
+                launched = ({"materialize_w": 1, "materialize_wt": 0,
+                             "mm_recombine_acc": cfg.plane_split[1]}
+                            if bits == 32 else {"materialize_w": 0,
+                                                "materialize_wt": 1,
+                                                "mm_recombine_acc": 0})
+                check(counts == launched,
+                      f"engine {backend} {bits}-bit: launches {counts}")
+            else:
+                check(not any(counts.values()),
+                      f"engine {backend} {bits}-bit: launches {counts}")
+            if backend in CALL_TIMED:
+                # hundreds (nussbaumer) to thousands (fft_dd) of kernels a
+                # call: more than the launch queue holds while device_ms
+                # stalls the stream, so the host waits and the stall cannot
+                # hide it; CUDA events around back-to-back calls instead
+                ms, how = cuda_ms(lambda: eng.accumulate(x, prep), 3), "call"
+            else:
+                ms, how = device_ms(lambda: eng.accumulate(x, prep), 10), ""
+            line.append(f"{backend} {ms:.4f} {how + ' ' if how else ''}ms "
+                        f"({what}; {counts})")
+            del prep, got
+        ms = device_ms(lambda: exact.accumulate(x, prep_exact), 10)
+        print(f"phase 8 engines {bits}-bit (N={N}, J={J}, U={U}, "
+              f"L={cfg.num_limbs}) B={batch}, device ms of one accumulate: "
+              + "; ".join(line) + f"; yardstick "
+              f"{'onthefly' if bits == 32 else 'chunked'} {ms:.4f} ms "
+              f"[{smi}]")
+        del x, key, key2m, want, prep_exact
+        torch.cuda.empty_cache()
+
+
+def phase_engine_paths(smi: str, default_out, cb_state: dict):
+    """The engines on the paths at full width: GATE_DEFAULT B=256 from phase
+    4's seed on conv (every ciphertext equal to phase 4's onthefly ones),
+    on nussbaumer and on fft_f64 (every bit decrypts, the gate_nand truth
+    table holds); then the CB_MXU circuit bootstrap B=256 on conv with the
+    key prepared from phase 5's raw TRGSWs (every TRGSW equal to phase 5's
+    chunked ones).  Returns the launch counts by path."""
+    from tfhe_tpu_torch import device
+    from tfhe_tpu_torch.boot import circuit, gate
+    from tfhe_tpu_torch.ops import kernels as K
+    from tfhe_tpu_torch.params import CB_MXU, GATE_DEFAULT
+    from tfhe_tpu_torch.rng import TfheRng
+    P, n, batch = GATE_DEFAULT, GATE_DEFAULT.lwe.n, default_out.shape[0]
+    bits = np.random.default_rng(2).integers(0, 2, batch)
+    by_path = {}
+    for backend, kernels in (
+            ("conv", {"rotate_decompose": n, "materialize_w": n,
+                      "mm_recombine_acc": n}),
+            ("nussbaumer", {"rotate_decompose": n}),
+            ("fft_f64", {"rotate_decompose": n})):
+        sk, ck, out, wall, counts, keygen_s, peak_gb = _gate_run(
+            P, backend, bits, 1)
+        _only(counts, kernels, f"GATE_DEFAULT {backend}")
+        if backend == "conv":
+            check(torch.equal(out, default_out), "GATE_DEFAULT conv: the "
+                  "ciphertexts differ from phase 4's onthefly ones")
+            same = "equal phase 4's onthefly ciphertexts bit for bit"
+        else:
+            xs = np.array([0, 0, 1, 1, 0, 0, 1, 1])
+            ys = np.array([0, 1, 0, 1, 0, 1, 0, 1])
+            rng = TfheRng(9)
+            cx, cy = (gate.encrypt_bool(sk, b, rng) for b in (xs, ys))
+            nand = gate.decrypt_bool(sk, gate.gate_nand(ck.data, cx, cy, P,
+                                                        backend))
+            check((nand == ~(xs & ys).astype(bool)).all(),
+                  f"GATE_DEFAULT {backend}: gate_nand truth table")
+            same = "gate_nand truth table right"
+        del ck
+        by_path[f"gate_default_{backend}"] = counts
+        print(f"phase 9 GATE_DEFAULT {backend} B={batch}: "
+              f"{batch / wall:.1f} ct/s, {wall * 1e3 / batch:.3f} ms per "
+              f"ciphertext ({wall:.3f} s for one launch), all {batch} bits "
+              f"decrypt, {same}; launches {counts}, keygen {keygen_s:.1f} s, "
+              f"peak device memory {peak_gb:.2f} GB [{smi}]")
+        torch.cuda.empty_cache()
+
+    # the CB_MXU circuit bootstrap on conv, the JAX package's default
+    P, dev = CB_MXU, device.resolve(None)
+    ct, steps = cb_state["ct"], cb_state["steps"]
+    batch = ct.shape[0]
+    t0 = time.perf_counter()
+    bk = circuit.prepare_circuit_bk(cb_state["bk_raw"].to(dev), P, "conv")
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    data = {"preks": cb_state["preks"], "bk": bk,
+            "privks": cb_state["privks"]}
+    cb = circuit.make_circuit_bootstrap_staged(P, backend="conv")
+    torch.cuda.reset_peak_memory_stats()
+    cb(ct, data)                        # untimed: first-use set-up
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    gsw = cb(ct, data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = _launch_counts()
+    check(torch.equal(gsw, cb_state["gsw"]), "CB_MXU conv: the TRGSWs "
+          "differ from phase 5's chunked ones")
+    _only(counts, {"materialize_wt": steps}, "CB_MXU conv")
+    by_path["circuit_bootstrap_conv"] = counts
+    print(f"phase 9 CB_MXU conv B={batch}: {wall * 1e3 / batch:.3f} ms per "
+          f"ciphertext, {batch / wall:.2f} ct/s ({wall:.3f} s for one launch, "
+          f"{steps} steps: {wall * 1e3 / steps:.3f} ms a step), TRGSWs "
+          f"bit-identical to phase 5's chunked ones; key prepared from the "
+          f"raw bk in {prep_s:.2f} s ({_nbytes(bk['k']) / 1e6:.0f} MB), peak "
+          f"device memory {peak_gb:.2f} GB; launches {counts} [{smi}]")
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1527,11 +1741,18 @@ def main() -> int:
     for phase, step, *run in CK64_STEPS:
         by_path[f"circuit_bootstrap_{step}"] = phase_circuit_step(
             smi, state, phase, step, *run)
-    del state
+    ck = state.pop("ck")                # phase 9 keeps the raw bk alone
+    state.update(preks=ck.data["preks"], privks=ck.data["privks"],
+                 bk_raw=ck.bk_raw)
+    del ck
     torch.cuda.empty_cache()
     paths, keys = phase_n1024(smi, default_out)
     by_path.update(paths)
     by_path.update(phase_circuits(smi, keys))
+    del keys
+    torch.cuda.empty_cache()
+    phase_engines(smi)
+    by_path.update(phase_engine_paths(smi, default_out, state))
     from tfhe_tpu_torch.ops import kernels as K
     check(len(results) == len(K.KERNELS), f"phase 2 checked "
           f"{len(results)} of {len(K.KERNELS)} kernels")

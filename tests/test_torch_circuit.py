@@ -196,7 +196,7 @@ def test_convert_round_trip():
             device="cpu")
 
 
-@pytest.mark.parametrize("backend", ["matmul", "onthefly"])
+@pytest.mark.parametrize("backend", ["matmul", "onthefly", "conv"])
 def test_eval_lut_batch_matches_jax(backend):
     jp, tp = CASES["cb_toy"]
     sk, ck, ct, gsw, idx = _converted()

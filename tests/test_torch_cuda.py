@@ -5,10 +5,13 @@ Marked ``cuda``: skipped where no GPU is present.  On a machine with one:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Small and ragged shapes (batches that do not fill a 64-row tile, every limb
-count, both key shifts, one and two digit planes), plus one GATE_TOY
-bootstrap and CB_TOY circuit bootstraps (on each of the four 64-bit steps)
-that must give the same ciphertexts on the card as on the CPU.  Imports
-nothing of JAX.
+count, both key shifts, one and two digit planes), plus GATE_TOY
+bootstraps (on the onthefly, matmul, conv, conv_bf16 and nussbaumer
+engines) and CB_TOY circuit bootstraps (on each of the four 64-bit steps,
+and on conv) that must give the same ciphertexts on the card as on the
+CPU; the conv, Nussbaumer and FFT engines at gate and lvl2 shapes; and the
+two CB_ACTIVE reference rotations (tests/test_torch_reference.py).
+Imports nothing of JAX.
 """
 
 import numpy as np
@@ -83,10 +86,11 @@ def test_materialize_w(cuda, L, J, U, N):
                       (L, J, U, N), 0)
 
 
-@pytest.mark.parametrize("L,J,U,N", _MATW_SHAPES)
+@pytest.mark.parametrize("L,J,U,N", _MATW_SHAPES + [(6, 10, 2, 2048)])
 def test_materialize_wt(cuda, L, J, U, N):
-    """The K-packed key at every path's key and small ones, into a
-    poisoned output; equal to materialize_w's kernel transposed."""
+    """The K-packed key at every path's key (CB_MXU's lvl2 key too, which
+    the conv engine materializes) and small ones, into a poisoned output;
+    equal to materialize_w's kernel transposed."""
     v = _materialize_case(cuda, K.materialize_wt, K.materialize_wt_plain,
                           (L, J, U, N), 14)
     dv = v.to(cuda)
@@ -324,7 +328,8 @@ def test_unsupported_shape_raises_instead_of_falling_back(cuda):
         K.mm_recombine_acc(x.cpu(), w, acc)
 
 
-@pytest.mark.parametrize("backend", ["onthefly", "matmul"])
+@pytest.mark.parametrize("backend", ["onthefly", "matmul", "conv",
+                                     "conv_bf16", "nussbaumer"])
 def test_toy_bootstrap_same_on_card_and_cpu(cuda, backend):
     outs = {}
     for dev in ("cpu", cuda):
@@ -916,3 +921,109 @@ def test_ck_cmux_step64_plan(cuda):
     assert plan(1, 2, 2048, 64, 640, 6, 1, cuda)[1] > 1
     with pytest.raises(ValueError, match="m % 4 == 0"):
         plan(1, 2, 64, 2, 16, 6, 1, cuda)
+
+
+# ---------------------------------------------------------------------------
+# the conv, Nussbaumer and FFT engines on the card
+# ---------------------------------------------------------------------------
+
+def _engine_case(r, bits, digit_bits, B, J, U, N):
+    half = 1 << (digit_bits - 1)                # digits in [-Bg/2, Bg/2)
+    x = torch.from_numpy(r.integers(-half, half, (B, J, N))
+                         .astype(np.int32))
+    if bits == 32:
+        key = _i32(r, (J, U, N))
+    else:
+        key = torch.from_numpy(r.integers(-2**63, 2**63, (J, U, N),
+                                          dtype=np.int64))
+    return x, key
+
+
+@pytest.mark.parametrize("backend,bits,digit_bits,key_limbs,B,J,U,N", [
+    ("conv", 32, 7, 0, 20, 6, 2, 1024),      # GATE_DEFAULT's engine shape
+    ("conv", 32, 7, 3, 3, 6, 2, 1024),
+    ("conv", 64, 8, 6, 20, 4, 2, 512),       # the lvl2 gadget, Bg = 2^8
+    ("conv", 64, 9, 0, 17, 4, 2, 256),       # two digit planes
+    ("conv_bf16", 32, 7, 0, 20, 6, 2, 1024),
+    ("nussbaumer", 32, 7, 0, 20, 6, 2, 1024),
+    ("nussbaumer", 64, 8, 6, 20, 4, 2, 512)])
+def test_exact_engines_same_on_card_and_cpu(cuda, backend, bits, digit_bits,
+                                            key_limbs, B, J, U, N):
+    """conv, conv_bf16 and nussbaumer on the card equal their CPU results
+    bit for bit; conv also equals the exact onthefly (32 bits) or chunked
+    (64 bits) engine, and launches materialize_w and mm_recombine_acc once a
+    digit plane at 32 bits, materialize_wt once at 64."""
+    from tfhe_tpu_torch.ops import engine
+    cfg = engine.EngineConfig(N=N, out_bits=bits, digit_bits=digit_bits,
+                              key_limbs=key_limbs)
+    x, key = _engine_case(np.random.default_rng(B + N), bits, digit_bits, B,
+                          J, U, N)
+    eng = engine.make_engine(cfg, backend)
+    want = eng.accumulate(x, eng.prepare(key))
+    prep = eng.prepare(key.to(cuda))
+    K.reset_launches()
+    got = eng.accumulate(x.to(cuda), prep)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    if backend.startswith("conv"):
+        assert (K.materialize_w.launches, K.materialize_wt.launches) == (
+            (1, 0) if bits == 32 else (0, 1))
+        assert K.mm_recombine_acc.launches == (cfg.plane_split[1]
+                                               if bits == 32 else 0)
+        exact = engine.make_engine(cfg, "onthefly" if bits == 32
+                                   else "chunked")
+        assert torch.equal(got, exact.accumulate(x.to(cuda),
+                                                 exact.prepare(key.to(cuda))))
+
+
+@pytest.mark.parametrize("backend,bound", [("fft_f64", 2**4),
+                                           ("fft_dd", 2**8)])
+def test_fft_engines_on_card(cuda, backend, bound):
+    """The FFT engines on the card (cuFFT / eager f32) stay within their
+    envelopes of the exact product at GATE_DEFAULT's engine shape."""
+    from tfhe_tpu_torch.ops import engine
+    cfg = engine.EngineConfig(N=1024, out_bits=32, digit_bits=7)
+    x, key = _engine_case(np.random.default_rng(0), 32, 7, 20, 6, 2, 1024)
+    exact = engine.make_engine(cfg, "onthefly")
+    want = exact.accumulate(x.to(cuda), exact.prepare(key.to(cuda)))
+    eng = engine.make_engine(cfg, backend)
+    got = eng.accumulate(x.to(cuda), eng.prepare(key.to(cuda)))
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    d = (got.to(torch.int64) - want.to(torch.int64)).to(torch.int32)
+    assert int(d.abs().max()) <= bound
+
+
+def test_toy_bootstrap_fft_f64_on_card(cuda):
+    rng = TfheRng(5)
+    sk = gate.SecretKey.generate(GATE_TOY, rng)
+    ck = gate.CloudKey.generate(sk, rng, backend="fft_f64", device=cuda)
+    bits = np.array([0, 1, 1, 0, 1])
+    ct = gate.encrypt_bool(sk, bits, rng, device=cuda)
+    out = gate.gate_nand(ck.data, ct, ct, GATE_TOY, "fft_f64")
+    assert out.device.type == "cuda"
+    assert (gate.decrypt_bool(sk, out) == ~bits.astype(bool)).all()
+
+
+def test_cb_toy_conv_same_on_card_and_cpu(cuda):
+    """CB_TOY on conv (the JAX package's default circuit backend) on the
+    card equals the CPU's chunked TRGSWs bit for bit."""
+    ck, ct = _cb_toy("cpu")
+    want = circuit.circuit_bootstrap(ct, ck.data, CB_TOY)
+    rng = TfheRng(7)
+    sk = circuit.CircuitSecretKey.generate(CB_TOY, rng)
+    ck = circuit.CircuitCloudKey.generate(sk, rng, backend="conv",
+                                          device=cuda)
+    K.reset_launches()
+    got = circuit.circuit_bootstrap(ct.to(cuda), ck.data, CB_TOY,
+                                    backend="conv")
+    assert torch.equal(got.cpu(), want)
+    assert K.materialize_wt.launches > 0
+
+
+def test_reference_e2e_rotations(cuda):
+    """The two 500-step CB_ACTIVE rotations of the patched PoC on the card,
+    bit for bit against tests/fixtures/ref_e2e_exact and within the phase
+    envelope of ref_e2e_fft (tests/test_torch_reference.py)."""
+    from test_torch_reference import e2e_rotations_check
+    e2e_rotations_check(cuda)

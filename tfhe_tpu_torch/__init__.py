@@ -10,11 +10,18 @@ CPU tensors every kernel wrapper takes its plain PyTorch version.  Keys are
 generated on the host with numpy (``rng.TfheRng``) and moved to the device
 once.
 
-Slice 1 covers the 32-bit gate bootstrap (``boot.gate``) on the naive,
-matmul and onthefly engines; slice 2 the circuit bootstrap
-(``boot.circuit``: TLWE -> TRGSW over the 64-bit lvl2 ring on the chunked
-engine), the LUT evaluator on its TRGSWs (``models.lut``) and the noise
-worksheets (``noise``).
+Modules: the torus, LWE, TRLWE and TRGSW layers; the gate bootstrap and
+its gate set (``boot.gate``); the circuit bootstrap (``boot.circuit``: TLWE
+-> TRGSW over the 64-bit lvl2 ring), the LUT evaluator (``models.lut``),
+the decrypt probes (``boot.probe``) and the circuit scheduler
+(``runtime.scheduler``); the noise worksheets (``noise``); key conversion
+from the JAX package (``convert``) and key files (``utils.serialization``);
+the native C++ oracle (``utils.native``).  Every backend name of the JAX
+package's ``make_engine`` is an engine here (``ops.engine``): naive,
+matmul, onthefly, chunked, conv, conv_bf16 (exact), nussbaumer (exact on
+keys divisible by 2m, ``ops.nussbaumer``), and fft, fft_f64, fft_dd
+(approximate, ``ops.fft``).  Not ported yet: ``ops.hpfft``, a few small
+helpers of the JAX package, and the multi-device layer (``parallel``).
 """
 
 from tfhe_tpu_torch import params as params

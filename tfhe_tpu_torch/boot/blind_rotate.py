@@ -15,8 +15,12 @@ tensor-core contraction.  Each step takes, in order:
     Torus64 accumulator carried natively as (B, k+1, N) int64;
   * else the generic step: ``rotate_decompose`` (32 bits, bgbit <= 8) or the
     plain rotate + decompose, then ``engine.accumulate_into``
-    (``materialize_w`` + ``mm_recombine_acc`` on the onthefly engine).  At
-    64 bits the generic step is plain torch code and serves only the CPU.
+    (``materialize_w`` + ``mm_recombine_acc`` on the onthefly and conv
+    engines at 32 bits; on the conv engine at 64 bits ``materialize_wt`` and
+    one int8 GEMM a limb and digit plane; the Nussbaumer and FFT engines'
+    own products).  The conv, Nussbaumer and FFT engines have no step of
+    their own and take it on both devices; the chunked engine's 64-bit
+    generic step is plain torch code and serves only the CPU.
 
 At 64 bits two environment variables select the JAX package's opt-in
 steps, with its precedence: ``TFHE_CK64_PATH`` first (``acc``: the chunked
@@ -40,7 +44,8 @@ from tfhe_tpu_torch import tgsw, tlwe
 from tfhe_tpu_torch.params import TGswParams
 from tfhe_tpu_torch.ops import kernels, poly
 from tfhe_tpu_torch.ops.decomp import decompose_tlwe
-from tfhe_tpu_torch.ops.engine import make_engine
+from tfhe_tpu_torch.ops.engine import (ChunkedEngine, make_engine,
+                                       step_prepared)
 
 
 _CK64_STEPS = {"acc": "cmux_step_acc", "sacc": "cmux_step_sacc",
@@ -76,7 +81,8 @@ def cmux_step(eng, a, acc, prep, p: TGswParams):
                           offset=p.offset)
     if fused is not None:
         return fused
-    if p.tlwe.bits == 64 and acc.device.type != "cpu":
+    if (p.tlwe.bits == 64 and acc.device.type != "cpu"
+            and isinstance(eng, ChunkedEngine)):
         raise ValueError(
             "no 64-bit step for the card takes these parameters: the 64-bit "
             "blind rotation runs on the 'chunked' backend, in its kernels' "
@@ -103,7 +109,7 @@ def rotate_steps(acc, bk_prepared, abar, p: TGswParams,
         B, kp1, N = acc.shape
         accf = acc.reshape(B, kp1 * N).contiguous()
         for i in range(steps.shape[0]):
-            prep_i = {name: t[i] for name, t in bk_prepared.items()}
+            prep_i = step_prepared(bk_prepared, i)
             accf = step(steps[i], accf, prep_i, kp1=kp1, l=p.l,
                         bgbit=p.bgbit, offset=p.offset)
             if accf is None:
@@ -112,7 +118,7 @@ def rotate_steps(acc, bk_prepared, abar, p: TGswParams,
             yield i, steps[i], accf.view(B, kp1, N)
         return
     for i in range(steps.shape[0]):
-        prep_i = {name: t[i] for name, t in bk_prepared.items()}
+        prep_i = step_prepared(bk_prepared, i)
         acc = cmux_step(eng, steps[i], acc, prep_i, p)
         yield i, steps[i], acc
 
@@ -123,8 +129,9 @@ def blind_rotate(acc, bk_prepared, abar, p: TGswParams,
 
     acc:         (B, k+1, N) int32 or int64 accumulator (noiseless test
                  vector).
-    bk_prepared: dict of tensors with leading axis n (the engine-prepared
-                 TRGSW of every small-LWE key bit).
+    bk_prepared: dict of tensors, or of tuples of tensors (the dd FFT
+                 key), with leading axis n (the engine-prepared TRGSW of
+                 every small-LWE key bit).
     abar:        (B, n) int32 rotation exponents in [0, 2N).
     Returns the rotated accumulator (B, k+1, N).
     """

@@ -17,7 +17,10 @@ then +abar steps.  One blind rotation may serve all ell1 output levels
 shares, CB_MXU and CB_ACTIVE rotate once per level).
 
 On the card the blind rotation runs the chunked engine's 64-bit step
-(``rotate_decompose64_ck`` + ``ck_dot64p``); the pre-key-switch and the
+(``rotate_decompose64_ck`` + ``ck_dot64p``), the port's default backend
+here; ``backend="conv"`` (the JAX package's default) gives the same TRGSWs
+bit for bit through the generic step (``materialize_w`` + int8 GEMMs, no
+step kernel of its own); the pre-key-switch and the
 private key switch are one-hot int8 products (``torch._int_mm``), as the
 JAX package leaves them to XLA.  Keys are generated with the host's
 ``TfheRng`` in the JAX package's host order (same seed, same keys); the
@@ -37,7 +40,7 @@ from tfhe_tpu_torch import device as _device
 from tfhe_tpu_torch import lwe, noise, tgsw, tlwe
 from tfhe_tpu_torch import torus as T
 from tfhe_tpu_torch.boot import blind_rotate as br
-from tfhe_tpu_torch.ops.engine import make_engine
+from tfhe_tpu_torch.ops.engine import make_engine, stack_prepared
 from tfhe_tpu_torch.params import CircuitParams, KeySwitchParams, LweParams
 from tfhe_tpu_torch.rng import TfheRng
 from tfhe_tpu_torch.utils import observability as obs
@@ -157,8 +160,8 @@ def prepare_circuit_bk(gsw, p: CircuitParams, backend: str = "chunked"):
     rows = tgsw.rows(gsw)                                 # (n0, kpl, k+1, N)
     if backend == "chunked":
         return eng.prepare(rows)
-    preps = [eng.prepare(rows[i]) for i in range(rows.shape[0])]
-    return {name: torch.stack([q[name] for q in preps]) for name in preps[0]}
+    return stack_prepared([eng.prepare(rows[i])
+                           for i in range(rows.shape[0])])
 
 
 @dataclasses.dataclass

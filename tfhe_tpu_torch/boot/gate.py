@@ -23,7 +23,7 @@ from tfhe_tpu_torch import device as _device
 from tfhe_tpu_torch import lwe, tlwe, tgsw
 from tfhe_tpu_torch import torus as T
 from tfhe_tpu_torch.boot import blind_rotate as br
-from tfhe_tpu_torch.ops.engine import make_engine
+from tfhe_tpu_torch.ops.engine import make_engine, stack_prepared
 from tfhe_tpu_torch.params import GateParams, LweParams
 from tfhe_tpu_torch.rng import TfheRng
 from tfhe_tpu_torch.utils import observability as obs
@@ -83,9 +83,8 @@ class CloudKey:
                 # GATE_DEFAULT)
                 prep = eng.prepare(rows.to(dev))
             else:
-                preps = [eng.prepare(rows[i]) for i in range(rows.shape[0])]
-                prep = {name: torch.stack([q[name] for q in preps]).to(dev)
-                        for name in preps[0]}
+                prep = stack_prepared([eng.prepare(rows[i])
+                                       for i in range(rows.shape[0])], dev)
             ksk = lwe.KeySwitchKey.generate(sk.extracted_key, sk.lwe_key,
                                             p.ks, rng, keep_raw=keep_raw_ks,
                                             device=dev)

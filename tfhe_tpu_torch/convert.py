@@ -9,18 +9,22 @@ Both functions take plain numpy arrays (convert a JAX array with
     bootstrapping key, ``{"v": (n, L, J, U, 2N) int8}`` for ``onthefly``,
     ``{"w": (n, L, J*N, U*N) int8}`` for ``matmul``, ``{"wm": (n, U*L, J*m,
     N+m) int8}`` for ``chunked`` (m = 128, or N below that),
-    ``{"mat": ...}`` for ``naive``; ``ksw`` is (4, n_in*t*base, n_out+1)
-    int8;
+    ``{"k": (n, J*U*L, 1, 2N-1)}`` int8 (bfloat16) for ``conv``
+    (``conv_bf16``), ``{"w": (n, 2m, J*r, U*L*r) int8}`` for
+    ``nussbaumer``, ``{"hat": (n, J, U, N/2) complex128}`` for ``fft`` and
+    ``fft_f64``, ``{"hat": (4 parts (n, J, U, N/2) float32)}`` for
+    ``fft_dd``, ``{"mat": ...}`` for ``naive``; ``ksw`` is (4,
+    n_in*t*base, n_out+1) int8;
   * the circuit-bootstrap keys: the three secret keys' bits, and
     ``key_data = {"preks", "bk", "privks"}`` as in
     ``tfhe_tpu.boot.circuit.CircuitCloudKey.data`` — ``preks`` (4,
     n1*t*base, n0+1) int8 limbs, ``bk`` ``{"wm": (n0, U*L, J*m, N2+m)
-    int8}`` for ``chunked`` (``{"mat": ...}`` for ``naive``), ``privks``
-    (k+1, 4, (n2+1)*t*base, (k+1)*N1) int8 limbs.  A chunked ``bk`` is
-    converted to the port's 64-bit prepared key, the K-packed ``{"wmt":
-    (n0, U*L, N2+m, J*m) int8}`` that ``ChunkedEngine.prepare`` builds (each
-    step's ``wm`` transposed on the device in turn, so the two stacks never
-    share the card).
+    int8}`` for ``chunked`` (any other backend's prepared key as above),
+    ``privks`` (k+1, 4, (n2+1)*t*base, (k+1)*N1) int8 limbs.  A chunked
+    ``bk`` is converted to the port's 64-bit prepared key, the K-packed
+    ``{"wmt": (n0, U*L, N2+m, J*m) int8}`` that ``ChunkedEngine.prepare``
+    builds (each step's ``wm`` transposed on the device in turn, so the two
+    stacks never share the card).
 
 Both packages then compute the same function on the same keys.
 """
@@ -35,9 +39,13 @@ from tfhe_tpu_torch import lwe, tlwe
 from tfhe_tpu_torch.boot import circuit
 from tfhe_tpu_torch.boot.gate import CloudKey, SecretKey
 from tfhe_tpu_torch.ops import kernels
+from tfhe_tpu_torch.ops.engine import map_prepared
 from tfhe_tpu_torch.params import CircuitParams, GateParams, LweParams
+from tfhe_tpu_torch.utils.serialization import tensor_from_numpy
 
-_BK_LEAF = {"onthefly": "v", "matmul": "w", "naive": "mat", "chunked": "wm"}
+_BK_LEAF = {"onthefly": "v", "matmul": "w", "naive": "mat", "chunked": "wm",
+            "conv": "k", "conv_bf16": "k", "nussbaumer": "w", "fft": "hat",
+            "fft_f64": "hat", "fft_dd": "hat"}
 
 
 def _bk(key_data, backend, dev):
@@ -46,8 +54,10 @@ def _bk(key_data, backend, dev):
     if set(key_data["bk"]) != {_BK_LEAF[backend]}:
         raise ValueError(f"backend {backend!r} expects bk key "
                          f"{_BK_LEAF[backend]!r}, got {sorted(key_data['bk'])}")
-    return {name: torch.tensor(np.asarray(v)).to(dev)
-            for name, v in key_data["bk"].items()}
+    # a tuple leaf (fft_dd's four f32 parts) converts part by part
+    return map_prepared(lambda v: tensor_from_numpy(v).to(dev),
+                        {name: tuple(v) if isinstance(v, (tuple, list)) else v
+                         for name, v in key_data["bk"].items()})
 
 
 def _k_packed_bk(key_data, dev):

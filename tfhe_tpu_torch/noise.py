@@ -15,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+from tfhe_tpu_torch.ops.nussbaumer import split_mr
 from tfhe_tpu_torch.params import CircuitParams, GateParams
 
 
@@ -166,14 +167,6 @@ def key_truncation_variance(p: GateParams) -> float:
     var_round = (2.0 ** (coarse - bits)) ** 2 / 12.0
     beta2 = 2.0 ** (2 * (t.bgbit - 1))
     return p.lwe.n * (t.tlwe.k + 1) * t.l * t.tlwe.N * beta2 * var_round
-
-
-def split_mr(N: int) -> tuple[int, int]:
-    """N = m * r with m = 2^floor(log4 N) <= r, the Nussbaumer engine's
-    split (``tfhe_tpu.ops.nussbaumer.split_mr``)."""
-    k = N.bit_length() - 1
-    m = 1 << (k // 2)
-    return m, N // m
 
 
 def nussbaumer_fold_variance(p: GateParams) -> float:

@@ -17,19 +17,28 @@ Contract shared by the engines:
 
   result[..., u, :] = sum_j negacyclic(x[..., j, :], key[j, u, :])
 
-Backends: ``naive`` (exact einsum oracle, CPU; 32 and 64 bits),
-``matmul`` (dense negacyclic limb matrices) and ``onthefly`` (O(N)
-doubled-limb vectors, the matrices materialized per call) at 32 bits, and
-``chunked`` (pre-shifted chunked keys) at 32 and 64 bits.  The conv, FFT
-and Nussbaumer backends of the JAX package are not ported yet.
+Backends (every name of the JAX package's ``make_engine``): ``naive``
+(exact einsum oracle, CPU; 32 and 64 bits), ``matmul`` (dense negacyclic
+limb matrices) and ``onthefly`` (O(N) doubled-limb vectors, the matrices
+materialized per call) at 32 bits, ``chunked`` (pre-shifted chunked keys)
+at 32 and 64 bits, ``conv`` and ``conv_bf16`` (the JAX package's
+convolution kernels as the key, evaluated on onthefly's route) at 32 and
+64 bits, ``nussbaumer`` (``ops.nussbaumer``) and ``fft``, ``fft_f64`` and
+``fft_dd`` (``ops.fft``, approximate).
+
+A prepared key is a dict whose leaves are tensors, or tuples of tensors
+(the dd FFT key); ``stack_prepared`` and ``step_prepared`` stack per-step
+keys and take one step's back without renaming or reshaping a leaf.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
+from tfhe_tpu_torch import lwe
 from tfhe_tpu_torch import torus as T
 from tfhe_tpu_torch.ops import kernels, poly
 
@@ -105,14 +114,19 @@ def _key_rounded(cfg: EngineConfig, key_polys):
         torch.int32 if cfg.kbits <= 32 else torch.int64)
 
 
-def _key_limbs_doubled(cfg: EngineConfig, key_polys):
-    """Balanced limbs of [key, -key]: (L, ..., 2N) int8.  Negation happens
-    in the torus domain before limb splitting; rounding happens first so the
-    wrap half is exactly the negated rounded key."""
-    _require_32(cfg)
+def _limbs_doubled(cfg: EngineConfig, key_polys):
+    """Balanced limbs of [key, -key]: (L, ..., 2N) int8, at 32 or 64 bits.
+    Negation happens in the torus domain before limb splitting; rounding
+    happens first so the wrap half is exactly the negated rounded key."""
     key_polys = _key_rounded(cfg, key_polys)
     doubled = torch.cat([key_polys, -key_polys], dim=-1)
     return T.balanced_limbs(doubled, cfg.num_limbs, cfg.limb_bits)
+
+
+def _key_limbs_doubled(cfg: EngineConfig, key_polys):
+    """_limbs_doubled for the 32-bit matmul and onthefly engines."""
+    _require_32(cfg)
+    return _limbs_doubled(cfg, key_polys)
 
 
 def _fold_planes(cfg: EngineConfig, x, w, acc):
@@ -126,6 +140,45 @@ def _fold_planes(cfg: EngineConfig, x, w, acc):
         acc = kernels.mm_recombine_acc(flat.contiguous(), w, acc,
                                        shift_base=cfg.key_shift + pb * p)
     return acc
+
+
+def _recombine(cfg: EngineConfig, acc_planes):
+    """acc_planes: P tensors (L, ..., U*N) of int32 limb partials -> their
+    sum of (limb << 8l) << (pb*p + key_shift) mod 2^out_bits, int32 or int64
+    (``tfhe_tpu.ops.engine._recombine``)."""
+    pb, _ = cfg.plane_split
+    out = None
+    for p, limbed in enumerate(acc_planes):
+        v = T.recombine_limbs(limbed, cfg.limb_bits, 64)
+        sh = pb * p + cfg.key_shift
+        v = v << sh if sh else v
+        out = v if out is None else out + v
+    return out if cfg.out_bits == 64 else T.wrap32(out)
+
+
+def stack_prepared(preps, device=None) -> dict:
+    """Per-step prepared keys -> one dict whose leaves lead with the step
+    axis (a tuple leaf stacks part by part), on ``device``."""
+    def stack(parts):
+        return torch.stack(parts).to(device) if device else torch.stack(parts)
+    return {name: (tuple(stack([q[name][i] for q in preps])
+                         for i in range(len(leaf)))
+                   if isinstance(leaf, tuple)
+                   else stack([q[name] for q in preps]))
+            for name, leaf in preps[0].items()}
+
+
+def step_prepared(prepared: dict, i: int) -> dict:
+    """Step i of a stacked prepared key."""
+    return {name: tuple(t[i] for t in leaf) if isinstance(leaf, tuple)
+            else leaf[i] for name, leaf in prepared.items()}
+
+
+def map_prepared(fn, prepared: dict) -> dict:
+    """fn applied to every tensor of a prepared key (each part of a tuple
+    leaf)."""
+    return {name: tuple(fn(t) for t in leaf) if isinstance(leaf, tuple)
+            else fn(leaf) for name, leaf in prepared.items()}
 
 
 class _EngineBase:
@@ -457,23 +510,134 @@ class ChunkedEngine(_EngineBase):
                                      offset=offset)
 
 
-_LATER = {"conv": "the engines slice",
-          "conv_bf16": "the engines slice", "fft": "the engines slice",
-          "fft_dd": "the engines slice", "fft_f64": "the engines slice",
-          "nussbaumer": "the engines slice"}
+@functools.lru_cache(maxsize=None)
+def _conv_gather(J: int, U: int, L: int, N: int, device) -> torch.Tensor:
+    """Flat indices into a conv key (J*U*L, 1, 2N-1) giving the doubled-limb
+    vector v (L, J, U, 2N): v[l, j, u, m] = k[(j, u, l), 0, (N-1-m) mod 2N].
+    Every m but N has its tap; m = N points at tap 0 and is zeroed after the
+    gather (ConvEngine._v)."""
+    m = torch.arange(2 * N, device=device)
+    tau = torch.remainder(N - 1 - m, 2 * N)
+    tau = torch.where(m == N, torch.zeros_like(tau), tau)
+    rows = ((torch.arange(J, device=device)[:, None, None] * U
+             + torch.arange(U, device=device)[None, :, None]) * L
+            + torch.arange(L, device=device)[None, None, :])     # (J, U, L)
+    idx = rows.permute(2, 0, 1)[..., None] * (2 * N - 1) + tau   # (L,J,U,2N)
+    return idx.contiguous()
+
+
+class ConvEngine(_EngineBase):
+    """The JAX package's convolution backend (``conv``, and ``conv_bf16``
+    with the key stored in bfloat16): the prepared key keeps its layout,
+        {"k": (J*U*L, 1, 2N-1)} int8 (bfloat16 for conv_bf16),
+        k[(j, u, l), 0, tau] = v[l, j, u, (N-1-tau) mod 2N],
+    with v onthefly's doubled-limb vector, so ``convert`` and key files
+    carry JAX conv keys as they are.
+
+    The product takes onthefly's route instead of a convolution: each call
+    gathers v back from k (one gather; v[..., N] is the one entry k lacks,
+    and no Toeplitz entry reads it: they are v[(i-t) mod 2N] with |i-t| < N,
+    so it is written 0), then at 32 bits ``kernels.materialize_w`` and one
+    ``kernels.mm_recombine_acc`` per digit plane (the onthefly product); at
+    64 bits ``kernels.materialize_wt`` (the same kernel's K-packed entry)
+    and one int8 GEMM (``lwe._int8_matmul``) per limb and digit plane on
+    its transposed view, the limbs recombined in int64.  cuBLAS reads that
+    column-major operand about 8 times faster than the row-major W
+    (tools/torch_conv64_ab.py, CB_MXU lvl2 B=256, NVIDIA H100 80GB HBM3 at
+    700 W: 0.55 against 4.48-4.51 ms for the six GEMMs).  No convolution
+    library runs: PyTorch has no int8 convolution on CUDA, cuDNN's float32
+    one runs in TF32 by default and may choose inexact FFT or Winograd
+    algorithms.
+
+    Sums are exact: a GEMM sums J*N products of at most 2^14 (3.4e8 < 2^31
+    at the 64-bit lvl2 shape, checked per call at 64 bits; at 32 bits a
+    wrap mod 2^32 is the torus's own).  So ``conv`` equals the JAX
+    package's bit for bit.  ``conv_bf16`` computes the same integers from
+    the int8 value of its key (bfloat16 holds every int8 exactly); the JAX
+    package's bf16 convolution (f32 sums, then a round) is exact only while
+    its per-j sums stay under 2^24 (digit planes of at most 64, or N <=
+    1024: every 32-bit gate set), and there the two agree bit for bit;
+    outside that domain this one stays exact.
+
+    ``cmux_step`` returns None, as the JAX package's does: the blind
+    rotation takes the generic step."""
+
+    def __init__(self, cfg: EngineConfig, use_int8: bool = True):
+        self.cfg = cfg
+        self.use_int8 = use_int8
+
+    def prepare(self, key_polys):
+        cfg = self.cfg
+        J, U, N = key_polys.shape
+        assert N == cfg.N
+        limbs = _limbs_doubled(cfg, key_polys)               # (L,J,U,2N)
+        tau = torch.remainder(torch.arange(N - 1, -N, -1,
+                                           device=key_polys.device), 2 * N)
+        ker = limbs[..., tau].permute(1, 2, 0, 3)            # (J,U,L,2N-1)
+        ker = ker.reshape(J * U * cfg.num_limbs, 1, 2 * N - 1)
+        if not self.use_int8:
+            ker = ker.to(torch.bfloat16)
+        return {"k": ker.contiguous()}
+
+    def _v(self, k, J: int):
+        """The doubled-limb vectors (L, J, U, 2N) int8 of a conv key."""
+        N, L = self.cfg.N, self.cfg.num_limbs
+        U = k.shape[0] // (J * L)
+        if k.dtype != torch.int8:
+            k = k.to(torch.int8)                 # bf16 holds int8 exactly
+        v = torch.take(k, _conv_gather(J, U, L, N, k.device))
+        v[..., N].zero_()            # a view's fill: no host scalar copied
+        return v
+
+    def accumulate(self, x, prepared):
+        cfg = self.cfg
+        x = torch.as_tensor(x)
+        J, N = x.shape[-2], cfg.N
+        lead = x.shape[:-2]
+        v = self._v(prepared["k"], J)                        # (L,J,U,2N)
+        L, _, U, _ = v.shape
+        M = x[..., 0, 0].numel()
+        if cfg.out_bits == 32:
+            acc = torch.zeros((M, U, N), dtype=torch.int32, device=v.device)
+            return _fold_planes(cfg, x, kernels.materialize_w(v),
+                                acc).reshape(*lead, U, N)
+        pb, P = cfg.plane_split
+        max_plane = (1 << (cfg.digit_bits - 1)) if P == 1 else 64
+        if J * N * max_plane * (1 << (cfg.limb_bits - 1)) >= 2**31:
+            raise ValueError("conv: an int32 limb sum could overflow at this "
+                             "shape")
+        wt = kernels.materialize_wt(v)                       # (L,U*N,J*N)
+        planes = _digit_planes(cfg, x).reshape(P, M, J * N)
+        parts = [torch.stack([lwe._int8_matmul(planes[p].contiguous(),
+                                               wt[lm].t())
+                              for lm in range(L)]) for p in range(P)]
+        return _recombine(cfg, parts).reshape(*lead, U, N)
+
+    def accumulate_into(self, acc, x, prepared):
+        if self.cfg.out_bits != 32 or acc.ndim != 3 or x.ndim != 3:
+            return T.add(acc, self.accumulate(x, prepared))
+        w = kernels.materialize_w(self._v(prepared["k"], x.shape[-2]))
+        return _fold_planes(self.cfg, x, w, acc)
 
 
 def make_engine(cfg: EngineConfig, backend: str = "matmul"):
+    if backend == "nussbaumer":
+        from tfhe_tpu_torch.ops.nussbaumer import NussbaumerEngine
+        return NussbaumerEngine(cfg)
+    if backend in ("fft", "fft_dd", "fft_f64"):
+        from tfhe_tpu_torch.ops.fft import FFTEngine
+        prec = {"fft": "auto", "fft_dd": "dd", "fft_f64": "f64"}[backend]
+        return FFTEngine(cfg, precision=prec)
     if backend == "matmul":
         return MatmulEngine(cfg)
     if backend == "onthefly":
         return OnTheFlyMatmulEngine(cfg)
-    if backend == "naive":
-        return NaiveEngine(cfg)
     if backend == "chunked":
         return ChunkedEngine(cfg)
-    if backend in _LATER:
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported yet; it comes with "
-            f"{_LATER[backend]}")
+    if backend == "conv":
+        return ConvEngine(cfg)
+    if backend == "conv_bf16":
+        return ConvEngine(cfg, use_int8=False)
+    if backend == "naive":
+        return NaiveEngine(cfg)
     raise ValueError(f"unknown backend {backend!r}")

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from tfhe_tpu_torch import torus as T
+
 
 def negacyclic_shift(x, r: int):
     """X^r * x for a STATIC exponent r in [0, 2N)
@@ -73,3 +75,39 @@ def sample_extract(tlwe_av, index: int = 0):
     a_out = torch.where(j <= index, rolled, -rolled)
     a_out = a_out.reshape(*tlwe_av.shape[:-2], k * N)
     return torch.cat([a_out, b[..., index:index + 1]], dim=-1)
+
+
+def mul_fft(a_int, b_torus, precision: str = "auto"):
+    """Approximate negacyclic product through the evaluation domain
+    (torusPolynomialMultFFT, numeric_functions.cpp:140-148), the FFTEngine
+    path as a one-shot convenience.  "auto" is "f64" on both devices (the
+    H100 has native f64; the JAX package picks "dd" off its CPU)."""
+    from tfhe_tpu_torch.ops import fft
+    b = torch.as_tensor(b_torus)
+    a = torch.as_tensor(a_int).to(b.device)
+    N = b.shape[-1]
+    bits = 32 if b.dtype == torch.int32 else 64
+    if precision == "auto":
+        precision = "f64"
+    if precision == "f64":
+        ha = fft.negacyclic_fft(a, precision="highest")
+        hb = fft.negacyclic_fft(b, precision="highest")
+        return fft.round_wrap(fft.negacyclic_ifft(ha * hb, N),
+                              bits).to(b.dtype)
+    xa = fft.negacyclic_fft_dd_dev(a)
+    xb = fft.negacyclic_fft_dd_dev(b)
+    return fft.negacyclic_ifft_dd_dev(fft._dd_cmul(*xa, *xb), N, bits)
+
+
+def add_mul_fft(accum, a_int, b_torus, precision: str = "auto"):
+    """accum + a (*) b through the FFT path (torusPolynomialAddMulRFFT,
+    numeric_functions.cpp:149-160)."""
+    accum = torch.as_tensor(accum)
+    return T.add(accum, mul_fft(a_int, b_torus, precision).to(accum.dtype))
+
+
+def sub_mul_fft(accum, a_int, b_torus, precision: str = "auto"):
+    """accum - a (*) b through the FFT path (torusPolynomialSubMulRFFT,
+    numeric_functions.cpp:161-172)."""
+    accum = torch.as_tensor(accum)
+    return T.sub(accum, mul_fft(a_int, b_torus, precision).to(accum.dtype))

@@ -22,6 +22,7 @@ import torch
 
 from tfhe_tpu_torch import device as _device
 from tfhe_tpu_torch import lwe, params as P
+from tfhe_tpu_torch.ops.engine import map_prepared
 from tfhe_tpu_torch.utils import observability as obs
 
 
@@ -41,6 +42,25 @@ def _params_from_dict(d):
     return d
 
 
+def tensor_from_numpy(a) -> torch.Tensor:
+    """A numpy array as a tensor; bfloat16 (the ml_dtypes arrays the JAX
+    package hands out, or their raw 2-byte records in an .npz) becomes a
+    bfloat16 tensor through its float32 bits."""
+    a = np.asarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        bits = a.view(np.uint16).astype(np.uint32) << 16
+        return torch.from_numpy(bits.view(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a) if a.flags.writeable else torch.tensor(a)
+
+
+def _to_numpy(t):
+    """A leaf as numpy; a bfloat16 tensor as 2-byte records, the JAX
+    package's .npz form."""
+    if torch.is_tensor(t) and t.dtype == torch.bfloat16:
+        return t.detach().cpu().view(torch.int16).numpy().view("V2")
+    return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+
+
 def _encode(tree, arrays: dict):
     if isinstance(tree, dict):
         return {"__t__": "dict",
@@ -49,8 +69,7 @@ def _encode(tree, arrays: dict):
         return {"__t__": "list" if isinstance(tree, list) else "tuple",
                 "items": [_encode(v, arrays) for v in tree]}
     key = f"leaf_{len(arrays)}"
-    arrays[key] = (tree.detach().cpu().numpy() if torch.is_tensor(tree)
-                   else np.asarray(tree))
+    arrays[key] = _to_numpy(tree)
     return {"__t__": "leaf", "key": key}
 
 
@@ -61,7 +80,7 @@ def _decode(skel, z, device):
     if t in ("list", "tuple"):
         items = [_decode(v, z, device) for v in skel["items"]]
         return items if t == "list" else tuple(items)
-    return torch.from_numpy(z[skel["key"]]).to(device)
+    return tensor_from_numpy(z[skel["key"]]).to(device)
 
 
 def save_keydata(path: str, key_data, params=None, meta: dict | None = None,
@@ -118,7 +137,7 @@ def load_cloud_key(path: str, backend: str | None = None, device=None):
     if backend is None:
         raise ValueError(f"{path}: the file names no backend; pass one")
     return convert.cloud_key_from_numpy(
-        {"bk": {k: v.numpy() for k, v in tree["bk"].items()},
+        {"bk": map_prepared(_to_numpy, tree["bk"]),
          "ksw": tree["ksw"].numpy()}, params, backend, device=device)
 
 
