@@ -87,7 +87,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      peak memory of each;
   7. circuits: a 32-bit ripple-carry adder and a 32-bit comparator, each
      over 256 instances, through runtime.scheduler.evaluate on the GATE_MXU
-     chunked keys; every sum and comparison must decode right;
+     chunked keys, at TFHE_WAVE_CHAIN=1 and 4 (a first run capturing the
+     programs, then a timed one); every sum and comparison must decode
+     right;
   8. engines: conv, conv_bf16, nussbaumer, fft_f64 and fft_dd at
      GATE_DEFAULT's engine config (N=1024, 32 bits, J=6, U=2, 4 limbs) and
      conv and nussbaumer at CB_MXU lvl2's (N=2048, Torus64, J=10, U=2, 6
@@ -104,7 +106,22 @@ Phases (each prints its own lines; any failure exits non-zero):
      CB_MXU circuit bootstrap B=256 on conv, JAX's default backend, its key
      prepared from phase 5's raw TRGSWs (every TRGSW equal to phase 5's
      chunked ones; 1,000 materialize_wt a launch); ct/s and ms per
-     ciphertext.
+     ciphertext;
+  10. graphs: the launches of phases 3-9 run as captured CUDA graphs
+     (tfhe_tpu_torch.graphs; every launch count above counts replays), each
+     cell's first call capturing its programs; here every cell (GATE_FAST2
+     B=8192; GATE_DEFAULT B=256 onthefly, chunked, conv, nussbaumer and
+     fft_f64;
+     GATE_MXU B=8192 chunked and onthefly; CB_MXU B=256 on the default,
+     acc, sacc and FUSED steps; the adder and comparator at
+     TFHE_WAVE_CHAIN=1 and 4), run again under graphs.disable(), must give
+     the graphed output bit for bit; printed: both walls, the card's busy
+     time of a graphed run (torch.profiler) and the idle share of each wall,
+     the first run's seconds, captures, capture and instantiation ms, graph
+     nodes, pool bytes and replays; then one step's product of nussbaumer
+     and fft_dd captured for its node count (graphs.EAGER_BACKENDS), and
+     ops.hpfft.hp_negacyclic_mul at N=1024, limbs 6 and 8, on the card
+     against the CPU bit for bit, with its time.
 
 The line before the last is a JSON object with one entry per kernel (the
 two test-only kernels, fused_cmux_step v1 and rotate_decompose64, run on no
@@ -250,6 +267,75 @@ def bound_ms(nbytes: int, int8_macs: int = 0):
 
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+# ---------------------------------------------------------------------------
+# graphed against eager (phase 10's cells, recorded by phases 3-9)
+# ---------------------------------------------------------------------------
+
+GRAPH_CELLS = []          # one dict per cell, printed by phase 10
+
+
+def busy_ms(fn):
+    """Milliseconds the card is busy during one call of fn(): the sum of
+    the kernel, copy and fill durations torch.profiler records (graph
+    replays included); None where it records none."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == cuda)
+    return us / 1e3 if us > 0 else None
+
+
+def cell_start():
+    """Drop every cached program (its pool and key references with it), so
+    that the cell's first calls capture its programs alone."""
+    from tfhe_tpu_torch import graphs
+    graphs.clear()
+    torch.cuda.empty_cache()
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(map(_same, a, b))
+    return torch.equal(a, b)
+
+
+def graph_cell(cell: str, fn, graphed_out, graphed_wall: float,
+               first_wall: float):
+    """Record a cell for phase 10.  fn() runs the cell's timed work (a
+    launch, a chain of launches or a circuit) and returns its output; its
+    graphed run gave ``graphed_out`` in ``graphed_wall`` s, after a first
+    run of ``first_wall`` s that captured the cell's programs (cell_start
+    cleared the cache before it).  Runs fn() under graphs.disable(), timed,
+    and requires the same output bit for bit; takes the card's busy time
+    of one graphed run (busy_ms); reads the cached programs' captures,
+    replays, nodes and pool bytes."""
+    from tfhe_tpu_torch import graphs
+    programs = graphs.stats()
+    torch.cuda.synchronize()
+    with graphs.disable():
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        eager_wall = time.perf_counter() - t0
+    check(_same(out, graphed_out), f"{cell}: the graphed and eager outputs "
+          f"differ")
+    del out
+    busy = busy_ms(fn)
+    nodes = [p["nodes"] for p in programs]
+    GRAPH_CELLS.append({
+        "cell": cell, "graphed_s": graphed_wall, "eager_s": eager_wall,
+        "first_s": first_wall, "busy_ms": busy, "captures": len(programs),
+        "replays": sum(p["replays"] for p in programs),
+        "nodes": None if None in nodes else sum(nodes),
+        "capture_ms": sum(p["capture_ms"] for p in programs),
+        "instantiate_ms": sum(p["instantiate_ms"] for p in programs),
+        "pool_bytes": sum(p["pool_bytes"] for p in programs)})
 
 
 # ---------------------------------------------------------------------------
@@ -924,14 +1010,21 @@ def phase_main(smi: str, batch: int = 8192, chain: int = 2):
     bits = np.random.default_rng(1).integers(0, 2, batch)
     ct = gate.encrypt_bool(sk, bits, rng)
     boot = gate.make_bootstrap_fn(P, backend="onthefly")
-    boot(ck.data, ct)                   # untimed: first-use set-up
+    cell_start()
+    t0 = time.perf_counter()
+    boot(ck.data, ct)                   # untimed: first-use set-up, capture
     torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+
+    def run():
+        out = ct
+        for _ in range(chain):          # dependent launches, one sync
+            out = boot(ck.data, out)
+        return out
 
     K.reset_launches()
     t0 = time.perf_counter()
-    out = ct
-    for _ in range(chain):              # dependent launches, one sync
-        out = boot(ck.data, out)
+    out = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _launch_counts()
@@ -939,6 +1032,8 @@ def phase_main(smi: str, batch: int = 8192, chain: int = 2):
     check(ok.all(), f"GATE_FAST2: {int((~ok).sum())} of {batch} bits wrong")
     _only(counts, {"materialize_wt": n * chain,
                    "fused_cmux_step_v2": n * chain}, "GATE_FAST2")
+    graph_cell(f"GATE_FAST2 onthefly B={batch} ({chain} launches)", run, out,
+               wall, first)
     rate = batch * chain / wall
     print(f"phase 3 GATE_FAST2 onthefly B={batch}: {rate:.1f} ct/s "
           f"({wall:.3f} s for {chain} dependent launches), all "
@@ -991,8 +1086,11 @@ def phase_generic(smi: str, batch: int = 256):
     bits = np.random.default_rng(2).integers(0, 2, batch)
     ct = gate.encrypt_bool(sk, bits, rng)
     boot = gate.make_bootstrap_fn(P, backend="onthefly")
-    boot(ck.data, ct)                   # untimed: first-use set-up
+    cell_start()
+    t0 = time.perf_counter()
+    boot(ck.data, ct)                   # untimed: first-use set-up, capture
     torch.cuda.synchronize()
+    first = time.perf_counter() - t0
 
     K.reset_launches()
     t0 = time.perf_counter()
@@ -1008,6 +1106,8 @@ def phase_generic(smi: str, batch: int = 256):
     for name in ("fused_cmux_step_v2", "materialize_wt"):
         check(counts[name] == 0,
               f"GATE_DEFAULT: {name} ran with 4 key limbs")
+    graph_cell(f"GATE_DEFAULT onthefly B={batch}", lambda: boot(ck.data, ct),
+               out, wall, first)
     print(f"phase 4 GATE_DEFAULT onthefly B={batch}: "
           f"{batch / wall:.1f} ct/s ({wall:.3f} s for one launch), all "
           f"{batch} bits decrypt, launches {counts}, keygen {keygen_s:.1f} s "
@@ -1144,8 +1244,11 @@ def phase_circuit(smi: str):
     msgs = np.where(bits == 1, -(1 << 31), 0).astype(np.int32)
     ct = lwe.encrypt(sk.lwe_lvl1, msgs, rng, 2.0**-20)
     cb = circuit.make_circuit_bootstrap_staged(P, backend="chunked")
-    cb(ct, ck.data)                     # untimed: first-use set-up
+    cell_start()
+    t0 = time.perf_counter()
+    cb(ct, ck.data)                     # untimed: first-use set-up, capture
     torch.cuda.synchronize()
+    first = time.perf_counter() - t0
 
     K.reset_launches()
     t0 = time.perf_counter()
@@ -1164,6 +1267,8 @@ def phase_circuit(smi: str):
               f"inside the circuit bootstrap")
     check(tuple(gsw.shape) == (batch, k + 1, ell1, k + 1, P.n_lvl1),
           f"CB_MXU: TRGSW batch of shape {tuple(gsw.shape)}")
+    graph_cell(f"CB_MXU chunked default step B={batch}",
+               lambda: cb(ct, ck.data), gsw, wall, first)
     print(f"phase 5 CB_MXU chunked B={batch}: {wall * 1e3 / batch:.3f} ms "
           f"per ciphertext, {batch / wall:.2f} ct/s ({wall:.3f} s for one "
           f"launch, {'one shared rotation' if shared else f'{ell1} rotations'}"
@@ -1285,16 +1390,21 @@ def phase_circuit_step(smi: str, state: dict, phase: str, step: str,
     cb = circuit.make_circuit_bootstrap_staged(CB_MXU, backend="chunked")
     os.environ[var] = value
     try:
-        cb(ct, ck.data)                 # untimed: first-use set-up
+        cell_start()
+        t0 = time.perf_counter()
+        cb(ct, ck.data)                 # untimed: first-use set-up, capture
         torch.cuda.synchronize()
+        first = time.perf_counter() - t0
         K.reset_launches()
         t0 = time.perf_counter()
         gsw = cb(ct, ck.data)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        counts = _launch_counts()
+        graph_cell(f"CB_MXU chunked {step} step B={batch}",
+                   lambda: cb(ct, ck.data), gsw, wall, first)
     finally:
         del os.environ[var]
-    counts = _launch_counts()
     _wmt_only(f"CB_MXU {step}", ck)
     check(torch.equal(gsw, state["gsw"]),
           f"CB_MXU {step}: the TRGSWs differ from the default step's")
@@ -1324,32 +1434,44 @@ def phase_circuit_step(smi: str, state: dict, phase: str, step: str,
 TEST_ONLY = ("fused_cmux_step", "rotate_decompose64")
 
 
-def _gate_run(P, backend, bits, chain, seed=0):
-    """Keys from ``seed``, ``bits`` encrypted, one untimed launch, then a
-    timed dependent chain of ``chain`` launches.  Returns the keys, the
-    chain's output, its wall seconds, the launch counts, keygen seconds and
-    peak device memory."""
+def _gate_run(P, backend, bits, chain, seed=0, cell=None):
+    """Keys from ``seed``, ``bits`` encrypted, one untimed launch (its
+    captures), then a timed dependent chain of ``chain`` launches; a
+    ``cell`` is then recorded for phase 10 (graph_cell).  Returns the keys,
+    the chain's output, its wall seconds, the launch counts, keygen seconds
+    and peak device memory."""
     from tfhe_tpu_torch.boot import gate
     from tfhe_tpu_torch.ops import kernels as K
+    cell_start()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rng, sk, ck, keygen_s = _keys(P, backend, seed)
     ct = gate.encrypt_bool(sk, bits, rng)
     boot = gate.make_bootstrap_fn(P, backend=backend)
-    boot(ck.data, ct)                   # untimed: first-use set-up
+    t0 = time.perf_counter()
+    boot(ck.data, ct)                   # untimed: first-use set-up, capture
     torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+
+    def run():
+        out = ct
+        for _ in range(chain):
+            out = boot(ck.data, out)
+        return out
+
     K.reset_launches()
     t0 = time.perf_counter()
-    out = ct
-    for _ in range(chain):
-        out = boot(ck.data, out)
+    out = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = _launch_counts()
     ok = gate.decrypt_bool(sk, out) == bits.astype(bool)
     check(ok.all(), f"{backend}: {int((~ok).sum())} of {len(bits)} bits "
           f"wrong")
-    return sk, ck, out, wall, _launch_counts(), keygen_s, peak_gb
+    if cell:
+        graph_cell(cell, run, out, wall, first)
+    return sk, ck, out, wall, counts, keygen_s, peak_gb
 
 
 def _wmt_only(what: str, ck):
@@ -1393,7 +1515,8 @@ def phase_n1024(smi: str, default_out, batch: int = 8192, chain: int = 2,
             ("onthefly", {"materialize_wt": n * chain,
                           "fused_cmux_step_v2": n * chain})):
         sk, ck, out, wall, counts, keygen_s, peak_gb = _gate_run(
-            P, backend, bits, chain)
+            P, backend, bits, chain,
+            cell=f"GATE_MXU {backend} B={batch} ({chain} launches)")
         _only(counts, kernels, f"GATE_MXU {backend}")
         outs[backend] = out
         by_path[f"gate_mxu_{backend}"] = counts
@@ -1443,8 +1566,8 @@ def phase_n1024(smi: str, default_out, batch: int = 8192, chain: int = 2,
     # GATE_DEFAULT chunked against phase 4's onthefly ciphertexts
     P, n, batch = GATE_DEFAULT, GATE_DEFAULT.lwe.n, default_batch
     bits = np.random.default_rng(2).integers(0, 2, batch)
-    _, ck, out, wall, counts, keygen_s, peak_gb = _gate_run(P, "chunked",
-                                                            bits, 1)
+    _, ck, out, wall, counts, keygen_s, peak_gb = _gate_run(
+        P, "chunked", bits, 1, cell=f"GATE_DEFAULT chunked B={batch}")
     del ck
     _only(counts, {"ck_cmux_step32": n}, "GATE_DEFAULT chunked")
     check(torch.equal(out, default_out),
@@ -1472,17 +1595,18 @@ def _decode_words(sk, cts):
     return (bits << np.arange(len(cts), dtype=np.uint64)[:, None]).sum(0)
 
 
-def phase_circuits(smi: str, keys, instances: int = 256):
+def phase_circuits(smi: str, keys, instances: int = 256, chains=(1, 4)):
     """A 32-bit ripple-carry adder and a 32-bit comparator over
     ``instances`` instances each, through runtime.scheduler.evaluate on the
-    GATE_MXU chunked keys: every output decodes to the plain sum or
-    comparison.  Returns the launch counts by path."""
+    GATE_MXU chunked keys, at each TFHE_WAVE_CHAIN of ``chains`` (each one
+    first run capturing its programs, then a timed graphed run, recorded
+    for phase 10): every output decodes to the plain sum or comparison.
+    Returns the launch counts by path."""
+    import os
     from tfhe_tpu_torch.boot import gate
-    from tfhe_tpu_torch.ops import kernels as K
     from tfhe_tpu_torch.params import GATE_MXU
     from tfhe_tpu_torch.rng import TfheRng
     from tfhe_tpu_torch.runtime import scheduler
-    from tfhe_tpu_torch.utils import observability as obs
     sk, ck = keys
     n = GATE_MXU.lwe.n
     rng = TfheRng(7)
@@ -1496,37 +1620,76 @@ def phase_circuits(smi: str, keys, instances: int = 256):
     for name, build in (("adder", scheduler.ripple_carry_adder),
                         ("comparator", scheduler.comparator)):
         circ, outs = build(32)
-        torch.cuda.synchronize()
-        obs.reset()
-        K.reset_launches()
-        t0 = time.perf_counter()
-        res = scheduler.evaluate(circ, cts, ck.data, GATE_MXU, outs,
-                                 backend="chunked")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = _launch_counts()
-        rep = obs.report()["counters"]
-        if name == "adder":
-            got = _decode_words(sk, res)
-            check((got == x + y).all(), f"adder: {int((got != x + y).sum())} "
-                  f"of {instances} sums wrong")
-        else:
-            dec = np.stack([gate.decrypt_bool(sk, res[i]) for i in range(3)])
-            want = np.stack([x < y, x == y, x > y])
-            check((dec == want).all(), f"comparator: "
-                  f"{int((dec != want).any(0).sum())} of {instances} "
-                  f"comparisons wrong")
-        _only(counts, {"ck_cmux_step32": n * rep["bootstrap.launches"]},
-              f"circuit {name}")
-        boots = rep["bootstrap.ciphertexts"]
-        by_path[f"circuit_{name}"] = counts
-        print(f"phase 7 {name}32 GATE_MXU chunked x{instances}: "
-              f"{rep['circuit.gates']} gates, {rep['circuit.waves']} waves, "
-              f"{rep['bootstrap.launches']} launches, {boots} gate "
-              f"bootstraps ({boots // instances} per circuit) in "
-              f"{wall:.3f} s: {boots / wall:.1f} gate bootstraps/s; every "
-              f"output decodes right [{smi}]")
+        for chain in chains:
+            os.environ["TFHE_WAVE_CHAIN"] = str(chain)
+            try:
+                res, wall, counts, rep, first = _circuit_run(
+                    circ, cts, ck, outs, name, chain)
+            finally:
+                del os.environ["TFHE_WAVE_CHAIN"]
+            if name == "adder":
+                got = _decode_words(sk, res)
+                check((got == x + y).all(), f"adder: "
+                      f"{int((got != x + y).sum())} of {instances} sums "
+                      f"wrong")
+            else:
+                dec = np.stack([gate.decrypt_bool(sk, res[i])
+                                for i in range(3)])
+                want = np.stack([x < y, x == y, x > y])
+                check((dec == want).all(), f"comparator: "
+                      f"{int((dec != want).any(0).sum())} of {instances} "
+                      f"comparisons wrong")
+            _only(counts, {"ck_cmux_step32": n * rep["bootstrap.launches"]},
+                  f"circuit {name} chain {chain}")
+            boots = rep["bootstrap.ciphertexts"]
+            by_path[f"circuit_{name}_chain{chain}"] = counts
+            compiles = rep.get("circuit.wave_compiles" if chain == 1
+                               else "circuit.chain_compiles", 0)
+            print(f"phase 7 {name}32 GATE_MXU chunked x{instances} "
+                  f"TFHE_WAVE_CHAIN={chain}: {rep['circuit.gates']} gates, "
+                  f"{rep['circuit.waves']} waves, "
+                  f"{rep['bootstrap.launches']} launches, {boots} gate "
+                  f"bootstraps ({boots // instances} per circuit) in "
+                  f"{wall:.3f} s: {boots / wall:.1f} gate bootstraps/s "
+                  f"(first run {first:.3f} s, {compiles} programs); every "
+                  f"output decodes right [{smi}]")
     return by_path
+
+
+def _circuit_run(circ, cts, ck, outs, name, chain):
+    """One untimed evaluate (its captures), then a timed one, graphed;
+    records the cell for phase 10.  Returns the output, the timed wall
+    seconds, its launch counts, its observability counters and the first
+    run's seconds."""
+    from tfhe_tpu_torch.ops import kernels as K
+    from tfhe_tpu_torch.params import GATE_MXU
+    from tfhe_tpu_torch.runtime import scheduler
+    from tfhe_tpu_torch.utils import observability as obs
+
+    def run():
+        return scheduler.evaluate(circ, cts, ck.data, GATE_MXU, outs,
+                                  backend="chunked")
+
+    cell_start()
+    torch.cuda.synchronize()
+    obs.reset()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    rep = obs.report()["counters"]
+    obs.reset()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    rep = dict(obs.report()["counters"], **{
+        k: v for k, v in rep.items() if k.endswith("_compiles")})
+    graph_cell(f"{name}32 x{cts.shape[1]} TFHE_WAVE_CHAIN={chain}", run, res,
+               wall, first)
+    return res, wall, counts, rep, first
 
 
 
@@ -1651,7 +1814,7 @@ def phase_engine_paths(smi: str, default_out, cb_state: dict):
     table holds); then the CB_MXU circuit bootstrap B=256 on conv with the
     key prepared from phase 5's raw TRGSWs (every TRGSW equal to phase 5's
     chunked ones).  Returns the launch counts by path."""
-    from tfhe_tpu_torch import device
+    from tfhe_tpu_torch import device, graphs
     from tfhe_tpu_torch.boot import circuit, gate
     from tfhe_tpu_torch.ops import kernels as K
     from tfhe_tpu_torch.params import CB_MXU, GATE_DEFAULT
@@ -1665,7 +1828,8 @@ def phase_engine_paths(smi: str, default_out, cb_state: dict):
             ("nussbaumer", {"rotate_decompose": n}),
             ("fft_f64", {"rotate_decompose": n})):
         sk, ck, out, wall, counts, keygen_s, peak_gb = _gate_run(
-            P, backend, bits, 1)
+            P, backend, bits, 1, cell=None if backend in graphs.EAGER_BACKENDS
+            else f"GATE_DEFAULT {backend} B={batch}")
         _only(counts, kernels, f"GATE_DEFAULT {backend}")
         if backend == "conv":
             check(torch.equal(out, default_out), "GATE_DEFAULT conv: the "
@@ -1701,8 +1865,9 @@ def phase_engine_paths(smi: str, default_out, cb_state: dict):
     data = {"preks": cb_state["preks"], "bk": bk,
             "privks": cb_state["privks"]}
     cb = circuit.make_circuit_bootstrap_staged(P, backend="conv")
+    cell_start()
     torch.cuda.reset_peak_memory_stats()
-    cb(ct, data)                        # untimed: first-use set-up
+    cb(ct, data)                        # untimed: first-use set-up, capture
     torch.cuda.synchronize()
     K.reset_launches()
     t0 = time.perf_counter()
@@ -1722,6 +1887,101 @@ def phase_engine_paths(smi: str, default_out, cb_state: dict):
           f"raw bk in {prep_s:.2f} s ({_nbytes(bk['k']) / 1e6:.0f} MB), peak "
           f"device memory {peak_gb:.2f} GB; launches {counts} [{smi}]")
     return by_path
+
+
+# ---------------------------------------------------------------------------
+# phase 10
+# ---------------------------------------------------------------------------
+
+def _step_nodes(backend: str, batch: int = 256, seed: int = 10):
+    """Nodes of one captured generic step's product (accumulate_into) of
+    ``backend`` at GATE_DEFAULT's engine config and B=256 (a rotation is
+    630 of them): the count that decides graphs.EAGER_BACKENDS."""
+    from tfhe_tpu_torch import graphs, tgsw
+    from tfhe_tpu_torch.ops.engine import make_engine
+    from tfhe_tpu_torch.params import GATE_DEFAULT
+    p = GATE_DEFAULT.tgsw
+    cfg = tgsw.engine_config(p)
+    J, U, N = (p.tlwe.k + 1) * p.l, p.tlwe.k + 1, p.tlwe.N
+    r = np.random.default_rng(seed)
+    half = 1 << (p.bgbit - 1)
+    x = torch.from_numpy(r.integers(-half, half, (batch, J, N))
+                         .astype(np.int32)).cuda()
+    key = torch.from_numpy(r.integers(-2**31, 2**31, (J, U, N))
+                           .astype(np.int32)).cuda()
+    if backend == "nussbaumer":
+        key = (key >> 8) << 8
+    acc = torch.from_numpy(r.integers(-2**31, 2**31, (batch, U, N))
+                           .astype(np.int32)).cuda()
+    eng = make_engine(cfg, backend)
+    prep = eng.prepare(key)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        want = eng.accumulate_into(acc, x, prep)        # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    g, kept = graphs.new_graph()
+    t0 = time.perf_counter()
+    with torch.cuda.graph(g, stream=stream):
+        out = eng.accumulate_into(acc, x, prep)
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    g.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(out, want), f"{backend}: a replayed step differs")
+    nodes = graphs.nodes(g) if kept else None
+    del g, out
+    torch.cuda.empty_cache()
+    return nodes, capture_ms
+
+
+def phase_graphs(smi: str):
+    """Phase 10: every cell of phases 3-9 graphed against eager (recorded by
+    graph_cell), the eager backends' step node counts, and the HP FFT
+    product on the card against the CPU."""
+    from tfhe_tpu_torch import graphs
+    from tfhe_tpu_torch.ops import hpfft
+    for c in GRAPH_CELLS:
+        busy = c["busy_ms"]
+        idle = ("not measured" if busy is None else
+                f"{1 - busy / (c['graphed_s'] * 1e3):.1%} graphed, "
+                f"{1 - busy / (c['eager_s'] * 1e3):.1%} eager")
+        nodes = "not measured" if c["nodes"] is None else c["nodes"]
+        print(f"phase 10 graphs {c['cell']}: bit-identical graphed and "
+              f"eager; wall {c['graphed_s']:.4f} s graphed, "
+              f"{c['eager_s']:.4f} s eager ({c['eager_s'] / c['graphed_s']:.2f}x);"
+              f" device busy {busy if busy is None else f'{busy:.1f}'} ms, "
+              f"idle share {idle}; first run {c['first_s']:.3f} s: "
+              f"{c['captures']} captures ({c['capture_ms']:.1f} ms capture, "
+              f"{c['instantiate_ms']:.1f} ms instantiate), {nodes} nodes, "
+              f"pool {c['pool_bytes'] / 1e6:.1f} MB; {c['replays']} replays "
+              f"[{smi}]")
+    for backend in ("nussbaumer", "fft_dd"):
+        nodes, ms = _step_nodes(backend)
+        rule = ("stays eager" if backend in graphs.EAGER_BACKENDS
+                else "captured")
+        print(f"phase 10 backend {backend}: one GATE_DEFAULT B=256 step's "
+              f"product captured as {nodes} nodes in {ms:.1f} ms, "
+              f"{'not measured' if nodes is None else nodes * 630} for a "
+              f"630-step rotation; {rule} (graphs.EAGER_BACKENDS)")
+    r = np.random.default_rng(11)
+    N = 1024
+    a = torch.from_numpy(r.integers(-128, 128, (4, N)).astype(np.int64))
+    b = torch.from_numpy(r.integers(-2**63, 2**63, (4, N), dtype=np.int64))
+    for limbs in (6, 8):
+        want = hpfft.hp_negacyclic_mul(a, b, limbs)
+        da, db = a.cuda(), b.cuda()
+        got = hpfft.hp_negacyclic_mul(da, db, limbs)
+        torch.cuda.synchronize()
+        check(got.device.type == "cuda" and torch.equal(got.cpu(), want),
+              f"hp_negacyclic_mul limbs={limbs}: the card differs from the "
+              f"CPU")
+        ms = cuda_ms(lambda: hpfft.hp_negacyclic_mul(da, db, limbs), 3)
+        t0 = time.perf_counter()
+        hpfft.hp_negacyclic_mul(a, b, limbs)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        print(f"phase 10 hpfft hp_negacyclic_mul N={N} x4 limbs={limbs}: "
+              f"bit-identical on the card and the CPU; {ms:.2f} ms a call on "
+              f"the card (CUDA events), {cpu_ms:.1f} ms on the host [{smi}]")
 
 
 def main() -> int:
@@ -1750,9 +2010,11 @@ def main() -> int:
     by_path.update(paths)
     by_path.update(phase_circuits(smi, keys))
     del keys
-    torch.cuda.empty_cache()
+    cell_start()                        # the programs held the keys
     phase_engines(smi)
     by_path.update(phase_engine_paths(smi, default_out, state))
+    cell_start()
+    phase_graphs(smi)
     from tfhe_tpu_torch.ops import kernels as K
     check(len(results) == len(K.KERNELS), f"phase 2 checked "
           f"{len(results)} of {len(K.KERNELS)} kernels")

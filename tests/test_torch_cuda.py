@@ -5,7 +5,10 @@ Marked ``cuda``: skipped where no GPU is present.  On a machine with one:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Small and ragged shapes (batches that do not fill a 64-row tile, every limb
-count, both key shifts, one and two digit planes), plus GATE_TOY
+count, both key shifts, one and two digit planes), the device guard, every
+captured program (tfhe_tpu_torch.graphs: the blind rotation, the bootstrap
+function, the staged circuit bootstrap, the scheduler's launches and
+chains) against graphs.disable(), plus GATE_TOY
 bootstraps (on the onthefly, matmul, conv, conv_bf16 and nussbaumer
 engines) and CB_TOY circuit bootstraps (on each of the four 64-bit steps,
 and on conv) that must give the same ciphertexts on the card as on the
@@ -116,7 +119,8 @@ def test_materialize_forced_plans(cuda, name, L, J, U, N, rows, cols,
     ptr = _poisoned(want.shape, cuda)
     got = torch.empty(want.shape, dtype=torch.int8, device=cuda)
     assert got.data_ptr() == ptr
-    K._launch(name, dv.data_ptr(), got.data_ptr(), L, J, U, N, rows, cols,
+    K._launch(name, dv.device,
+              dv.data_ptr(), got.data_ptr(), L, J, U, N, rows, cols,
               threads)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
@@ -127,7 +131,7 @@ def _rotate_decompose_plan(a, acc, *, l, bgbit, offset, plan):
     through its raw entry."""
     B, kp1, N = acc.shape
     out = torch.empty((B, kp1 * l, N), dtype=torch.int8, device=acc.device)
-    K._launch("rotate_decompose", a.data_ptr(), acc.data_ptr(),
+    K._launch("rotate_decompose", a.device, a.data_ptr(), acc.data_ptr(),
               out.data_ptr(), B, kp1, N, l, bgbit, offset & 0xFFFFFFFF, *plan)
     return out
 
@@ -356,7 +360,7 @@ def _rotate_decompose64_ck_plan(a, acc, *, l, bgbit, offset, m, planes,
     ckp = K.ck_width(kp1 * l * m)
     out = torch.empty((B, (N // m) * planes * ckp), dtype=torch.int8,
                       device=acc.device)
-    K._launch("rotate_decompose64_ck", a.data_ptr(), acc.data_ptr(),
+    K._launch("rotate_decompose64_ck", a.device, a.data_ptr(), acc.data_ptr(),
               out.data_ptr(), B, kp1, N, l, bgbit, offset & ((1 << 64) - 1),
               m, planes, ckp, *plan)
     return out
@@ -472,7 +476,8 @@ def _ck_dot64p_rows(x, wmt, *, N, m, planes, rows):
     UL, _, Jm = wmt.shape
     out = torch.empty((UL, x.shape[0], N), dtype=torch.int32,
                       device=x.device)
-    K._launch("ck_dot64p", x.data_ptr(), wmt.data_ptr(), out.data_ptr(),
+    K._launch("ck_dot64p", x.device,
+              x.data_ptr(), wmt.data_ptr(), out.data_ptr(),
               x.shape[0], N, m, Jm, UL, planes, K.ck_width(Jm), rows)
     return out
 
@@ -484,7 +489,8 @@ def _ck_dot64p_acc_plan(x, wmt, acc, *, N, m, planes, kp1, key_shift,
     rows, limbs = plan
     UL, _, Jm = wmt.shape
     out = torch.empty_like(acc)
-    K._launch("ck_dot64p_acc", x.data_ptr(), wmt.data_ptr(), acc.data_ptr(),
+    K._launch("ck_dot64p_acc", x.device,
+              x.data_ptr(), wmt.data_ptr(), acc.data_ptr(),
               out.data_ptr(), x.shape[0], N, m, Jm, kp1, UL // kp1, planes,
               K.ck_width(Jm), key_shift, rows, limbs)
     return out
@@ -790,7 +796,8 @@ def test_rotate_decompose64(cuda, B, k, N, l, bgbit):
     chosen = K.rotdec_plan(B, k + 1, N, 8, K.sm_count(cuda))
     for plan in _forced_rotdec_plans(chosen):
         got = torch.empty_like(want, device=cuda)
-        K._launch("rotate_decompose64", da.data_ptr(), dacc.data_ptr(),
+        K._launch("rotate_decompose64", da.device,
+                  da.data_ptr(), dacc.data_ptr(),
                   got.data_ptr(), B, k + 1, N, l, bgbit, offset, P, *plan)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want), plan
@@ -802,7 +809,8 @@ def _ck_dot64p_sacc_rows(x, wmt, acc, *, N, m, planes, kp1, key_shift,
     entry."""
     UL, _, Jm = wmt.shape
     out = torch.empty_like(acc)
-    K._launch("ck_dot64p_sacc", x.data_ptr(), wmt.data_ptr(), acc.data_ptr(),
+    K._launch("ck_dot64p_sacc", x.device,
+              x.data_ptr(), wmt.data_ptr(), acc.data_ptr(),
               out.data_ptr(), x.shape[0], N, m, Jm, kp1, UL // kp1, planes,
               K.ck_width(Jm), key_shift, rows)
     return out
@@ -846,7 +854,8 @@ def _ck_cmux_step64_plan(a, acc, wmt, *, l, bgbit, offset, m, kp1,
     N = Npm - m
     assert rows in (64, 128) and 1 <= split <= K.ck_work(N, m, 64)
     out = torch.empty_like(acc)
-    K._launch("ck_cmux_step64", a.data_ptr(), acc.data_ptr(), wmt.data_ptr(),
+    K._launch("ck_cmux_step64", a.device,
+              a.data_ptr(), acc.data_ptr(), wmt.data_ptr(),
               out.data_ptr(), acc.shape[0], kp1, N, m, l, UL // kp1, planes,
               bgbit, offset & ((1 << 64) - 1), key_shift, rows, split)
     return out
@@ -1027,3 +1036,229 @@ def test_reference_e2e_rotations(cuda):
     envelope of ref_e2e_fft (tests/test_torch_reference.py)."""
     from test_torch_reference import e2e_rotations_check
     e2e_rotations_check(cuda)
+
+
+# ---------------------------------------------------------------------------
+# the device guard, and the captured programs (tfhe_tpu_torch.graphs)
+# ---------------------------------------------------------------------------
+
+def test_launch_sets_the_tensors_device_and_takes_its_stream(cuda):
+    """A wrapper launches with its tensors' device current and on that
+    device's current stream: with the device set explicitly, and on a side
+    stream the caller made current.  (The wrong-card case needs two cards.)"""
+    v = _i8(np.random.default_rng(1), (3, 6, 2, 2048))
+    want = K.materialize_w_plain(v)
+    dv = v.to("cuda:0")
+    with torch.cuda.device(0):
+        got = K.materialize_w(dv)
+    side = torch.cuda.Stream(device=0)
+    side.wait_stream(torch.cuda.current_stream(0))
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)       # the side stream is busy
+        on_side = K.materialize_w(dv)
+        done = torch.cuda.Event()
+        done.record(side)
+    assert not done.query()                 # queued behind the sleep
+    side.synchronize()
+    assert torch.equal(got.cpu(), want) and torch.equal(on_side.cpu(), want)
+
+
+def _launch_counts():
+    return {k.__name__: k.launches for k in K.KERNELS}
+
+
+def _graph_counters():
+    from tfhe_tpu_torch.utils import observability as obs
+    c = obs.report()["counters"]
+    return c.get("graph.captures", 0), c.get("graph.replays", 0)
+
+
+def _graphed_against_eager(fn, inputs):
+    """fn on each input tuple, graphed (the first call captures, the rest
+    replay) and under graphs.disable(): equal results bit for bit; a
+    replay launches (counts) what an eager call launches; no result is
+    another's storage or changes after a later call."""
+    from tfhe_tpu_torch import graphs
+    graphs.clear()
+    captures, replays = _graph_counters()
+    outs, kept = [], []
+    for i, args in enumerate(inputs):
+        K.reset_launches()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        graphed = _launch_counts()
+        K.reset_launches()
+        with graphs.disable():
+            want = fn(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), i
+        assert graphed == _launch_counts(), i
+        assert sum(graphed.values()) > 0
+        outs.append(out)
+        kept.append(out.clone())
+    assert len({o.data_ptr() for o in outs}) == len(outs)
+    for o, k in zip(outs, kept):
+        assert torch.equal(o, k)
+    c, r = _graph_counters()
+    return c - captures, r - replays, graphs.stats()
+
+
+def _toy_gate(cuda, backend, seed=5):
+    rng = TfheRng(seed)
+    sk = gate.SecretKey.generate(GATE_TOY, rng)
+    ck = gate.CloudKey.generate(sk, rng, backend=backend, device=cuda)
+    return rng, sk, ck
+
+
+@pytest.mark.parametrize("backend", ["onthefly", "matmul", "conv", "fft_f64",
+                                     "nussbaumer", "fft_dd"])
+def test_graphed_blind_rotation(cuda, backend):
+    """blind_rotate runs its whole loop as one graph per shape and key
+    (fft_dd stays eager: graphs.EAGER_BACKENDS)."""
+    from tfhe_tpu_torch import graphs
+    from tfhe_tpu_torch.boot import blind_rotate as br
+    _, _, ck = _toy_gate(cuda, backend)
+    p = GATE_TOY.tgsw
+    r = np.random.default_rng(3)
+    inputs = [(_i32(r, (7, 2, 64)).to(cuda),
+               torch.from_numpy(r.integers(0, 128, (7, GATE_TOY.lwe.n))
+                                .astype(np.int32)).to(cuda))
+              for _ in range(3)]
+    captures, replays, stats = _graphed_against_eager(
+        lambda acc, abar: br.blind_rotate(acc, ck.data["bk"], abar, p,
+                                          backend), inputs)
+    if backend in graphs.EAGER_BACKENDS:
+        assert (captures, replays, stats) == (0, 0, [])
+    else:
+        assert (captures, replays) == (1, 2)
+        assert stats[0]["site"] == "blind_rotate"
+        assert stats[0]["nodes"] is None or stats[0]["nodes"] > 0
+
+
+def test_graphed_bootstrap_fn(cuda):
+    """make_bootstrap_fn is one graph; bootstrap.launches counts each
+    call once, outside it."""
+    from tfhe_tpu_torch.utils import observability as obs
+    rng, sk, ck = _toy_gate(cuda, "onthefly")
+    boot = gate.make_bootstrap_fn(GATE_TOY, backend="onthefly")
+    bits = [np.random.default_rng(i).integers(0, 2, 9) for i in range(3)]
+    cts = [gate.encrypt_bool(sk, b, rng, device=cuda) for b in bits]
+    before = obs.report()["counters"].get("bootstrap.launches", 0)
+    captures, replays, stats = _graphed_against_eager(
+        lambda ct: boot(ck.data, ct), [(ct,) for ct in cts])
+    assert (captures, replays) == (1, 2) and stats[0]["site"] == "bootstrap"
+    assert obs.report()["counters"]["bootstrap.launches"] - before == 6
+    for b, ct in zip(bits, cts):
+        assert (gate.decrypt_bool(sk, boot(ck.data, ct))
+                == b.astype(bool)).all()
+
+
+@pytest.mark.parametrize("env", [{}, {"TFHE_CK64_PATH": "acc"},
+                                 {"TFHE_CK64_PATH": "sacc"},
+                                 {"TFHE_CK64_FUSED": "1"}])
+def test_graphed_circuit_bootstrap_staged(cuda, monkeypatch, env):
+    """The staged circuit bootstrap: programs A, B (one for every level)
+    and C (one per z, on its key slice), equal to the eager run and to the
+    CPU's TRGSWs."""
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    ck, ct = _cb_toy(cuda)
+    cpu_ck, cpu_ct = _cb_toy("cpu")
+    cb = circuit.make_circuit_bootstrap_staged(CB_TOY)
+    other = torch.flip(ct, dims=(0,)).contiguous()
+    captures, replays, stats = _graphed_against_eager(
+        lambda x: cb(x, ck.data), [(ct,), (other,), (ct,)])
+    assert sorted(s["site"] for s in stats) == \
+        ["circuit.a", "circuit.b", "circuit.c", "circuit.c"]
+    assert captures == 4
+    assert torch.equal(cb(ct, ck.data).cpu(),
+                       circuit.circuit_bootstrap(cpu_ct, cpu_ck.data, CB_TOY))
+
+
+@pytest.mark.parametrize("chain", ["1", "4"])
+def test_graphed_circuit_evaluate(cuda, monkeypatch, chain):
+    """evaluate's launches (TFHE_WAVE_CHAIN=1) and chains (=4) as graphs:
+    equal to eager and to the CPU's ciphertexts, compiles counted as on
+    the CPU."""
+    from tfhe_tpu_torch import graphs
+    from tfhe_tpu_torch.runtime import scheduler
+    from tfhe_tpu_torch.utils import observability as obs
+    monkeypatch.setenv("TFHE_WAVE_CHAIN", chain)
+    name = "circuit.wave_compiles" if chain == "1" else \
+        "circuit.chain_compiles"
+    circ, outs = scheduler.ripple_carry_adder(4)
+    rng, sk, ck = _toy_gate(cuda, "onthefly", seed=9)
+    bits = np.random.default_rng(4).integers(0, 2, (8, 3))
+    cts = torch.stack([gate.encrypt_bool(sk, b, rng, device=cuda)
+                       for b in bits])
+    compiles = {}
+    cpu_data = _toy_gate("cpu", "onthefly", seed=9)[2].data
+    for dev, data in (("cpu", cpu_data), ("cuda", ck.data)):
+        graphs.clear()
+        obs.reset()
+        got = scheduler.evaluate(circ, cts.to(dev), data, GATE_TOY, outs,
+                                 backend="onthefly")
+        compiles[dev] = obs.report()["counters"][name]
+        if dev == "cpu":
+            want = got
+    assert compiles["cpu"] == compiles["cuda"] > 0
+    assert torch.equal(got.cpu(), want)
+    captures, replays, _ = _graphed_against_eager(
+        lambda x: scheduler.evaluate(circ, x, ck.data, GATE_TOY, outs,
+                                     backend="onthefly"), [(cts,), (cts,)])
+    assert captures == compiles["cuda"] and replays >= captures
+
+
+def test_graphed_rotation_inside_an_outer_capture(cuda):
+    """Inside a capture the caller began, blind_rotate records its loop
+    into that graph (no program of its own)."""
+    from tfhe_tpu_torch import graphs
+    from tfhe_tpu_torch.boot import blind_rotate as br
+    _, _, ck = _toy_gate(cuda, "onthefly")
+    p = GATE_TOY.tgsw
+    r = np.random.default_rng(6)
+    acc = _i32(r, (5, 2, 64)).to(cuda)
+    abar = torch.from_numpy(r.integers(0, 128, (5, GATE_TOY.lwe.n))
+                            .astype(np.int32)).to(cuda)
+    with graphs.disable():
+        want = br.blind_rotate(acc, ck.data["bk"], abar, p, "onthefly")
+    graphs.clear()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        with graphs.disable():
+            br.blind_rotate(acc, ck.data["bk"], abar, p, "onthefly")
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        out = br.blind_rotate(acc, ck.data["bk"], abar, p, "onthefly")
+    assert graphs.stats() == []
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+def test_a_failed_capture_raises(cuda):
+    """A program that cannot be captured (it synchronizes the host) raises
+    (a RuntimeError; torch.AcceleratorError in recent PyTorch) instead of
+    running eagerly; in a process of its own, so the failed capture cannot
+    touch this one."""
+    import subprocess
+    import sys
+    code = (
+        "import torch\n"
+        "from tfhe_tpu_torch import graphs\n"
+        "x = torch.ones(4, device='cuda')\n"
+        "def fn(x):\n"
+        "    y = x + 1\n"
+        "    torch.cuda.synchronize()\n"
+        "    return y\n"
+        "try:\n"
+        "    graphs.run('test', (), fn, (x,))\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', type(e).__name__)\n"
+        "else:\n"
+        "    print('ran')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
+    assert proc.stdout.startswith("raised "), proc.stdout + proc.stderr

@@ -20,11 +20,16 @@ the native C++ oracle (``utils.native``).  Every backend name of the JAX
 package's ``make_engine`` is an engine here (``ops.engine``): naive,
 matmul, onthefly, chunked, conv, conv_bf16 (exact), nussbaumer (exact on
 keys divisible by 2m, ``ops.nussbaumer``), and fft, fft_f64, fft_dd
-(approximate, ``ops.fft``).  Not ported yet: ``ops.hpfft``, a few small
-helpers of the JAX package, and the multi-device layer (``parallel``).
+(approximate, ``ops.fft``), and the high-precision FFT study
+(``ops.hpfft``).  ``graphs`` is the counterpart of ``jax.jit``: on the card
+the blind rotation, ``boot.gate.make_bootstrap_fn``, the staged circuit
+bootstrap and the scheduler's launches and chains each run as one captured
+CUDA graph (``graphs.disable()`` runs them eagerly).  Not ported yet: the
+multi-device layer (``parallel``).
 """
 
 from tfhe_tpu_torch import params as params
+from tfhe_tpu_torch import torus as torus
 from tfhe_tpu_torch import rng as rng
 
 __version__ = "0.1.0"

@@ -34,13 +34,21 @@ to another step: a selected step that does not apply raises.
 
 The decision is the same on the CPU and on the GPU; only the kernel
 wrappers choose between a plain version and a kernel.
+
+On the card ``blind_rotate`` runs the whole n-step loop as one captured
+CUDA graph (``graphs.run``, the counterpart of the JAX package's
+``lax.scan``), replayed on later calls with the same shapes, parameters,
+step knobs and key tensors; inside an outer program (``make_bootstrap_fn``,
+the circuit stages, the scheduler's waves) the loop is recorded into that
+program instead.  ``rotate_steps``, which yields after every step (the
+decrypt probes), stays eager.
 """
 
 from __future__ import annotations
 
 import os
 
-from tfhe_tpu_torch import tgsw, tlwe
+from tfhe_tpu_torch import graphs, tgsw, tlwe
 from tfhe_tpu_torch.params import TGswParams
 from tfhe_tpu_torch.ops import kernels, poly
 from tfhe_tpu_torch.ops.decomp import decompose_tlwe
@@ -135,9 +143,12 @@ def blind_rotate(acc, bk_prepared, abar, p: TGswParams,
     abar:        (B, n) int32 rotation exponents in [0, 2N).
     Returns the rotated accumulator (B, k+1, N).
     """
-    for _, _, acc in rotate_steps(acc, bk_prepared, abar, p, backend):
-        pass
-    return acc
+    def loop(acc, abar):
+        for _, _, acc in rotate_steps(acc, bk_prepared, abar, p, backend):
+            pass
+        return acc
+    return graphs.run("blind_rotate", (p, backend), loop, (acc, abar),
+                      graphs.leaves(bk_prepared), backend=backend)
 
 
 def rotate_and_extract(testvect, bk_prepared, barb, bara, p: TGswParams,

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from tfhe_tpu_torch import device as _device
-from tfhe_tpu_torch import lwe, noise, tgsw, tlwe
+from tfhe_tpu_torch import graphs, lwe, noise, tgsw, tlwe
 from tfhe_tpu_torch import torus as T
 from tfhe_tpu_torch.boot import blind_rotate as br
 from tfhe_tpu_torch.ops.engine import make_engine, stack_prepared
@@ -216,12 +216,23 @@ class CircuitCloudKey:
                 "privks": self.privks.w_limbs}
 
 
-def circuit_bootstrap(samples, key_data, p: CircuitParams,
-                      backend: str = "chunked",
-                      shared_rotation: bool | None = None):
-    """LWE32(lvl1, bit/2) batch (B, n1+1) -> TRGSW32 batch
-    (B, k+1, ell1, k+1, N1) encrypting bit = [phase in (1/4, 3/4)]
-    (tfhe_CircuitBootstrapFFT, poc:823-873, corrected composition)."""
+def _eager(site, structure, fn, inputs, keys=(), *, backend=None):
+    """``graphs.run``'s signature, run directly."""
+    return fn(*inputs)
+
+
+def _circuit_bootstrap(samples, key_data, p: CircuitParams, backend: str,
+                       shared_rotation: bool | None, run):
+    """The circuit bootstrap in the JAX package's three stages, each stage
+    run through ``run`` (``graphs.run`` for the staged programs, ``_eager``
+    for ``circuit_bootstrap``):
+
+      A. preKS + mod switch            (samples -> abar, bbar)
+      B. blind rotation + extract      (the test-vector amplitude mu2 an
+                                        input: one program serves every
+                                        level)
+      C. private functional key switch (one program per z, on its slice of
+                                        the privKS key, read in place)"""
     N2 = p.n_lvl2
     k = p.lvl1.k
     ell1, bgbit1 = p.tgsw_lvl1.l, p.tgsw_lvl1.bgbit
@@ -229,27 +240,34 @@ def circuit_bootstrap(samples, key_data, p: CircuitParams,
         shared_rotation = (noise.shared_rotation_penalty(p)
                            <= noise.SHARED_ROTATION_MAX_PENALTY)
 
-    # 1. pre key switch lvl1 -> lvl0 (poc:832)
-    preks = lwe.KeySwitchKey(p.ks10, p.n_lvl1, p.n_lvl0, key_data["preks"])
-    x0 = lwe.keyswitch(samples, preks)                        # (B, n0+1)
+    # 1. pre key switch lvl1 -> lvl0 (poc:832); 2. mod switch to Z_{2*N2}
+    #    (poc:836 / preModSwitch :472)
+    def stage_a(samples):
+        preks = lwe.KeySwitchKey(p.ks10, p.n_lvl1, p.n_lvl0,
+                                 key_data["preks"])
+        x0 = lwe.keyswitch(samples, preks)                    # (B, n0+1)
+        return (T.mod_switch_from_torus32(x0[..., :-1], 2 * N2),
+                T.mod_switch_from_torus32(x0[..., -1], 2 * N2))
 
-    # 2. mod switch to Z_{2*N2} (poc:836 / preModSwitch :472)
-    abar = T.mod_switch_from_torus32(x0[..., :-1], 2 * N2)    # (B, n0)
-    bbar = T.mod_switch_from_torus32(x0[..., -1], 2 * N2)     # (B,)
+    abar, bbar = run("circuit.a", (p,), stage_a, (samples,),
+                     (key_data["preks"],))
 
     # 3. blind rotation(s) at lvl2.  Test vector (poc:552-562):
     #    [-mu2]*N/2 ++ [mu2]*N/2; after X^{-phibar} rotation, coefficient 0
     #    is +mu2 iff phibar in [N/2, 3N/2) iff phase in [1/4, 3/4).
-    pksk = PrivKeySwitchKey(p.ks21, p.n_lvl2, k, p.n_lvl1, key_data["privks"])
+    def stage_b(abar, bbar, mu2):
+        sign = torch.ones(N2, dtype=torch.int64, device=abar.device)
+        sign[:N2 // 2] = -1
+        ext = br.rotate_and_extract(sign * mu2, key_data["bk"], bbar, abar,
+                                    p.tgsw_lvl2, backend)
+        ext[..., -1] += mu2      # recentre: the message is {0, mu_w}
+        return ext
 
     def rotate_for(w):
-        mu2 = 1 << (63 - (w + 1) * bgbit1)                    # mu_w / 2
-        tv = torch.full((N2,), mu2, dtype=torch.int64, device=samples.device)
-        tv[:N2 // 2] = -mu2
-        ext = br.rotate_and_extract(tv, key_data["bk"], bbar, abar,
-                                    p.tgsw_lvl2, backend)
-        ext[..., -1] += mu2          # recentre: the message is {0, mu_w}
-        return ext
+        mu2 = torch.full((), 1 << (63 - (w + 1) * bgbit1),    # mu_w / 2
+                         dtype=torch.int64, device=abar.device)
+        return run("circuit.b", (p, backend), stage_b, (abar, bbar, mu2),
+                   graphs.leaves(key_data["bk"]), backend=backend)
 
     if shared_rotation:
         base_ext = rotate_for(ell1 - 1)
@@ -258,17 +276,34 @@ def circuit_bootstrap(samples, key_data, p: CircuitParams,
         exts = [rotate_for(w) for w in range(ell1)]
 
     # 4. private functional key switches fill the TRGSW rows (poc:845-855)
-    rows = [priv_keyswitch(ext, pksk, z) for ext in exts for z in range(k + 1)]
+    def stage_c(pk_w_z):
+        pksk = PrivKeySwitchKey(p.ks21, p.n_lvl2, k, p.n_lvl1, pk_w_z[None])
+        return lambda ext: priv_keyswitch(ext, pksk, 0)
+
+    rows = [run("circuit.c", (p,), stage_c(key_data["privks"][z]), (ext,),
+                (key_data["privks"][z],))
+            for ext in exts for z in range(k + 1)]
     # rows ordered (w, z); the TRGSW layout is (bloc z, level w, k+1, N)
-    out = torch.stack(rows, dim=-3)               # (B, ell1*(k+1), k+1, N1)
+    out = torch.stack(rows, dim=-3)               # (B, ell1*(k+1), k+1, N)
     out = out.reshape(*out.shape[:-3], ell1, k + 1, k + 1, p.n_lvl1)
     return out.transpose(-4, -3).contiguous()     # (B, k+1, ell1, k+1, N1)
 
 
+def circuit_bootstrap(samples, key_data, p: CircuitParams,
+                      backend: str = "chunked",
+                      shared_rotation: bool | None = None):
+    """LWE32(lvl1, bit/2) batch (B, n1+1) -> TRGSW32 batch
+    (B, k+1, ell1, k+1, N1) encrypting bit = [phase in (1/4, 3/4)]
+    (tfhe_CircuitBootstrapFFT, poc:823-873, corrected composition).  Runs
+    eagerly but for its blind rotations (``blind_rotate``'s programs)."""
+    return _circuit_bootstrap(samples, key_data, p, backend, shared_rotation,
+                              _eager)
+
+
 def make_circuit_bootstrap_fn(p: CircuitParams, backend: str = "chunked",
                               shared_rotation: bool = True):
-    """``circuit_bootstrap`` with its parameters bound (PyTorch runs
-    eagerly; the JAX package jits here)."""
+    """``circuit_bootstrap`` with its parameters bound (the JAX package jits
+    it whole; here its rotations are programs)."""
     return functools.partial(circuit_bootstrap, p=p, backend=backend,
                              shared_rotation=shared_rotation)
 
@@ -276,12 +311,12 @@ def make_circuit_bootstrap_fn(p: CircuitParams, backend: str = "chunked",
 def make_circuit_bootstrap_staged(p: CircuitParams, backend: str = "chunked",
                                   shared_rotation: bool | None = None):
     """fn(samples, key_data) -> TRGSW batch, the same function as
-    ``circuit_bootstrap``.  The JAX package compiles three small programs
-    here instead of one monolithic jit; eager PyTorch has nothing to stage,
-    so this only binds the parameters and counts
-    ``bootstrap.circuit_launches``."""
+    ``circuit_bootstrap``, as the JAX package's three staged programs (A, B
+    and C of ``_circuit_bootstrap``): on the card each stage is one captured
+    CUDA graph (``graphs.run``), replayed on later calls.  Counts
+    ``bootstrap.circuit_launches`` once a call, outside the programs."""
     def fn(samples, key_data):
         obs.count("bootstrap.circuit_launches")
-        return circuit_bootstrap(samples, key_data, p, backend,
-                                 shared_rotation)
+        return _circuit_bootstrap(samples, key_data, p, backend,
+                                  shared_rotation, graphs.run)
     return fn

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from tfhe_tpu_torch import device as _device
-from tfhe_tpu_torch import lwe, tlwe, tgsw
+from tfhe_tpu_torch import graphs, lwe, tlwe, tgsw
 from tfhe_tpu_torch import torus as T
 from tfhe_tpu_torch.boot import blind_rotate as br
 from tfhe_tpu_torch.ops.engine import make_engine, stack_prepared
@@ -131,11 +131,18 @@ def bootstrap(samples, key_data, params: GateParams, mu: int = MU_BOOL,
 
 def make_bootstrap_fn(params: GateParams, mu: int = MU_BOOL,
                       backend: str = "matmul"):
-    """(key_data, samples) -> bootstrapped samples.  PyTorch runs eagerly,
-    so this is ``bootstrap`` with its parameters bound."""
+    """(key_data, samples) -> bootstrapped samples, the JAX package's jitted
+    bootstrap.  On the card the whole bootstrap (mod switch, test vector,
+    rotation, extract, key switch) is one captured CUDA graph per samples
+    shape and key (``graphs.run``), replayed on later calls; the
+    ``bootstrap.*`` counters count outside it, once per call, as the JAX
+    package counts outside its jit."""
     def fn(key_data, samples):
         _count_launch(samples)
-        return _bootstrap(samples, key_data, params, mu, backend)
+        return graphs.run(
+            "bootstrap", (params, mu, backend),
+            lambda s: _bootstrap(s, key_data, params, mu, backend),
+            (samples,), graphs.leaves(key_data), backend=backend)
     return fn
 
 
@@ -144,8 +151,9 @@ def make_bootstrap_fn(params: GateParams, mu: int = MU_BOOL,
 # ---------------------------------------------------------------------------
 
 def _trivial(mu, n, device):
+    # a fill on the device, no host-to-device copy: a graph captures it
     return lwe.noiseless_trivial(
-        torch.tensor(mu, dtype=torch.int32, device=device), n)
+        torch.full((), mu, dtype=torch.int32, device=device), n)
 
 
 def encrypt_bool(sk: SecretKey, bits, rng: TfheRng, device=None):

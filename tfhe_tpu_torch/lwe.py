@@ -69,6 +69,11 @@ def phase(samples, key: LweKey):
     return T.wrap32(b.to(torch.int64) - (a.to(torch.int64) * s).sum(-1))
 
 
+def decrypt(samples, key: LweKey, msize: int):
+    """approxPhase(phase) (lweSymDecrypt, lwe_functions.cpp:68-73)."""
+    return T.approx_phase32(phase(samples, key), msize)
+
+
 # ---------------------------------------------------------------------------
 # Key switching
 # ---------------------------------------------------------------------------

@@ -6,8 +6,10 @@ Every wrapper takes its plain version when its tensors lie on the CPU and
 launches its kernel (``csrc/<name>.cu``, built by ``_build``) when they lie on
 a CUDA device; there is no fallback from one to the other.  A wrapper checks
 dtype, shape, device and contiguity, allocates its output with
-``torch.empty``, launches on the current stream, raises if the launch
-reports an error, and adds one to its ``launches`` counter per launch.
+``torch.empty`` on its tensors' device, launches with that device current
+and on its current stream (``_launch``: the device guard; under a graph
+capture that stream is the capturing one), raises if the launch reports an
+error, and adds one to its ``launches`` counter per launch.
 
 The plain versions are the same exact integer functions: int8 products are
 contracted in float64 (every dot is an integer below 2^53, so the BLAS sum is
@@ -73,8 +75,13 @@ def _check(t, name, dtype, ndim):
     _require(t.is_contiguous(), f"{name}: must be contiguous")
 
 
-def _launch(name: str, *args):
-    rc = _build.entry(name)(*args, torch.cuda.current_stream().cuda_stream)
+def _launch(name: str, device, *args):
+    """Launch entry point ``name`` with ``device`` (its tensors' card) set
+    as the current device, on that device's current stream (under a graph
+    capture, the capturing stream)."""
+    with torch.cuda.device(device):
+        rc = _build.entry(name)(*args,
+                                torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")
 
@@ -139,7 +146,7 @@ def _materialize(wrapper, plain, v, kpacked: bool):
     shape = (L, U * N, J * N) if kpacked else (L, J * N, U * N)
     out = torch.empty(shape, dtype=torch.int8, device=v.device)
     wrapper.launches += 1
-    _launch(name, v.data_ptr(), out.data_ptr(), L, J, U, N,
+    _launch(name, v.device, v.data_ptr(), out.data_ptr(), L, J, U, N,
             *materialize_w_plan(L, J, U, N, sm_count(v.device)))
     return out
 
@@ -277,7 +284,8 @@ def rotate_decompose(a, acc, *, l: int, bgbit: int, offset: int):
              f"== 0, got N={N}")
     out = torch.empty((B, kp1 * l, N), dtype=torch.int8, device=acc.device)
     rotate_decompose.launches += 1
-    _launch("rotate_decompose", a.data_ptr(), acc.data_ptr(), out.data_ptr(),
+    _launch("rotate_decompose", a.device,
+            a.data_ptr(), acc.data_ptr(), out.data_ptr(),
             B, kp1, N, l, bgbit, offset & T.MASK32,
             *rotdec_plan(B, kp1, N, 4, sm_count(acc.device)))
     return out
@@ -340,7 +348,8 @@ def mm_recombine_acc(x, w, acc_in, *, shift_base: int = 0, split: int = 0):
     split = split or mm_recombine_acc_split(B, K, UN, L, x.device)
     out = torch.empty_like(acc_in)
     mm_recombine_acc.launches += 1
-    _launch("mm_recombine_acc", x.data_ptr(), w.data_ptr(), acc_in.data_ptr(),
+    _launch("mm_recombine_acc", x.device,
+            x.data_ptr(), w.data_ptr(), acc_in.data_ptr(),
             out.data_ptr(), B, K, UN, L, shift_base, split)
     return out
 
@@ -471,7 +480,8 @@ def fused_cmux_step_v2(a, acc, wt, *, l: int, bgbit: int, offset: int,
              f"== 0, l <= 4, and a key ring of at least l stages)")
     out = torch.empty_like(acc)
     fused_cmux_step_v2.launches += 1
-    _launch("fused_cmux_step", a.data_ptr(), acc.data_ptr(), wt.data_ptr(),
+    _launch("fused_cmux_step", a.device,
+            a.data_ptr(), acc.data_ptr(), wt.data_ptr(),
             out.data_ptr(), B, kp1, N, l, L, bgbit, offset & T.MASK32,
             key_shift, cols)
     return out
@@ -537,7 +547,8 @@ def fused_cmux_step(a, acc, w, *, l: int, bgbit: int, offset: int,
              f"N={N}")
     out = torch.empty_like(acc)
     fused_cmux_step.launches += 1
-    _launch("fused_cmux_step_v1", a.data_ptr(), acc.data_ptr(), w.data_ptr(),
+    _launch("fused_cmux_step_v1", a.device,
+            a.data_ptr(), acc.data_ptr(), w.data_ptr(),
             out.data_ptr(), B, kp1, N, l, bgbit, offset & T.MASK32, key_shift,
             lb)
     return out
@@ -619,7 +630,7 @@ def _rotate_decompose64_ck(wrapper, a, acc, *, l, bgbit, offset, m, planes):
     out = torch.empty((B, (N // m) * planes * ckp), dtype=torch.int8,
                       device=acc.device)
     wrapper.launches += 1
-    _launch("rotate_decompose64_ck", a.data_ptr(), acc.data_ptr(),
+    _launch("rotate_decompose64_ck", a.device, a.data_ptr(), acc.data_ptr(),
             out.data_ptr(), B, kp1, N, l, bgbit, offset & ((1 << 64) - 1), m,
             planes, ckp, *rotdec_plan(B, kp1, N, 8, sm_count(acc.device)))
     return out
@@ -719,7 +730,7 @@ def rotate_decompose64(a, acc, *, l: int, bgbit: int, offset: int,
     out = torch.empty((B * kp1, l * planes, N), dtype=torch.int8,
                       device=acc.device)
     rotate_decompose64.launches += 1
-    _launch("rotate_decompose64", a.data_ptr(), acc.data_ptr(),
+    _launch("rotate_decompose64", a.device, a.data_ptr(), acc.data_ptr(),
             out.data_ptr(), B, kp1, N, l, bgbit, offset & ((1 << 64) - 1),
             planes, *rotdec_plan(B, kp1, N, 8, sm_count(acc.device)))
     return out
@@ -864,7 +875,8 @@ def ck_dot64p(x, wmt, *, N: int, m: int, planes: int = 1,
     rows = ck_dot64p_plan(B, N, m, Jm, planes)
     out = torch.empty((UL, B, N), dtype=torch.int32, device=x.device)
     ck_dot64p.launches += 1
-    _launch("ck_dot64p", x.data_ptr(), wmt.data_ptr(), out.data_ptr(), B, N,
+    _launch("ck_dot64p", x.device,
+            x.data_ptr(), wmt.data_ptr(), out.data_ptr(), B, N,
             m, Jm, UL, planes, ckp, rows)
     return out
 
@@ -951,7 +963,8 @@ def ck_dot64p_acc(x, wmt, acc, *, N: int, m: int, key_shift: int,
     rows, limbs = ck_dot64p_acc_plan(B, N, m, Jm, L, planes)
     out = torch.empty_like(acc)
     ck_dot64p_acc.launches += 1
-    _launch("ck_dot64p_acc", x.data_ptr(), wmt.data_ptr(), acc.data_ptr(),
+    _launch("ck_dot64p_acc", x.device,
+            x.data_ptr(), wmt.data_ptr(), acc.data_ptr(),
             out.data_ptr(), B, N, m, Jm, kp1, L, planes, ckp, key_shift, rows,
             limbs)
     return out
@@ -984,7 +997,8 @@ def ck_dot64p_sacc(x, wmt, acc, *, N: int, m: int, key_shift: int,
     rows = ck_dot64p_plan(x.shape[0], N, m, Jm, planes)
     out = torch.empty_like(acc)
     ck_dot64p_sacc.launches += 1
-    _launch("ck_dot64p_sacc", x.data_ptr(), wmt.data_ptr(), acc.data_ptr(),
+    _launch("ck_dot64p_sacc", x.device,
+            x.data_ptr(), wmt.data_ptr(), acc.data_ptr(),
             out.data_ptr(), x.shape[0], N, m, Jm, kp1, UL // kp1, planes, ckp,
             key_shift, rows)
     return out
@@ -1180,7 +1194,8 @@ def ck_cmux_step32(a, acc, wm, *, l: int, bgbit: int, offset: int, m: int,
                                            tile_rows, split)
     out = torch.empty_like(acc)
     ck_cmux_step32.launches += 1
-    _launch("ck_cmux_step32", a.data_ptr(), acc.data_ptr(), wm.data_ptr(),
+    _launch("ck_cmux_step32", a.device,
+            a.data_ptr(), acc.data_ptr(), wm.data_ptr(),
             out.data_ptr(), B, kp1, N, m, l, L, bgbit, offset & T.MASK32,
             key_shift, tile_rows, split)
     return out
@@ -1276,7 +1291,8 @@ def ck_cmux_step64(a, acc, wmt, *, l: int, bgbit: int, offset: int, m: int,
                                       acc.device)
     out = torch.empty_like(acc)
     ck_cmux_step64.launches += 1
-    _launch("ck_cmux_step64", a.data_ptr(), acc.data_ptr(), wmt.data_ptr(),
+    _launch("ck_cmux_step64", a.device,
+            a.data_ptr(), acc.data_ptr(), wmt.data_ptr(),
             out.data_ptr(), B, kp1, N, m, l, L, planes, bgbit,
             offset & ((1 << 64) - 1), key_shift, rows, split)
     return out

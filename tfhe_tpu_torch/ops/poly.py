@@ -61,6 +61,22 @@ def negacyclic_matrix(poly):
     return doubled[..., idx]
 
 
+def negacyclic_mul_exact(a_int, b_torus):
+    """Exact negacyclic product of an integer polynomial with a torus
+    polynomial, wrapping in b's dtype: the O(N^2) oracle (the analog of the
+    reference's exact Karatsuba path, poc_karatsuba.cpp:60-94).
+
+    a_int: (..., N) integer; b_torus: (..., N) int32 or int64
+    (broadcastable).  Summed in int64, which wraps mod 2^64 (and so stays
+    right mod 2^32), as an elementwise product: integer matrix products do
+    not run on CUDA."""
+    b = torch.as_tensor(b_torus)
+    M = negacyclic_matrix(b).to(torch.int64)                 # (..., N, N)
+    a = torch.as_tensor(a_int).to(device=b.device, dtype=torch.int64)
+    y = (a[..., :, None] * M).sum(-2)
+    return y if b.dtype == torch.int64 else T.wrap32(y)
+
+
 def sample_extract(tlwe_av, index: int = 0):
     """Extract the LWE sample of coefficient ``index`` from a TRLWE sample
     (tLweExtractLweSampleIndex, tlwe_functions.cpp:351-362).
@@ -75,6 +91,55 @@ def sample_extract(tlwe_av, index: int = 0):
     a_out = torch.where(j <= index, rolled, -rolled)
     a_out = a_out.reshape(*tlwe_av.shape[:-2], k * N)
     return torch.cat([a_out, b[..., index:index + 1]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Scalar mul-adds and norms (numeric_functions.cpp:140-460)
+# ---------------------------------------------------------------------------
+
+def add_mul_z(accum, p, x):
+    """accum + p * x with the torus wrap of accum's dtype
+    (torusPolynomialAddMulZTo, numeric_functions.cpp:316-322).  p: an
+    integer scalar or a (..., 1) tensor."""
+    accum = torch.as_tensor(accum)
+    prod = (torch.as_tensor(p).to(torch.int64)
+            * torch.as_tensor(x).to(torch.int64))
+    return T.add(accum, prod.to(accum.device))
+
+
+def sub_mul_z(accum, p, x):
+    """accum - p * x with the torus wrap of accum's dtype
+    (torusPolynomialSubMulZTo, numeric_functions.cpp:324-330)."""
+    accum = torch.as_tensor(accum)
+    prod = (torch.as_tensor(p).to(torch.int64)
+            * torch.as_tensor(x).to(torch.int64))
+    return T.sub(accum, prod.to(accum.device))
+
+
+def int_norm_sq2(x):
+    """Euclidean norm^2 of integer polynomials over the last axis
+    (intPolynomialNormSq2/Norm2sq, numeric_functions.cpp:361-371,437-446),
+    float64."""
+    x = torch.as_tensor(x).to(torch.float64)
+    return (x * x).sum(-1)
+
+
+def int_norm_infty_dist(a, b):
+    """max |a - b| over the last axis (intPolynomialNormInftyDist,
+    numeric_functions.cpp:449-461), float64."""
+    d = torch.as_tensor(a).to(torch.int64) - torch.as_tensor(b).to(
+        torch.int64)
+    return d.abs().to(torch.float64).amax(-1)
+
+
+def torus_norm_infty_dist(a, b):
+    """max |t2double(a - b)| over the last axis, with the wrap-aware
+    difference (torusPolynomialNormInftyDist, numeric_functions.cpp:419-428).
+    """
+    a = torch.as_tensor(a)
+    d = T.sub(a, torch.as_tensor(b).to(a.dtype))        # the torus wrap
+    bits = 32 if a.dtype == torch.int32 else 64
+    return (d.to(torch.float64) / 2.0**bits).abs().amax(-1)
 
 
 def mul_fft(a_int, b_torus, precision: str = "auto"):

@@ -11,18 +11,26 @@ count.  NOT and constants are folded into wire references by the scheduler
 and cost nothing (gate_not is sample negation; constants are noiseless
 trivial samples).
 
-PyTorch runs eagerly, so the JAX package's per-wave and per-chain ``jit``
-caches (and their ``circuit.wave_compiles`` / ``circuit.chain_compiles``
-counters) have no counterpart: ``TFHE_WAVE_CHAIN=K`` runs the same launches
-with the same widths, K at a time under one ``circuit.chain`` span.  The
-launch list, its ``TFHE_MAX_WAVE_ROWS`` cap and the ``TFHE_WAVE_SPLIT``
-per-kind split are the JAX package's, so both packages launch the same
-widths in the same order.  ``bootstrap.launches`` and
-``bootstrap.ciphertexts`` are counted by ``gate.bootstrap`` itself (once per
-launch; in the JAX package the scheduler counts them, since its bootstrap
-runs under jit); ``circuit.gates``, ``circuit.waves``, the
-``circuit.wave_width`` observation and the ``circuit.wave.*`` spans are
-counted here.
+Each launch is one program, as the JAX package jits each one: on the card
+a captured CUDA graph (``graphs.run``), keyed as the JAX package's
+``_WAVE_JIT`` is (kind, shape, parameters, backend; plus the key tensors),
+whose cache misses count ``circuit.wave_compiles``.  ``TFHE_WAVE_CHAIN=K``
+makes K consecutive launches one program (the JAX package's
+``_run_chained`` / ``_make_chain_fn``): its key is the chain's structure,
+external wires numbered by first use, gate kinds, negations and constant
+inputs folded into per-gate affine and sign arrays that are the program's
+inputs, so repeated slices of a circuit (every full-adder bit of a ripple
+adder) replay one program; its misses count ``circuit.chain_compiles``.
+On the CPU the same functions run eagerly and the misses count the same,
+so both packages count the same compiles on the same circuit.  The launch
+list, its ``TFHE_MAX_WAVE_ROWS`` cap and the ``TFHE_WAVE_SPLIT`` per-kind
+split are the JAX package's, so both packages launch the same widths in
+the same order.  ``bootstrap.launches`` and ``bootstrap.ciphertexts`` are
+counted by ``gate.bootstrap`` itself (once per launch, a replay adding what
+its capture counted; in the JAX package the scheduler counts them, since
+its bootstrap runs under jit); ``circuit.gates``, ``circuit.waves``, the
+``circuit.wave_width`` observation and the ``circuit.wave.*`` and
+``circuit.chain`` spans are counted here.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from tfhe_tpu_torch import graphs
 from tfhe_tpu_torch import torus as T
 from tfhe_tpu_torch.boot import gate
 from tfhe_tpu_torch.ops import _build
@@ -219,40 +228,191 @@ def evaluate(circ: Circuit, inputs, ck_data, params, outputs,
             ct = store[base]
         return -ct if neg else ct
 
+    keys = graphs.leaves(ck_data)
+
     def run(kind, grp):
         if kind == "mux":
             c, x, y = (torch.stack([fetch(g[o]) for g in grp])
                        for o in (1, 2, 3))
             flat = [t.reshape(-1, n + 1) for t in (c, x, y)]
-            res = gate.gate_mux(ck_data, *flat, params, backend)
+            res = graphs.run(
+                "wave", ("mux", flat[0].shape, params, backend),
+                lambda *xs: gate.gate_mux(ck_data, *xs, params, backend),
+                tuple(flat), keys, backend=backend,
+                compiles="circuit.wave_compiles")
             res = res.reshape(c.shape)
         else:
-            a = torch.stack([fetch(g[1]) for g in grp]).to(torch.int64)
-            b = torch.stack([fetch(g[2]) for g in grp]).to(torch.int64)
-            c0, wx, wy = (torch.tensor([_AFFINE[g[0]][i] for g in grp],
-                                       dtype=torch.int64, device=dev)
-                          for i in range(3))
-            sh = (-1,) + (1,) * (a.ndim - 1)
-            t = wx.reshape(sh) * a + wy.reshape(sh) * b
-            t[..., -1] += c0.reshape(sh[:-1])
-            t = T.wrap32(t)
-            res = gate.bootstrap(t.reshape(-1, n + 1), ck_data, params,
-                                 gate.MU_BOOL, backend).reshape(t.shape)
+            a = torch.stack([fetch(g[1]) for g in grp])
+            b = torch.stack([fetch(g[2]) for g in grp])
+            affine = (torch.tensor([_AFFINE[g[0]][i] for g in grp],
+                                   dtype=torch.int64, device=dev)
+                      for i in range(3))
+            res = graphs.run(
+                "wave", ("binary", a.shape, params, backend),
+                lambda *xs: _binary(ck_data, *xs, params, backend),
+                (a, b, *affine), keys, backend=backend,
+                compiles="circuit.wave_compiles")
         for i, g in enumerate(grp):
             store[g[4]] = res[i]
 
     launches = launch_list(circ, inst)
     chain_k = int(os.environ.get("TFHE_WAVE_CHAIN", "1"))
     if chain_k > 1:
-        for s in range(0, len(launches), chain_k):
-            with obs.span("circuit.chain"):
-                for kind, grp in launches[s:s + chain_k]:
-                    run(kind, grp)
+        _run_chained(launches, chain_k, store, lead, n, ck_data, params,
+                     backend)
     else:
         for kind, grp in launches:
             with obs.span(f"circuit.wave.{kind}"):
                 run(kind, grp)
     return torch.stack([fetch(circ.resolve(w)) for w in outputs])
+
+
+def _binary(ck_data, a, b, c0, wx, wy, params, backend):
+    """One launch of a level's mixed binary gates: bootstrap of
+    wx*a + wy*b + (0,..,0,c0), per-gate constants (int64 device tensors)
+    broadcast over the instance axes."""
+    n = params.lwe.n
+    sh = (-1,) + (1,) * (a.ndim - 1)
+    t = wx.reshape(sh) * a.to(torch.int64) + wy.reshape(sh) * b.to(torch.int64)
+    t[..., -1] += c0.reshape(sh[:-1])
+    t = T.wrap32(t)
+    return gate.bootstrap(t.reshape(-1, n + 1), ck_data, params,
+                          gate.MU_BOOL, backend).reshape(t.shape)
+
+
+def _run_chained(launches, K, store, lead, n, ck_data, params, backend):
+    """Execute the launch list in chains of K consecutive launches, each
+    chain ONE program (the JAX package's ``_run_chained``).
+
+    The host pass builds the chain's structural signature (operand topology
+    with external wires numbered by first use) and its per-gate arrays:
+    gate kinds, input negations and constant inputs fold into the affine
+    (c0, wx, wy) arrays of binary launches and the sign / constant arrays of
+    MUX launches, so every full-adder bit slice of a ripple adder has the
+    same signature.  The arrays and the stacked external wires are the
+    program's inputs."""
+    mu = int(gate.MU_BOOL)
+    dev = ck_data["ksw"].device
+    keys = graphs.leaves(ck_data)
+    for s in range(0, len(launches), K):
+        chain = launches[s:s + K]
+        ext_pos: dict = {}              # base wire -> ext stack index
+        ext_wires: list = []
+        internal: dict = {}             # base wire -> (launch idx, gate idx)
+        sig = []
+        tr = []
+
+        def tag_of(ref):
+            base, neg, cval = ref
+            if base < 0:
+                return ("c",), neg, cval
+            if base in internal:
+                return ("i",) + internal[base], neg, None
+            if base not in ext_pos:
+                ext_pos[base] = len(ext_wires)
+                ext_wires.append(base)
+            return ("e", ext_pos[base]), neg, None
+
+        for d, (kind, grp) in enumerate(chain):
+            gsig = []
+            if kind == "binary":
+                c0, wx, wy = ([0] * len(grp) for _ in range(3))
+                for i, g in enumerate(grp):
+                    gc0, gwx, gwy = _AFFINE[g[0]]
+                    c0[i] = gc0
+                    tags = []
+                    for ref, w, arr in ((g[1], gwx, wx), (g[2], gwy, wy)):
+                        t, neg, cval = tag_of(ref)
+                        ws = -w if neg else w
+                        if t[0] == "c":
+                            # trivial (0,..,0,+-mu) input: only the body
+                            # contributes; fold it into c0
+                            c0[i] += ws * (mu if cval else -mu)
+                            arr[i] = 0
+                        else:
+                            arr[i] = ws
+                        tags.append(t)
+                    gsig.append(tuple(tags))
+                tr.extend((c0, wx, wy))
+            else:                       # mux: c ? x : y
+                sgn = [[1] * len(grp) for _ in range(3)]
+                cv = [[0] * len(grp) for _ in range(3)]
+                for i, g in enumerate(grp):
+                    tags = []
+                    for o, ref in enumerate((g[1], g[2], g[3])):
+                        t, neg, cval = tag_of(ref)
+                        if t[0] == "c":
+                            cv[o][i] = (-1 if neg else 1) * (
+                                mu if cval else -mu)
+                        else:
+                            sgn[o][i] = -1 if neg else 1
+                        tags.append(t)
+                    gsig.append(tuple(tags))
+                tr.extend((*sgn, *cv))
+            sig.append((kind, tuple(gsig)))
+            for i, g in enumerate(grp):
+                internal[g[4]] = (d, i)
+
+        sig = tuple(sig)
+        if ext_wires:
+            ext = torch.stack([store[w] for w in ext_wires])
+        else:
+            ext = torch.zeros((0, *lead, n + 1), dtype=torch.int32,
+                              device=dev)
+        arrays = tuple(torch.tensor(v, dtype=torch.int64, device=dev)
+                       for v in tr)
+        with obs.span("circuit.chain"):
+            results = graphs.run(
+                "chain", (sig, lead, n, params, backend),
+                _make_chain_fn(ck_data, sig, lead, n, params, backend),
+                (ext, *arrays), keys, backend=backend,
+                compiles="circuit.chain_compiles")
+        for (kind, grp), res in zip(chain, results):
+            for i, g in enumerate(grp):
+                store[g[4]] = res[i]
+
+
+def _make_chain_fn(ck_data, sig, lead, n, params, backend):
+    """The program of one chain signature (the JAX package's
+    ``_make_chain_fn``): fn(ext, *arrays) -> one result per launch."""
+    def chain_fn(ext, *tr):
+        results = []
+
+        def row(t, cv):
+            if t[0] == "e":
+                return ext[t[1]]
+            if t[0] == "i":
+                return results[t[1]][t[2]]
+            z = torch.zeros((*lead, n + 1), dtype=torch.int32,
+                            device=ext.device)
+            z[..., -1] = cv
+            return z
+
+        ti = 0
+        for kind, gsig in sig:
+            if kind == "binary":
+                c0, wx, wy = tr[ti:ti + 3]
+                ti += 3
+                a = torch.stack([row(t[0], 0) for t in gsig])
+                b = torch.stack([row(t[1], 0) for t in gsig])
+                results.append(_binary(ck_data, a, b, c0, wx, wy, params,
+                                       backend))
+            else:
+                sc, sx, sy, cc, cx, cy = tr[ti:ti + 6]
+                ti += 6
+                ops = []
+                for o, (s_o, c_o) in enumerate(((sc, cc), (sx, cx),
+                                                (sy, cy))):
+                    v = torch.stack([row(t[o], c_o[i])
+                                     for i, t in enumerate(gsig)])
+                    sh = (-1,) + (1,) * (v.ndim - 1)
+                    ops.append(T.wrap32(s_o.reshape(sh) * v.to(torch.int64)))
+                flat = [o.reshape(-1, n + 1) for o in ops]
+                res = gate.gate_mux(ck_data, *flat, params, backend)
+                results.append(res.reshape(ops[0].shape))
+        return tuple(results)
+
+    return chain_fn
 
 
 def comparator(nbits: int):

@@ -67,6 +67,8 @@ def _key_times_fft(key, x, bits: int):
 class TLweKey:
     params: TLweParams
     key: np.ndarray                 # (k, N) int32 bits
+    _engines: dict = dataclasses.field(default_factory=dict, repr=False,
+                                       compare=False)
 
     @staticmethod
     def generate(params: TLweParams, rng: TfheRng) -> "TLweKey":
@@ -75,6 +77,25 @@ class TLweKey:
     @staticmethod
     def from_bits(params: TLweParams, bits) -> "TLweKey":
         return TLweKey(params, np.asarray(bits, np.int32).reshape(params.k, params.N))
+
+    def engine(self, backend: str | None = None, device=None):
+        """(engine, prepared key) computing sum_i s_i (*) x_i for this key,
+        prepared once per backend and device (``device.resolve``: the card
+        by default).  ``None`` takes the exact engine ``key_times`` uses:
+        matmul at 32 bits, as the JAX package's default, and naive at 64
+        (the port's matmul engine takes a 32-bit torus only)."""
+        bits = self.params.bits
+        backend = backend or ("matmul" if bits == 32 else "naive")
+        dev = _device.resolve(device)
+        if (backend, dev) not in self._engines:
+            cfg = EngineConfig(N=self.params.N, out_bits=bits,
+                               digit_bits=bits, key_bits=8)
+            eng = make_engine(cfg, backend)
+            kp = torch.from_numpy(np.asarray(self.key)).to(dev)[:, None, :]
+            if bits == 64:
+                kp = kp.to(torch.int64)
+            self._engines[backend, dev] = (eng, eng.prepare(kp))
+        return self._engines[backend, dev]
 
     def key_times(self, x):
         """sum_i s_i (*) x[..., i, :] for x (..., k, N) torus (numpy array
@@ -91,13 +112,8 @@ class TLweKey:
                 and key.shape[0] * key.shape[1] <= 4096):
             out = _key_times_fft(key, xt, bits)
         else:
-            cfg = EngineConfig(N=self.params.N, out_bits=bits,
-                               digit_bits=bits, key_bits=8)
-            eng = make_engine(cfg, "matmul" if bits == 32 else "naive")
-            kp = torch.from_numpy(key).to(xt.device)[:, None, :]  # (k, 1, N)
-            if bits == 64:
-                kp = kp.to(torch.int64)
-            out = eng.accumulate(xt, eng.prepare(kp))[..., 0, :]
+            eng, prep = self.engine(device=xt.device)
+            out = eng.accumulate(xt, prep)[..., 0, :]
         return out if is_tensor else out.cpu().numpy()
 
 
@@ -132,6 +148,29 @@ def encrypt_zero(key: TLweKey, rng: TfheRng, batch_shape=(), stdev=None,
     else:
         b = T.add(e, key.key_times(a))
     return torch.cat([a, b[..., None, :]], dim=-2)
+
+
+def encrypt_poly(key: TLweKey, messages, rng: TfheRng, stdev=None,
+                 device=None):
+    """TRLWE of torus polynomials (..., N) (tLweSymEncrypt,
+    tlwe_functions.cpp:75-82): encrypt_zero plus the messages on b, on
+    ``device``."""
+    messages = torch.as_tensor(messages)
+    c = encrypt_zero(key, rng, tuple(messages.shape[:-1]), stdev,
+                     device=device)
+    k = key.params.k
+    c[..., k, :] = T.add(c[..., k, :], messages.to(c.device))
+    return c
+
+
+def encrypt_scalar(key: TLweKey, mu, rng: TfheRng, batch_shape=(),
+                   stdev=None, device=None):
+    """TRLWE with the constant-coefficient message mu (tLweSymEncryptT,
+    tlwe_functions.cpp:84-88), on ``device``."""
+    c = encrypt_zero(key, rng, batch_shape, stdev, device=device)
+    k = key.params.k
+    c[..., k, 0] = T.add(c[..., k, 0], int(mu))
+    return c
 
 
 def tlwe_phase(samples, key: TLweKey):

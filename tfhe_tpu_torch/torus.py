@@ -60,6 +60,38 @@ def signed64(v: int) -> int:
     return v - (1 << 64) if v >= 1 << 63 else v
 
 
+def dtot32(d) -> torch.Tensor:
+    """double -> Torus32 (numeric_functions.cpp:36-38): frac(d) * 2^32,
+    truncated toward zero and wrapped."""
+    d = torch.as_tensor(d, dtype=torch.float64)
+    return wrap32(((d - torch.trunc(d)) * 2.0**32).to(torch.int64))
+
+
+def t32tod(x) -> torch.Tensor:
+    """Torus32 -> double in [-1/2, 1/2) (numeric_functions.cpp:40-42)."""
+    return torch.as_tensor(x).to(torch.float64) / 2.0**32
+
+
+def t64tod(x) -> torch.Tensor:
+    return torch.as_tensor(x).to(torch.float64) / 2.0**64
+
+
+def t64tot32(x) -> torch.Tensor:
+    """Torus64 -> Torus32: the top 32 bits (poc_types.h:17-19)."""
+    return (torch.as_tensor(x).to(torch.int64) >> 32).to(torch.int32)
+
+
+def t32tot64(x) -> torch.Tensor:
+    """Torus32 -> Torus64 (poc_types.h:20-22)."""
+    return torch.as_tensor(x).to(torch.int64) << 32
+
+
+def double_to_t32(d: float) -> int:
+    """Python-scalar double -> Torus32 int (for parameter constants)."""
+    frac = d - int(d)
+    return int((frac * 2**32)) & MASK32
+
+
 def _host_uint64(x):
     return (x.detach().cpu().numpy().astype(np.int64)
             & MASK32).astype(np.uint64)
@@ -96,6 +128,14 @@ def mod_switch_from_torus32(phase, msize: int):
     p64 = (_host_uint64(phase) << np.uint64(32)) + interv // np.uint64(2)
     out = (p64 // interv).astype(np.int32)
     return torch.from_numpy(out).to(phase.device)
+
+
+def mod_switch_to_torus32(mu, msize: int) -> torch.Tensor:
+    """Integer mod msize -> Torus32 (numeric_functions.cpp:63-67): the top
+    32 bits of mu * interv mod 2^64, interv = 2^64 / msize rounded down to
+    even."""
+    interv = signed64(((1 << 63) // msize) * 2)
+    return wrap32((torch.as_tensor(mu).to(torch.int64) * interv) >> 32)
 
 
 # ---------------------------------------------------------------------------
