@@ -121,11 +121,32 @@ Phases (each prints its own lines; any failure exits non-zero):
      nodes, pool bytes and replays; then one step's product of nussbaumer
      and fft_dd captured for its node count (graphs.EAGER_BACKENDS), and
      ops.hpfft.hp_negacyclic_mul at N=1024, limbs 6 and 8, on the card
-     against the CPU bit for bit, with its time.
+     against the CPU bit for bit, with its time;
+  11. several ranks (tfhe_tpu_torch.parallel), each a process of this
+     script (``chip_smoke.py --rank JOB DIR``, started by
+     parallel.multihost.launch) sharing this one card over gloo (NCCL
+     refuses two ranks on one device): 11a the dp x ep gate bootstrap
+     (shard) at GATE_FAST2 on the onthefly engine, (dp, ep) = (1, 3) at
+     B=1024 and (2, 1) at B=2048; 11b the dp x tp formulation (mesh) at
+     (1, 2), B=1024; 11c the CB_MXU circuit bootstrap at (1, 2), B=256, on
+     the chunked engine, each rank building its half of wmt from the raw
+     TRGSW rows; 11d one rank on the default backend (NCCL), GATE_FAST2
+     B=8192.  Every rank's rows must equal phase 3's (the gate paths) or
+     phase 5's (the circuit) one-process outputs bit for bit and decrypt;
+     each rank must launch, a launch, 500 each of rotate_decompose,
+     materialize_w (at J=3 under ep=3) and mm_recombine_acc on the shard
+     gate path, 500 materialize_wt and fused_cmux_step_v2 on the tp path,
+     1,000 rotate_decompose64 and ck_dot64p (J*m = 320) on the circuit
+     path, and no other CMux kernel; printed: each rank's wall a launch,
+     the all-reduce's share of it and its key slice's bytes (ranks share
+     one card: not a scaling figure).  Phase 2 holds the kernels at these
+     shapes too (materialize_w J=3, rotate_decompose and mm_recombine_acc
+     at GATE_FAST2 B=1024, K=1536, ck_dot64p at J*m = 320).
 
 The line before the last is a JSON object with one entry per kernel (the
-two test-only kernels, fused_cmux_step v1 and rotate_decompose64, run on no
-path, as in the JAX package, and count 0 launches); the last line is {"ok": true, "device": {...}}.  Exits non-zero, with no result,
+test-only fused_cmux_step v1 runs on no path, as in the JAX package, and
+counts 0 launches; rotate_decompose64 runs on phase 11's sharded circuit
+path); the last line is {"ok": true, "device": {...}}.  Exits non-zero, with no result,
 when no CUDA device is present.  Imports nothing of JAX or of ``tfhe_tpu``.
 """
 
@@ -406,9 +427,10 @@ def _kernel_cases(seed: int = 0):
     # lvl2's (L=6, J=10, U=2, 2N=4096: the conv circuit path).  Library:
     # torch.flip of the rotated vector's windows (flip_w, flip_wt)
     v_fast2 = i8((3, 9, 3, 1024))
+    # (phase 11's shard path: an ep=3 rank's J=3 slice of GATE_FAST2's key)
     for name, wrapper, plain, lib, keys in (
             ("materialize_w", K.materialize_w, K.materialize_w_plain,
-             "flip_w", (i8((4, 6, 2, 2048)), v_fast2)),
+             "flip_w", (i8((4, 6, 2, 2048)), v_fast2, i8((3, 3, 3, 1024)))),
             ("materialize_wt", K.materialize_wt, K.materialize_wt_plain,
              "flip_wt", (v_fast2, i8((3, 6, 2, 2048)),
                          i8((6, 10, 2, 4096))))):
@@ -484,6 +506,28 @@ def _kernel_cases(seed: int = 0):
                   bound_ms(_nbytes(x, w, acc, acc), macs),
                   ("_int_mm", (x, wcat)), False))
 
+    # phase 11's shard path at GATE_FAST2 (k=2, l=3, N=512, L=3), B=1024:
+    # the whole accumulator's digits, then an ep=3 rank's J=3 slice
+    # (K = 3*512) against its key slice
+    p = GATE_FAST2.tgsw
+    B, kp1, l, N, L, J = 1024, 3, 3, 512, 3, 3
+    acc = i32((B, kp1, N))
+    a = expo(B, N)
+    kw = dict(l=l, bgbit=p.bgbit, offset=p.offset)
+    cases.append(("rotate_decompose", f"GATE_FAST2 B={B}",
+                  "csrc/rotate_decompose.cu", f"{PALLAS}:163",
+                  K.rotate_decompose, K.rotate_decompose_plain, (a, acc), kw,
+                  bound_ms(_nbytes(a, acc) + B * kp1 * l * N), None, False))
+    x = i8((B, J * N), -64, 64)
+    w = i8((L, J * N, kp1 * N))
+    wcat = w.permute(1, 0, 2).reshape(J * N, L * kp1 * N)
+    cases.append(("mm_recombine_acc", f"GATE_FAST2 ep=3 B={B}",
+                  "csrc/mm_recombine_acc.cu", f"{PALLAS}:1535",
+                  K.mm_recombine_acc, K.mm_recombine_acc_plain, (x, w, acc),
+                  {"shift_base": 8},
+                  bound_ms(_nbytes(x, w, acc, acc), B * J * N * kp1 * N * L),
+                  ("_int_mm", (x, wcat)), False))
+
     # rotate_decompose64_ck + ck_dot64p: the circuit bootstrap's lvl2 step at
     # B=256, CB_MXU (l=5, Bg=2^8: one plane, 6 key limbs) then a
     # CB_ACTIVE-shaped case (l=4, Bg=2^9: two planes, 8 key limbs); the 64-bit
@@ -545,6 +589,20 @@ def _kernel_cases(seed: int = 0):
                           bound_ms(_nbytes(x, wmt, acc, acc), macs),
                           ("_int_mm", (x.reshape(B * C * P, Jm), wcat)),
                           True))
+
+    # ck_dot64p at phase 11's shard path: an ep=2 rank's J*m = 5*64 = 320
+    # columns of CB_MXU's wmt, B=256 (one plane, 6 limbs)
+    p, L, B = CB_MXU.tgsw_lvl2, 6, 256
+    Jm, UL = kp1 * p.l * m // 2, kp1 * L
+    x = i8((B, C * K.ck_width(Jm)))
+    wmt = i8((UL, N + m, Jm))
+    cases.append(("ck_dot64p", f"CB_MXU ep=2 B={B}", "csrc/ck_dot64p.cu",
+                  f"{PALLAS}:835", K.ck_dot64p, K.ck_dot64p_plain, (x, wmt),
+                  dict(N=N, m=m, planes=1),
+                  bound_ms(_nbytes(x, wmt) + UL * B * N * 4,
+                           B * UL * N * (Jm // m) * N),
+                  ("_int_mm", (x.reshape(B * C, K.ck_width(Jm))[:, :Jm]
+                               .contiguous(), _wcat(wmt))), True))
 
     # ck_dot64p and ck_dot64p_sacc at CB_MXU tail batches (the default and
     # sacc steps' narrow launches)
@@ -1030,6 +1088,7 @@ def phase_main(smi: str, batch: int = 8192, chain: int = 2):
     counts = _launch_counts()
     ok = gate.decrypt_bool(sk, out) == bits.astype(bool)
     check(ok.all(), f"GATE_FAST2: {int((~ok).sum())} of {batch} bits wrong")
+    one = boot(ck.data, ct)             # one launch: phase 11's reference
     _only(counts, {"materialize_wt": n * chain,
                    "fused_cmux_step_v2": n * chain}, "GATE_FAST2")
     graph_cell(f"GATE_FAST2 onthefly B={batch} ({chain} launches)", run, out,
@@ -1074,7 +1133,8 @@ def phase_main(smi: str, batch: int = 8192, chain: int = 2):
     print("phase 3 gates: gate_nand and gate_mux truth tables decrypt "
           "correctly")
     return counts, {"ct_per_s": rate, "step_ms": step_ms, "mat_ms": mat_ms,
-                    "ks_ms": ks_ms, "launch_ms": wall / chain * 1e3}
+                    "ks_ms": ks_ms, "launch_ms": wall / chain * 1e3,
+                    "ct": ct.cpu(), "out": one.cpu()}
 
 
 def phase_generic(smi: str, batch: int = 256):
@@ -1431,7 +1491,7 @@ def phase_circuit_step(smi: str, state: dict, phase: str, step: str,
 
 # kernels that run on no path of the port (only its tests and phase 2 call
 # them, as only the JAX package's tests call their Pallas kernels)
-TEST_ONLY = ("fused_cmux_step", "rotate_decompose64")
+TEST_ONLY = ("fused_cmux_step",)
 
 
 def _gate_run(P, backend, bits, chain, seed=0, cell=None):
@@ -1984,6 +2044,201 @@ def phase_graphs(smi: str):
               f"the card (CUDA events), {cpu_ms:.1f} ms on the host [{smi}]")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the multi-device layer (tfhe_tpu_torch.parallel), rank processes
+# ---------------------------------------------------------------------------
+
+# (job, ranks, backend): 11a the ep gate path on three gloo ranks; 11b-c the
+# dp-only gate path, the tp formulation and the CB_MXU ep circuit path on
+# two; 11d the default backend, one NCCL rank.  gloo ranks share cuda:0
+# (NCCL refuses two ranks on one device).
+RANK_JOBS = (("gate_ep3", 3, "gloo"), ("pair", 2, "gloo"), ("nccl", 1, None))
+SHARE_NOTE = "ranks share one card; not a scaling figure"
+
+
+def _rank_drive(out, rank, results, case, fn, args, warm=True):
+    """One untimed launch (``warm``), then a timed one with every launch
+    count and the all-reduce's host time from 0; saves the rows."""
+    from tfhe_tpu_torch.ops import kernels as K
+    from tfhe_tpu_torch.utils import observability as obs
+    if warm:
+        fn(*args)
+        torch.cuda.synchronize()
+    K.reset_launches()
+    obs.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rows = fn(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    red = obs.report()["spans"].get("parallel.all_reduce", {})
+    results[case] = {"counts": _launch_counts(), "wall_s": wall,
+                     "reduce_s": red.get("total_s", 0.0),
+                     "reduce_calls": red.get("count", 0),
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    np.save(out / f"{case}-r{rank}.npy", rows.cpu().numpy())
+    return rows
+
+
+def rank_main(job: str, out) -> int:
+    """A rank of phase 11 (``chip_smoke.py --rank JOB DIR``, started by
+    ``multihost.launch``): drives its job's paths on the card and writes
+    its rows and numbers to DIR."""
+    from pathlib import Path
+    import torch.distributed as dist
+    from tfhe_tpu_torch.boot import circuit, gate
+    from tfhe_tpu_torch.params import CB_MXU, GATE_FAST2
+    from tfhe_tpu_torch.parallel import mesh as gmesh, multihost, shard
+    from tfhe_tpu_torch.rng import TfheRng
+    out = Path(out)
+    if job == "nccl":
+        multihost.initialize()              # the default: NCCL, cuda:LOCAL_RANK
+    else:
+        multihost.initialize(backend="gloo", device="cuda:0")
+    gmesh.SYNC_BEFORE_REDUCE = True         # the all-reduce's span: itself
+    rank, world = dist.get_rank(), dist.get_world_size()
+    results = {"backend": dist.get_backend()}
+    P = GATE_FAST2
+    _, sk, ck, _ = _keys(P, "onthefly")     # phase 3's seed and keys
+    ct = torch.from_numpy(np.load(out / "gate_ct.npy")).cuda()
+    bits = np.random.default_rng(1).integers(0, 2, ct.shape[0]).astype(bool)
+
+    def gate_case(case, mesh, mod, B):
+        fn, place = mod.make_sharded_bootstrap_fn(P, mesh, "onthefly")
+        kd, rows = place(ck.data, ct[:B])
+        got = _rank_drive(out, rank, results, case, fn, (kd, rows))
+        lo = mesh.index("dp") * (B // mesh.shape["dp"])
+        ok = gate.decrypt_bool(sk, got) == bits[lo:lo + got.shape[0]]
+        check(ok.all(), f"{case} rank {rank}: {int((~ok).sum())} bits wrong")
+        results[case]["key_bytes"] = _nbytes(*(kd["bk"][n] for n in kd["bk"]),
+                                             kd["ksw"])
+
+    if job == "gate_ep3":
+        gate_case("shard_ep3", shard.make_mesh(3, dp=1, ep=3), shard, 1024)
+    elif job == "nccl":
+        gate_case("shard_nccl", shard.make_mesh(1, dp=1, ep=1), shard, 8192)
+        t = torch.tensor([-2**63, 2**63 - 1, 5], dtype=torch.int64,
+                         device="cuda")
+        got = gmesh.all_reduce_exact(t, dist.group.WORLD)
+        check(torch.equal(got, t), "NCCL all_reduce_exact of one rank")
+    else:
+        gate_case("shard_dp2", shard.make_mesh(2, dp=2, ep=1), shard, 2048)
+        gate_case("mesh_tp2", gmesh.make_mesh(2, dp=1, tp=2), gmesh, 1024)
+        del ck
+        cp = CB_MXU
+        rng = TfheRng(0)                    # phase 5's seed, keys and inputs
+        csk = circuit.CircuitSecretKey.generate(cp, rng)
+        cck = circuit.CircuitCloudKey.generate(csk, rng, backend="chunked",
+                                               prepare_bk=False)
+        cct = torch.from_numpy(np.load(out / "cb_ct.npy")).cuda()
+        mesh = shard.make_mesh(2, dp=1, ep=2)
+        fn, place = shard.make_sharded_circuit_bootstrap_fn(cp, mesh,
+                                                            "chunked")
+        kd, rows = place(cck.data, cct, bk_raw=cck.bk_raw)
+        del cck
+        torch.cuda.empty_cache()
+        keygen_gb = torch.cuda.max_memory_allocated() / 1e9
+        _rank_drive(out, rank, results, "shard_cb_ep2", fn, (kd, rows),
+                    warm=False)
+        results["shard_cb_ep2"].update(
+            wmt_shape=list(kd["bk"]["wmt"].shape), keygen_peak_gb=keygen_gb,
+            key_bytes=_nbytes(kd["bk"]["wmt"], kd["preks"], kd["privks"]))
+    import json
+    (out / f"{job}-r{rank}.json").write_text(json.dumps(results))
+    print(f"rank {rank}/{world} {job}: done", flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def _rank_rows(out, case, ranks):
+    return [torch.from_numpy(np.load(out / f"{case}-r{r}.npy"))
+            for r in range(ranks)]
+
+
+def phase_sharded(smi: str, gate_ref: dict, cb_ref: dict):
+    """Phase 11: the sharded paths in rank processes on this card, each
+    rank's rows held bit for bit against the one-process outputs of phases
+    3 and 5 and its launches against the path's kernels.  Returns the
+    launch counts (summed over ranks) by path."""
+    import json
+    import tempfile
+    from pathlib import Path
+    from tfhe_tpu_torch import noise
+    from tfhe_tpu_torch.params import CB_MXU, GATE_FAST2
+    from tfhe_tpu_torch.parallel import multihost
+    n = GATE_FAST2.lwe.n
+    shared = (noise.shared_rotation_penalty(CB_MXU)
+              <= noise.SHARED_ROTATION_MAX_PENALTY)
+    cb_steps = CB_MXU.n_lvl0 * (1 if shared else CB_MXU.tgsw_lvl1.l)
+    torch.cuda.empty_cache()
+    want_gate, want_cb = gate_ref["out"], cb_ref["gsw"]
+    by_path = {}
+    generic = {"rotate_decompose": n, "materialize_w": n,
+               "mm_recombine_acc": n}
+    expect = {"shard_ep3": (3, 1024, generic),
+              "shard_dp2": (2, 2048, generic),
+              "mesh_tp2": (2, 1024, {"materialize_wt": n,
+                                     "fused_cmux_step_v2": n}),
+              "shard_cb_ep2": (2, 256, {"rotate_decompose64": cb_steps,
+                                        "ck_dot64p": cb_steps}),
+              "shard_nccl": (1, 8192, generic)}
+    label = {"shard_ep3": "11a shard GATE_FAST2 onthefly (dp=1, ep=3)",
+             "shard_dp2": "11a shard GATE_FAST2 onthefly (dp=2, ep=1)",
+             "mesh_tp2": "11b mesh GATE_FAST2 onthefly (dp=1, tp=2)",
+             "shard_cb_ep2": "11c shard CB_MXU chunked (dp=1, ep=2)",
+             "shard_nccl": "11d shard GATE_FAST2 onthefly (dp=1, ep=1)"}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        np.save(out / "gate_ct.npy", gate_ref["ct"].numpy())
+        np.save(out / "cb_ct.npy", cb_ref["ct"].cpu().numpy())
+        for job, ranks, backend in RANK_JOBS:
+            t0 = time.perf_counter()
+            multihost.launch(
+                [sys.executable, str(Path(__file__).resolve()), "--rank", job,
+                 str(out)], ranks, coordinator_address=f"file://{out}/{job}",
+                timeout=600)
+            job_s = time.perf_counter() - t0
+            res = [json.loads((out / f"{job}-r{r}.json").read_text())
+                   for r in range(ranks)]
+            for case in (c for c in expect if c in res[0]):
+                world, B, kernels = expect[case]
+                dp = 2 if case == "shard_dp2" else 1
+                rows = _rank_rows(out, case, world)
+                want = want_cb if case == "shard_cb_ep2" else want_gate[:B]
+                for r, got in enumerate(rows):
+                    lo = (r if dp > 1 else 0) * (B // dp)
+                    check(torch.equal(got, want[lo:lo + B // dp]),
+                          f"{label[case]}: rank {r}'s rows differ from the "
+                          f"one-process output")
+                    _only(res[r][case]["counts"], kernels,
+                          f"{label[case]} rank {r}")
+                by_path[case] = {k: sum(x[case]["counts"][k] for x in res)
+                                 for k in res[0][case]["counts"]}
+                per_rank = "; ".join(
+                    f"rank {r}: {x[case]['wall_s']:.3f} s a launch, "
+                    f"all-reduce {x[case]['reduce_s']:.3f} s "
+                    f"({x[case]['reduce_s'] / x[case]['wall_s']:.1%}) over "
+                    f"{x[case]['reduce_calls']} calls, key slice "
+                    f"{x[case]['key_bytes'] / 1e9:.3f} GB, launch peak "
+                    f"{x[case]['peak_gb']:.2f} GB"
+                    for r, x in enumerate(res))
+                extra = ""
+                if case == "shard_cb_ep2":
+                    x = res[0][case]
+                    extra = (f"; wmt slice {tuple(x['wmt_shape'])} "
+                             f"(J*m = {x['wmt_shape'][-1]}), keygen's peak "
+                             f"{x['keygen_peak_gb']:.2f} GB a rank (the whole"
+                             f" privKS is drawn, then sliced)")
+                print(f"phase {label[case]} B={B}, {world} {res[0]['backend']}"
+                      f" rank(s) on cuda:0 ({SHARE_NOTE}): every rank's rows "
+                      f"equal the one-process output bit for bit; "
+                      f"{per_rank}; launches a rank {kernels}{extra} "
+                      f"[{smi}]")
+            print(f"phase 11 job {job}: {ranks} rank(s), {job_s:.1f} s with "
+                  f"start-up and keygen")
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1995,7 +2250,7 @@ def main() -> int:
     phase_parts(results["fused_cmux_step_v2"])
     phase_splits(results)
     by_path = {}
-    by_path["gate_fast2"], _ = phase_main(smi)
+    by_path["gate_fast2"], gate_ref = phase_main(smi)
     by_path["gate_default"], default_out = phase_generic(smi)
     by_path["circuit_bootstrap"], state = phase_circuit(smi)
     for phase, step, *run in CK64_STEPS:
@@ -2015,6 +2270,9 @@ def main() -> int:
     by_path.update(phase_engine_paths(smi, default_out, state))
     cell_start()
     phase_graphs(smi)
+    cb_ref = {"ct": state.pop("ct"), "gsw": state.pop("gsw").cpu()}
+    del state
+    by_path.update(phase_sharded(smi, gate_ref, cb_ref))
     from tfhe_tpu_torch.ops import kernels as K
     check(len(results) == len(K.KERNELS), f"phase 2 checked "
           f"{len(results)} of {len(K.KERNELS)} kernels")
@@ -2034,6 +2292,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--rank"]:
+            sys.exit(rank_main(sys.argv[2], sys.argv[3]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

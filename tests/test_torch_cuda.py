@@ -13,8 +13,9 @@ bootstraps (on the onthefly, matmul, conv, conv_bf16 and nussbaumer
 engines) and CB_TOY circuit bootstraps (on each of the four 64-bit steps,
 and on conv) that must give the same ciphertexts on the card as on the
 CPU; the conv, Nussbaumer and FFT engines at gate and lvl2 shapes; and the
-two CB_ACTIVE reference rotations (tests/test_torch_reference.py).
-Imports nothing of JAX.
+two CB_ACTIVE reference rotations (tests/test_torch_reference.py); and the
+sharded bootstraps of tfhe_tpu_torch.parallel on two gloo ranks sharing
+the card.  Imports nothing of JAX.
 """
 
 import numpy as np
@@ -1262,3 +1263,133 @@ def test_a_failed_capture_raises(cuda):
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300)
     assert proc.stdout.startswith("raised "), proc.stdout + proc.stderr
+
+
+# ---------------------------------------------------------------------------
+# the multi-device layer (tfhe_tpu_torch.parallel): two gloo ranks on cuda:0
+# ---------------------------------------------------------------------------
+
+_EXTREMES = {torch.int32: [-2**31, 2**31 - 1, -2**31, 2**31 - 1, 7],
+             torch.int64: [-2**63, 2**63 - 1, -2**63, 2**63 - 1, 7 << 40]}
+
+
+def _card_rank(out: str):
+    """One rank of test_sharded_on_card (gloo on cuda:0): GATE_TOY at (dp,
+    ep) = (1, 2) and (2, 1) and (dp, tp) = (1, 2); CB_TOY chunked and conv
+    at (1, 2), each rank's bk slice built from the raw rows; the exact
+    all-reduce at the extremes on CUDA tensors.  Rows and launch counts go
+    to ``out``."""
+    import json
+    from pathlib import Path
+    from tfhe_tpu_torch.parallel import mesh as gmesh, multihost, shard
+    out = Path(out)
+    multihost.initialize(backend="gloo", device="cuda:0")
+    rank = torch.distributed.get_rank()
+    rng = TfheRng(3)
+    sk = gate.SecretKey.generate(GATE_TOY, rng)
+    ck = gate.CloudKey.generate(sk, rng, backend="onthefly")
+    ct = torch.from_numpy(np.load(out / "ct.npy"))
+    counts = {}
+    for name, (make, dp, other) in {"ep-1x2": (shard.make_mesh, 1, 2),
+                                    "ep-2x1": (shard.make_mesh, 2, 1),
+                                    "tp-1x2": (gmesh.make_mesh, 1, 2)}.items():
+        m = make(2, dp, other)
+        mod = shard if make is shard.make_mesh else gmesh
+        fn, place = mod.make_sharded_bootstrap_fn(GATE_TOY, m, "onthefly")
+        K.reset_launches()
+        rows = fn(*place(ck.data, ct))
+        torch.cuda.synchronize()
+        counts[name] = {k.__name__: k.launches for k in K.KERNELS}
+        np.save(out / f"{name}-r{rank}.npy", rows.cpu().numpy())
+    cct = torch.from_numpy(np.load(out / "cct.npy"))
+    m = shard.make_mesh(2, dp=1, ep=2)
+    for backend in ("chunked", "conv"):
+        crng = TfheRng(42)
+        csk = circuit.CircuitSecretKey.generate(CB_TOY, crng)
+        cck = circuit.CircuitCloudKey.generate(csk, crng, backend=backend,
+                                               prepare_bk=False)
+        fn, place = shard.make_sharded_circuit_bootstrap_fn(CB_TOY, m,
+                                                            backend)
+        kd, rows = place(cck.data, cct, bk_raw=cck.bk_raw)
+        K.reset_launches()
+        gsw = fn(kd, rows)
+        torch.cuda.synchronize()
+        counts[backend] = {k.__name__: k.launches for k in K.KERNELS}
+        np.save(out / f"cb-{backend}-r{rank}.npy", gsw.cpu().numpy())
+    for dtype, vals in _EXTREMES.items():
+        t = torch.tensor(vals, dtype=dtype, device="cuda:0")
+        got = m.all_reduce(t if rank == 0 else t.flip(0), "ep")
+        np.save(out / f"reduce-{str(dtype)[6:]}-r{rank}.npy", got.cpu().numpy())
+    (out / f"counts-r{rank}.json").write_text(json.dumps(counts))
+    torch.distributed.destroy_process_group()
+
+
+def test_sharded_on_card(cuda, tmp_path):
+    """Two gloo ranks sharing cuda:0 give the one-process rows bit for bit
+    on every mesh, through the card's kernels (the generic step's three a
+    rotation step on every rank), and the exact all-reduce gives the
+    wrapped sums of CUDA tensors."""
+    import json
+    import sys
+    from pathlib import Path
+    from tfhe_tpu_torch import lwe
+    from tfhe_tpu_torch.parallel import multihost
+    rng = TfheRng(3)
+    sk = gate.SecretKey.generate(GATE_TOY, rng)
+    ck = gate.CloudKey.generate(sk, rng, backend="onthefly", device=cuda)
+    bits = np.random.default_rng(5).integers(0, 2, 24)
+    ct = gate.encrypt_bool(sk, bits, TfheRng(7), device=cuda)
+    want = gate.bootstrap(ct, ck.data, GATE_TOY, backend="onthefly").cpu()
+    np.save(tmp_path / "ct.npy", ct.cpu().numpy())
+    crng = TfheRng(42)
+    csk = circuit.CircuitSecretKey.generate(CB_TOY, crng)
+    msgs = np.where(np.random.default_rng(6).integers(0, 2, 20) == 1,
+                    -(1 << 31), 0).astype(np.int32)
+    cwant = {}
+    for backend in ("chunked", "conv"):
+        rng2 = TfheRng(42)
+        circuit.CircuitSecretKey.generate(CB_TOY, rng2)
+        cck = circuit.CircuitCloudKey.generate(csk, rng2, backend=backend,
+                                               device=cuda)
+        cct = lwe.encrypt(csk.lwe_lvl1, msgs, TfheRng(8), 2.0**-20,
+                          device=cuda)
+        cwant[backend] = circuit.circuit_bootstrap(cct, cck.data, CB_TOY,
+                                                   backend=backend).cpu()
+        del cck
+    np.save(tmp_path / "cct.npy", cct.cpu().numpy())
+    repo = Path(__file__).resolve().parent.parent
+    multihost.launch(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, 'tests'); "
+         f"import test_torch_cuda as t; t._card_rank({str(tmp_path)!r})"],
+        2, coordinator_address=f"file://{tmp_path}/store",
+        env={"PYTHONPATH": str(repo)}, timeout=600)
+    for rank in range(2):
+        def rows(name):
+            return torch.from_numpy(np.load(tmp_path / f"{name}-r{rank}.npy"))
+        assert torch.equal(rows("ep-1x2"), want)
+        assert torch.equal(rows("tp-1x2"), want)
+        assert torch.equal(rows("ep-2x1"), want[rank * 12:(rank + 1) * 12])
+        for backend in ("chunked", "conv"):
+            assert torch.equal(rows(f"cb-{backend}"), cwant[backend]), backend
+        counts = json.loads((tmp_path / f"counts-r{rank}.json").read_text())
+        from tfhe_tpu_torch import noise
+        shared = (noise.shared_rotation_penalty(CB_TOY)
+                  <= noise.SHARED_ROTATION_MAX_PENALTY)
+        n = GATE_TOY.lwe.n
+        n0 = CB_TOY.n_lvl0 * (1 if shared else CB_TOY.tgsw_lvl1.l)
+        for name in ("ep-1x2", "ep-2x1"):
+            for k in ("rotate_decompose", "materialize_w", "mm_recombine_acc"):
+                assert counts[name][k] == n, (name, k)
+        # GATE_TOY's N=64 is outside the fused kernel's domain: the tp
+        # rank's whole-key rotation takes the generic step too
+        assert counts["tp-1x2"]["mm_recombine_acc"] == n
+        assert counts["chunked"]["rotate_decompose64"] == n0
+        assert counts["chunked"]["ck_dot64p"] == n0
+        assert counts["conv"]["materialize_wt"] == n0
+        for dtype, vals in _EXTREMES.items():
+            bits = 64 if dtype == torch.int64 else 32
+            total = [a + b for a, b in zip(vals, vals[::-1])]
+            wrapped = [((t + (1 << (bits - 1))) % (1 << bits))
+                       - (1 << (bits - 1)) for t in total]
+            got = np.load(tmp_path / f"reduce-{str(dtype)[6:]}-r{rank}.npy")
+            assert got.tolist() == wrapped, dtype

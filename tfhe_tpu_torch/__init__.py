@@ -24,8 +24,10 @@ keys divisible by 2m, ``ops.nussbaumer``), and fft, fft_f64, fft_dd
 (``ops.hpfft``).  ``graphs`` is the counterpart of ``jax.jit``: on the card
 the blind rotation, ``boot.gate.make_bootstrap_fn``, the staged circuit
 bootstrap and the scheduler's launches and chains each run as one captured
-CUDA graph (``graphs.disable()`` runs them eagerly).  Not ported yet: the
-multi-device layer (``parallel``).
+CUDA graph (``graphs.disable()`` runs them eagerly).  ``parallel`` is the
+multi-device layer on ``torch.distributed``: one process a rank, the batch
+split over dp, the digit and key-switch rows over ep (one exact all-reduce
+a step), host-aware start-up and placement (``parallel.multihost``).
 """
 
 from tfhe_tpu_torch import params as params

@@ -96,12 +96,17 @@ def cmux_step(eng, a, acc, prep, p: TGswParams):
             "blind rotation runs on the 'chunked' backend, in its kernels' "
             "domain (kernels.ck64_kernel_ok and rotdec_ok, or "
             "ck_cmux_step64_ok for TFHE_CK64_FUSED)")
+    return eng.accumulate_into(acc, generic_digits(a, acc, p), prep)
+
+
+def generic_digits(a, acc, p: TGswParams):
+    """The generic step's digits (B, kpl, N) of (X^a - 1) * acc:
+    ``rotate_decompose`` at 32 bits with bgbit <= 8, else the plain rotate
+    + decompose."""
     if p.tlwe.bits == 32 and p.bgbit <= 8:
-        digits = kernels.rotate_decompose(a, acc, l=p.l, bgbit=p.bgbit,
-                                          offset=p.offset)
-    else:
-        digits = decompose_tlwe(tlwe.mul_by_xai_minus_one(a, acc), p)
-    return eng.accumulate_into(acc, digits, prep)
+        return kernels.rotate_decompose(a, acc, l=p.l, bgbit=p.bgbit,
+                                        offset=p.offset)
+    return decompose_tlwe(tlwe.mul_by_xai_minus_one(a, acc), p)
 
 
 def rotate_steps(acc, bk_prepared, abar, p: TGswParams,

@@ -169,7 +169,7 @@ class CircuitCloudKey:
     params: CircuitParams
     backend: str
     preks: lwe.KeySwitchKey          # lvl1 -> lvl0 (torus32)
-    bk_prepared: dict                # stacked prepared TRGSW64 of key_lvl0
+    bk_prepared: dict | None         # stacked prepared TRGSW64 of key_lvl0
     privks: PrivKeySwitchKey
     bk_raw: torch.Tensor | None = None   # host copy of the raw TRGSW64 bk
                                          # (for serialization: 164 MB at
@@ -178,13 +178,16 @@ class CircuitCloudKey:
     @staticmethod
     def generate(sk: CircuitSecretKey, rng: TfheRng,
                  backend: str = "chunked", keep_raw_bk: bool = False,
-                 device=None) -> "CircuitCloudKey":
+                 device=None, prepare_bk: bool = True) -> "CircuitCloudKey":
         """Consumes ``rng`` in the JAX package's order (preKS, bk, privKS).
         Per-stage spans keygen.circuit.{preks,bk_encrypt,privks,bk_prepare}
         (each synchronised on the card) attribute the cost; read them from
         ``observability.report()["spans"]``.  ``keep_raw_bk`` keeps a host
         copy of the raw TRGSW64 bootstrapping key, which
-        ``utils.serialization.save_circuit_key`` writes."""
+        ``utils.serialization.save_circuit_key`` writes.  With
+        ``prepare_bk=False`` the key keeps only that raw copy
+        (``bk_prepared`` is None): a rank of a sharded circuit bootstrap
+        prepares its own slice from it (``parallel.shard``)."""
         dev = _device.resolve(device)
         p = sk.params
         obs.count("keygen.circuit")
@@ -203,11 +206,13 @@ class CircuitCloudKey:
             with obs.span("keygen.circuit.privks"):
                 privks = PrivKeySwitchKey.generate(sk, rng, device=dev)
                 _sync(dev)
-            raw = gsw.cpu() if keep_raw_bk else None
-            with obs.span("keygen.circuit.bk_prepare"):
-                prep = prepare_circuit_bk(gsw, p, backend)
-                del gsw
-                _sync(dev)
+            raw = gsw.cpu() if keep_raw_bk or not prepare_bk else None
+            prep = None
+            if prepare_bk:
+                with obs.span("keygen.circuit.bk_prepare"):
+                    prep = prepare_circuit_bk(gsw, p, backend)
+                    _sync(dev)
+            del gsw
         return CircuitCloudKey(p, backend, preks, prep, privks, bk_raw=raw)
 
     @property

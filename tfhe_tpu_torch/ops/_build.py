@@ -6,7 +6,8 @@ parallel, one nvcc process each, at first use; a library is named by the
 hash of its source, the shared header and the flags, so an edited source is
 rebuilt and an unchanged one is reused.  Outputs go to ``ops/build/``
 (ignored by git); ``-Xptxas -v`` reports (registers, spills) are kept there
-beside each library as ``<name>.ptxas.txt``.
+beside each library as ``<name>.ptxas.txt``.  Builds hold an ``fcntl`` lock
+on that directory, so processes that start together build once.
 
 ``host_library`` builds a host C++ source (the circuit scheduler,
 ``native/circuit_sched.cpp``) the same way with ``g++``, so the port never
@@ -15,7 +16,9 @@ loads a library built on another machine.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -115,30 +118,45 @@ def _lib_path(src: Path, defines: tuple = ()) -> Path:
     return BUILD_DIR / f"{src.stem}{tag}-{h.hexdigest()[:16]}.so"
 
 
+@contextlib.contextmanager
+def build_lock():
+    """An exclusive ``fcntl`` lock on BUILD_DIR, held around every build:
+    processes that start together (the ranks of ``parallel``) build each
+    library once, the others waiting for it and then finding it built."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def _compile(targets):
     """Run one nvcc per (source path, defines) whose library is missing,
-    all in parallel; raises with nvcc's output if a build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for src, defines in targets:
-        out = _lib_path(src, defines)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
-               str(src)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs.append((src, out, tmp, proc))
-    failed = []
-    for src, out, tmp, proc in jobs:
-        log, _ = proc.communicate()
-        out.with_suffix(".ptxas.txt").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"--- {src} (exit {proc.returncode})\n{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out)
+    all in parallel, under ``build_lock``; raises with nvcc's output if a
+    build fails."""
+    with build_lock():
+        jobs = []
+        for src, defines in targets:
+            out = _lib_path(src, defines)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *FLAGS, *(f"-D{d}" for d in defines), "-o",
+                   str(tmp), str(src)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs.append((src, out, tmp, proc))
+        failed = []
+        for src, out, tmp, proc in jobs:
+            log, _ = proc.communicate()
+            out.with_suffix(".ptxas.txt").write_text(log)
+            if proc.returncode != 0:
+                failed.append(f"--- {src} (exit {proc.returncode})\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
 
@@ -192,9 +210,8 @@ def host_library(source: Path) -> ctypes.CDLL:
     h = hashlib.sha256(source.read_bytes())
     h.update(" ".join(HOST_FLAGS).encode())
     out = BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
-    with _lock:
+    with _lock, build_lock():
         if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             proc = subprocess.run(
                 [os.environ.get("CXX", "g++"), *HOST_FLAGS, "-o", str(tmp),

@@ -31,8 +31,11 @@ exact) and the mod-2^32 recombination runs in int64.
   ck_cmux_step32              ck_cmux_step32                int8 MACs (reads wm)
   ck_cmux_step64              ck_cmux_step64                int8 MACs (reads wmt)
 
-fused_cmux_step (v1) and rotate_decompose64 run on no path of the port, as
-in the JAX package, where only its tests call them.  The four 64-bit
+fused_cmux_step (v1) runs on no path of the port, as in the JAX package,
+where only its tests call it; rotate_decompose64, test-only there too,
+gives the sharded circuit bootstrap its digits (``parallel.shard``: the
+plain layout makes an ep rank's J slice a contiguous row range).  The four
+64-bit
 contractions (ck_dot64p, ck_dot64p_sacc, ck_dot64p_acc, ck_cmux_step64)
 take the chunked key K-packed, wmt (ck_wmt), the only layout the chunked
 engine prepares at 64 bits; their plain versions contract
