@@ -27,11 +27,12 @@ Phases (each prints its own lines; any failure exits non-zero):
      GATE_MXU B=8192 (also equal to v2's kernel), the 64-bit kernels (and
      the fused-epilogue pair, the limb-grid contraction and the plain-layout
      digits, which re-laid out must equal the chunk-layout kernel's) at
-     CB_MXU and CB_ACTIVE B=256, the four 64-bit contractions on the
+     CB_MXU, CB_ACTIVE and CB_PAPER B=256, the four 64-bit contractions on the
      K-packed key wmt with their chosen plans, ck_dot64p and ck_dot64p_sacc
      also at CB_MXU tails B=1, 3, 100,
      rotate_decompose64_ck also at CB_MXU B=1, 3, 100,
-     the one-kernel 64-bit step there and at CB_MXU tails B=1, 3, 100
+     the one-kernel 64-bit step there (CB_PAPER's J*m = 768 on the
+     64-row plan) and at CB_MXU tails B=1, 3, 100
      (beside the two-kernel default and acc steps it replaces),
      ck_cmux_step32 at GATE_MXU B=8192, GATE_DEFAULT B=256, GATE_MXU
      B=256 and 512 (the adder's narrow launches) and tail batches B=1, 3,
@@ -141,7 +142,21 @@ Phases (each prints its own lines; any failure exits non-zero):
      the all-reduce's share of it and its key slice's bytes (ranks share
      one card: not a scaling figure).  Phase 2 holds the kernels at these
      shapes too (materialize_w J=3, rotate_decompose and mm_recombine_acc
-     at GATE_FAST2 B=1024, K=1536, ck_dot64p at J*m = 320).
+     at GATE_FAST2 B=1024, K=1536, ck_dot64p at J*m = 320);
+  12. the reference's parameter blocks: CB_PAPER (l1=4; lvl2 Bg=2^9/l2=6,
+     J*m = 768; base-2 key switches) and CB_ACTIVE (l1=2; Bg=2^9/l2=4),
+     each with its whole 8-limb lvl2 key (two digit planes), after the
+     CB_MXU state is freed: keys generated on the card (seconds, peak),
+     the default step's graphed launch at B=256 (64 four-bit LUT instances;
+     one untimed, one timed; 2,000 rotate_decompose64_ck + ck_dot64p at
+     CB_PAPER, 1,000 at CB_ACTIVE, and no other CMux kernel), every row
+     within 2^-8 of the torus of its expected phase (the JAX package's
+     probe rule, boot.probe), the (z=1) rows within h_w/4 at the levels
+     where that clears 6 sigma of the noise worksheet (cleared_levels), a
+     CMux with its digit on the last of those levels, all 64 LUTs decoded;
+     then the acc, sacc and FUSED steps on the same keys and inputs, each
+     TRGSW-identical to the default and launching exactly its kernels;
+     ms per ciphertext, the keygen and launch peaks, the programs' pools.
 
 The line before the last is a JSON object with one entry per kernel (the
 test-only fused_cmux_step v1 runs on no path, as in the JAX package, and
@@ -405,8 +420,8 @@ def _kernel_cases(seed: int = 0):
     there too; the 64-bit contractions and the B=8192 chunked step are too
     slow on the host)."""
     from tfhe_tpu_torch.ops import kernels as K
-    from tfhe_tpu_torch.params import (CB_ACTIVE, CB_MXU, GATE_DEFAULT,
-                                       GATE_FAST2, GATE_MXU)
+    from tfhe_tpu_torch.params import (CB_ACTIVE, CB_MXU, CB_PAPER,
+                                       GATE_DEFAULT, GATE_FAST2, GATE_MXU)
     r = np.random.default_rng(seed)
     cases = []
 
@@ -529,14 +544,16 @@ def _kernel_cases(seed: int = 0):
                   ("_int_mm", (x, wcat)), False))
 
     # rotate_decompose64_ck + ck_dot64p: the circuit bootstrap's lvl2 step at
-    # B=256, CB_MXU (l=5, Bg=2^8: one plane, 6 key limbs) then a
-    # CB_ACTIVE-shaped case (l=4, Bg=2^9: two planes, 8 key limbs); the 64-bit
-    # contractions read the K-packed key wmt (UL, N+m, J*m), as
+    # B=256, CB_MXU (l=5, Bg=2^8: one plane, 6 key limbs), then the
+    # reference's blocks of phase 12 (two planes, 8 key limbs): CB_ACTIVE
+    # (l=4, Bg=2^9, J*m = 512) and CB_PAPER (l=6, Bg=2^9, J*m = 768); the
+    # 64-bit contractions read the K-packed key wmt (UL, N+m, J*m), as
     # ChunkedEngine.prepare builds it
     B, kp1, N, m = 256, 2, 2048, CB_M
     C = N // m
     for label, p, L in (("CB_MXU", CB_MXU.tgsw_lvl2, 6),
-                        ("CB_ACTIVE", CB_ACTIVE.tgsw_lvl2, 8)):
+                        ("CB_ACTIVE", CB_ACTIVE.tgsw_lvl2, 8),
+                        ("CB_PAPER", CB_PAPER.tgsw_lvl2, 8)):
         P = 1 if p.bgbit <= 8 else 2
         Jm = kp1 * p.l * m
         acc = torch.from_numpy(r.integers(-2**63, 2**63, (B, kp1, N),
@@ -640,9 +657,10 @@ def _kernel_cases(seed: int = 0):
                       lib, True))
 
     # ck_cmux_step64: the whole 64-bit step on the flat accumulator at
-    # CB_MXU and CB_ACTIVE B=256, then CB_MXU tail batches
+    # CB_MXU, CB_ACTIVE and CB_PAPER B=256, then CB_MXU tail batches
     for label, p, L, B in (("CB_MXU", CB_MXU.tgsw_lvl2, 6, 256),
                            ("CB_ACTIVE", CB_ACTIVE.tgsw_lvl2, 8, 256),
+                           ("CB_PAPER", CB_PAPER.tgsw_lvl2, 8, 256),
                            ("CB_MXU", CB_MXU.tgsw_lvl2, 6, 1),
                            ("CB_MXU", CB_MXU.tgsw_lvl2, 6, 3),
                            ("CB_MXU", CB_MXU.tgsw_lvl2, 6, 100)):
@@ -1214,17 +1232,18 @@ def _torus_dist(x, want):
     return torch.minimum(d, 2**32 - d)
 
 
-def check_trgsw_rows(gsw, bits, sk, P) -> list:
-    """Every TRGSW row (z=1, w) of the batch: coefficient 0 within h_w/4 of
-    bit * h_w, h_w = 2^(32-(w+1)*bg1), and the other coefficients within
-    h_w/4 of 0 (tests/test_circuit_bootstrap.py).  h_w/4 is below h_w/2, so
-    a row that encodes the wrong bit fails.  Returns the worst error of
-    each level."""
+def check_trgsw_rows(gsw, bits, sk, P, levels=None) -> list:
+    """Every TRGSW row (z=1, w) of the batch at each level w of ``levels``
+    (None: every level, phase 5's rule at CB_MXU): coefficient 0 within
+    h_w/4 of bit * h_w, h_w = 2^(32-(w+1)*bg1), and the other coefficients
+    within h_w/4 of 0 (tests/test_circuit_bootstrap.py).  h_w/4 is below
+    h_w/2, so a row that encodes the wrong bit fails.  Returns the worst
+    error of each level checked."""
     from tfhe_tpu_torch import tgsw
     ph = tgsw.tgsw_phase(gsw, sk.ring_lvl1)          # (B, k+1, ell1, N1)
     bit_t = torch.from_numpy(bits).to(gsw.device)
     worst = []
-    for w in range(P.tgsw_lvl1.l):
+    for w in range(P.tgsw_lvl1.l) if levels is None else levels:
         h = 1 << (32 - (w + 1) * P.tgsw_lvl1.bgbit)
         row = ph[:, 1, w]
         worst.append(max(int(_torus_dist(row[:, 0], bit_t * h).max()),
@@ -1234,15 +1253,57 @@ def check_trgsw_rows(gsw, bits, sk, P) -> list:
     return worst
 
 
-def check_cmux(gsw, bits, sk, P) -> tuple:
+def cleared_levels(P) -> list:
+    """The lvl1 levels w where h_w/4 clears 6 sigma of a TRGSW row's noise
+    (noise.circuit_bootstrap_variances' final variance, in torus32 units):
+    the levels whose rows carry their bit.  CB_MXU, CB_ACTIVE: both; CB_PAPER
+    (l1 = 4): 0 and 1 (h_2/4 = 64 and h_3/4 = 0 lie under its sigma of ~512)."""
+    from tfhe_tpu_torch import noise
+    sigma = noise.circuit_bootstrap_variances(P).final_variance ** 0.5 * 2**32
+    p1 = P.tgsw_lvl1
+    return [w for w in range(p1.l)
+            if (1 << (32 - (w + 1) * p1.bgbit)) // 4 > 6 * sigma]
+
+
+PROBE_LIMIT = 1 << 24                 # 2^-8 of the torus, in torus32 units
+
+
+def check_trgsw_probe(gsw, bits, sk, P) -> int:
+    """The JAX package's hardware rule (tools/cb_tpu_bench.py: every row
+    decrypt-probed by boot.probe.probe_tgsw_rows, within 2^-8 of the torus),
+    on every coefficient of every row: row (z, w) has phase K_z * bit * h_w
+    with K = [-s1, 1].  Returns the worst distance in torus32 units."""
+    from tfhe_tpu_torch.boot import probe
+    p1 = P.tgsw_lvl1
+    ph, _ = probe.probe_tgsw_rows(gsw, sk.ring_lvl1, p1)
+    ph = torch.from_numpy(ph).to(torch.int64)          # (B, k+1, l1, N1)
+    s1 = torch.from_numpy(np.asarray(sk.ring_lvl1.key)).to(torch.int64)
+    k = s1.shape[0]
+    worst = 0
+    for w in range(p1.l):
+        h = torch.from_numpy(bits).to(torch.int64)[:, None] * p1.h[w]
+        for z in range(k + 1):
+            if z < k:                                  # -s1[z] * bit * h_w
+                want = -h * s1[z][None, :]
+            else:                                      # bit * h_w
+                want = torch.zeros_like(ph[:, z, w])
+                want[:, 0] = h[:, 0]
+            worst = max(worst, int(_torus_dist(ph[:, z, w], want).max()))
+    check(worst < PROBE_LIMIT, f"a TRGSW row phase is off by {worst} >= "
+          f"2^-8 of the torus ({PROBE_LIMIT})")
+    return worst
+
+
+def check_cmux(gsw, bits, sk, P, level=None) -> tuple:
     """A CMux driven by each TRGSW selects d1 for bit 1 and d0 for bit 0.
-    d1 - d0 has the digit Bg/4 on the last level at coefficient 0, so a row
-    of that level that encodes the wrong bit moves the output by
-    (Bg/4) * h_last; the limit is half that.  Returns (worst error,
-    limit)."""
+    d1 - d0 has the digit Bg/4 on level ``level`` (None: the last) at
+    coefficient 0, so a row of that level that encodes the wrong bit moves
+    the output by (Bg/4) * h_level; the limit is half that.  Returns (worst
+    error, limit)."""
     from tfhe_tpu_torch import tgsw, tlwe
     p1, k = P.tgsw_lvl1, P.lvl1.k
-    h_last = 1 << (32 - p1.l * p1.bgbit)
+    level = p1.l - 1 if level is None else level
+    h_last = 1 << (32 - (level + 1) * p1.bgbit)
     limit = (1 << (p1.bgbit - 2)) * h_last // 2
     m = torch.zeros((2, P.n_lvl1), dtype=torch.int32, device=gsw.device)
     m[0, 0] = 1 << 29
@@ -1259,14 +1320,74 @@ def check_cmux(gsw, bits, sk, P) -> tuple:
     return worst, limit
 
 
+def _lut_inputs(sk, rng, instances: int = 64, lut_bits: int = 4):
+    """The 4-bit LUT indices of ``instances`` instances and their bits as
+    LWE ciphertexts: instance i's bits, LSB first, are ciphertexts
+    i*lut_bits .. i*lut_bits + lut_bits - 1 (bit = 1 encodes as 1/2).
+    Returns (the numpy generator, which later draws the tables, indices,
+    bits, ciphertexts)."""
+    from tfhe_tpu_torch import lwe
+    r = np.random.default_rng(5)
+    idx = r.integers(0, 1 << lut_bits, instances)
+    bits = ((idx[:, None] >> np.arange(lut_bits)) & 1).reshape(-1)
+    msgs = np.where(bits == 1, -(1 << 31), 0).astype(np.int32)
+    return r, idx, bits, lwe.encrypt(sk.lwe_lvl1, msgs, rng, 2.0**-20)
+
+
+def check_luts(gsw, idx, perm, sk, P, what: str):
+    """A lut_bits-bit LUT per instance, table[v] = perm[v] / 2^lut_bits,
+    selected by the instance's TRGSWs (lut.eval_lut_batch on the lvl1
+    onthefly engine): every output decodes table[idx] exactly."""
+    from tfhe_tpu_torch import tlwe
+    from tfhe_tpu_torch import torus as T
+    from tfhe_tpu_torch.models import lut
+    instances, lut_bits = len(idx), len(perm).bit_length() - 1
+    table = T.wrap32(torch.from_numpy(perm.astype(np.int64)
+                                      << (32 - lut_bits)))
+    sel = gsw.reshape(instances, lut_bits, *gsw.shape[1:])
+    out = lut.eval_lut_batch(sel, table, P.tgsw_lvl1, backend="onthefly")
+    dec = T.mod_switch_from_torus32(
+        tlwe.tlwe_phase(out, sk.ring_lvl1)[:, 0], 1 << lut_bits)
+    ok = dec.cpu().numpy() == perm[idx]
+    check(ok.all(), f"{what}: {int((~ok).sum())} of {instances} LUT "
+          f"outputs wrong")
+
+
+def _cb_launch(cb, ct, ck):
+    """One untimed launch (its captures: cell_start cleared the cache),
+    then a timed one with every launch count from 0.  Returns the TRGSWs,
+    the first and timed walls and the timed launch's counts."""
+    from tfhe_tpu_torch.ops import kernels as K
+    cell_start()
+    t0 = time.perf_counter()
+    cb(ct, ck.data)                     # untimed: first-use set-up, capture
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    K.reset_launches()
+    t0 = time.perf_counter()
+    gsw = cb(ct, ck.data)
+    torch.cuda.synchronize()
+    return gsw, first, time.perf_counter() - t0, _launch_counts()
+
+
+def _keyswitch_ms(P, ck, ct) -> tuple:
+    """CUDA-event ms of a circuit bootstrap launch's preKS on ``ct`` and of
+    one privKS product on a random lvl2 extract batch of its rows."""
+    from tfhe_tpu_torch import lwe
+    from tfhe_tpu_torch.boot import circuit
+    preks = lwe.KeySwitchKey(P.ks10, P.n_lvl1, P.n_lvl0, ck.data["preks"])
+    ext = torch.randint(-2**63, 2**63 - 1, (ct.shape[0], P.n_lvl2 + 1),
+                        dtype=torch.int64, device=ct.device)
+    return (cuda_ms(lambda: lwe.keyswitch(ct, preks), 5),
+            cuda_ms(lambda: circuit.priv_keyswitch(ext, ck.privks, 0), 5))
+
+
 def phase_circuit(smi: str):
     """CB_MXU circuit bootstrap of the 4 bits of each of 64 random LUT
     indices, then the LUTs they select.  Returns the launch counts of the
     timed launch and its numbers."""
-    from tfhe_tpu_torch import device, lwe, noise, tgsw, tlwe
-    from tfhe_tpu_torch import torus as T
+    from tfhe_tpu_torch import device, noise, tgsw
     from tfhe_tpu_torch.boot import circuit
-    from tfhe_tpu_torch.models import lut
     from tfhe_tpu_torch.ops import kernels as K
     from tfhe_tpu_torch.ops.engine import make_engine
     from tfhe_tpu_torch.params import CB_MXU
@@ -1296,26 +1417,9 @@ def phase_circuit(smi: str):
                       if name.startswith("keygen.circuit."))
     print(f"phase 5 keygen CB_MXU chunked: {keygen_s:.2f} s ({parts})")
 
-    # instance i selects table[idx_i]; its bits, LSB first, are ciphertexts
-    # i*lut_bits .. i*lut_bits + lut_bits - 1 (bit = 1 encodes as 1/2)
-    r = np.random.default_rng(5)
-    idx = r.integers(0, 1 << lut_bits, instances)
-    bits = ((idx[:, None] >> np.arange(lut_bits)) & 1).reshape(-1)
-    msgs = np.where(bits == 1, -(1 << 31), 0).astype(np.int32)
-    ct = lwe.encrypt(sk.lwe_lvl1, msgs, rng, 2.0**-20)
+    r, idx, bits, ct = _lut_inputs(sk, rng, instances, lut_bits)
     cb = circuit.make_circuit_bootstrap_staged(P, backend="chunked")
-    cell_start()
-    t0 = time.perf_counter()
-    cb(ct, ck.data)                     # untimed: first-use set-up, capture
-    torch.cuda.synchronize()
-    first = time.perf_counter() - t0
-
-    K.reset_launches()
-    t0 = time.perf_counter()
-    gsw = cb(ct, ck.data)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = {kern.__name__: kern.launches for kern in K.KERNELS}
+    gsw, first, wall, counts = _cb_launch(cb, ct, ck)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for name in ("rotate_decompose64_ck", "ck_dot64p"):
         check(counts[name] == steps, f"CB_MXU: {name} launched "
@@ -1341,18 +1445,7 @@ def phase_circuit(smi: str):
     print(f"phase 5 CMux: all {batch} TRGSWs select the right message "
           f"(worst phase error {worst} < {limit})")
 
-    # a lut_bits-bit LUT per instance: table[v] = perm[v] / 2^lut_bits
-    p1 = P.tgsw_lvl1
-    perm = r.permutation(1 << lut_bits)
-    table = T.wrap32(torch.from_numpy(perm.astype(np.int64)
-                                      << (32 - lut_bits)))
-    sel = gsw.reshape(instances, lut_bits, *gsw.shape[1:])
-    out = lut.eval_lut_batch(sel, table, p1, backend="onthefly")
-    dec = T.mod_switch_from_torus32(
-        tlwe.tlwe_phase(out, sk.ring_lvl1)[:, 0], 1 << lut_bits)
-    ok = dec.cpu().numpy() == perm[idx]
-    check(ok.all(), f"CB_MXU: {int((~ok).sum())} of {instances} LUT "
-          f"outputs wrong")
+    check_luts(gsw, idx, r.permutation(1 << lut_bits), sk, P, "CB_MXU")
     print(f"phase 5 LUT: all {instances} {lut_bits}-bit LUTs decode "
           f"table[index]")
 
@@ -1396,11 +1489,7 @@ def phase_circuit(smi: str):
                              ("fused", "cmux_step_flat"))}
     dot_plan = K.ck_dot64p_plan(batch, P.n_lvl2, eng.m, wmt0.shape[-1],
                                 kw["planes"])
-    preks = lwe.KeySwitchKey(P.ks10, P.n_lvl1, P.n_lvl0, ck.data["preks"])
-    pre_ms = cuda_ms(lambda: lwe.keyswitch(ct, preks), 5)
-    ext = torch.randint(-2**63, 2**63 - 1, (batch, P.n_lvl2 + 1),
-                        dtype=torch.int64, device=dev)
-    priv_ms = cuda_ms(lambda: circuit.priv_keyswitch(ext, ck.privks, 0), 5)
+    pre_ms, priv_ms = _keyswitch_ms(P, ck, ct)
     n_priv = ell1 * (k + 1)
     total = (rot_ms + dot_ms + epi_ms) * steps + pre_ms + priv_ms * n_priv
     print(f"phase 5 breakdown B={batch}: rotate_decompose64_ck "
@@ -1443,24 +1532,13 @@ def phase_circuit_step(smi: str, state: dict, phase: str, step: str,
     ``kernels`` and no other CMux kernel."""
     import os
     from tfhe_tpu_torch.boot import circuit
-    from tfhe_tpu_torch.ops import kernels as K
     from tfhe_tpu_torch.params import CB_MXU
     ck, ct, steps = state["ck"], state["ct"], state["steps"]
     batch = ct.shape[0]
     cb = circuit.make_circuit_bootstrap_staged(CB_MXU, backend="chunked")
     os.environ[var] = value
     try:
-        cell_start()
-        t0 = time.perf_counter()
-        cb(ct, ck.data)                 # untimed: first-use set-up, capture
-        torch.cuda.synchronize()
-        first = time.perf_counter() - t0
-        K.reset_launches()
-        t0 = time.perf_counter()
-        gsw = cb(ct, ck.data)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = _launch_counts()
+        gsw, first, wall, counts = _cb_launch(cb, ct, ck)
         graph_cell(f"CB_MXU chunked {step} step B={batch}",
                    lambda: cb(ct, ck.data), gsw, wall, first)
     finally:
@@ -1994,6 +2072,24 @@ def _step_nodes(backend: str, batch: int = 256, seed: int = 10):
     return nodes, capture_ms
 
 
+def print_cell(c: dict, smi: str, phase: str):
+    """One line for a cell graph_cell recorded."""
+    busy = c["busy_ms"]
+    idle = ("not measured" if busy is None else
+            f"{1 - busy / (c['graphed_s'] * 1e3):.1%} graphed, "
+            f"{1 - busy / (c['eager_s'] * 1e3):.1%} eager")
+    nodes = "not measured" if c["nodes"] is None else c["nodes"]
+    print(f"phase {phase} graphs {c['cell']}: bit-identical graphed and "
+          f"eager; wall {c['graphed_s']:.4f} s graphed, "
+          f"{c['eager_s']:.4f} s eager ({c['eager_s'] / c['graphed_s']:.2f}x);"
+          f" device busy {busy if busy is None else f'{busy:.1f}'} ms, "
+          f"idle share {idle}; first run {c['first_s']:.3f} s: "
+          f"{c['captures']} captures ({c['capture_ms']:.1f} ms capture, "
+          f"{c['instantiate_ms']:.1f} ms instantiate), {nodes} nodes, "
+          f"pool {c['pool_bytes'] / 1e6:.1f} MB; {c['replays']} replays "
+          f"[{smi}]")
+
+
 def phase_graphs(smi: str):
     """Phase 10: every cell of phases 3-9 graphed against eager (recorded by
     graph_cell), the eager backends' step node counts, and the HP FFT
@@ -2001,20 +2097,7 @@ def phase_graphs(smi: str):
     from tfhe_tpu_torch import graphs
     from tfhe_tpu_torch.ops import hpfft
     for c in GRAPH_CELLS:
-        busy = c["busy_ms"]
-        idle = ("not measured" if busy is None else
-                f"{1 - busy / (c['graphed_s'] * 1e3):.1%} graphed, "
-                f"{1 - busy / (c['eager_s'] * 1e3):.1%} eager")
-        nodes = "not measured" if c["nodes"] is None else c["nodes"]
-        print(f"phase 10 graphs {c['cell']}: bit-identical graphed and "
-              f"eager; wall {c['graphed_s']:.4f} s graphed, "
-              f"{c['eager_s']:.4f} s eager ({c['eager_s'] / c['graphed_s']:.2f}x);"
-              f" device busy {busy if busy is None else f'{busy:.1f}'} ms, "
-              f"idle share {idle}; first run {c['first_s']:.3f} s: "
-              f"{c['captures']} captures ({c['capture_ms']:.1f} ms capture, "
-              f"{c['instantiate_ms']:.1f} ms instantiate), {nodes} nodes, "
-              f"pool {c['pool_bytes'] / 1e6:.1f} MB; {c['replays']} replays "
-              f"[{smi}]")
+        print_cell(c, smi, "10")
     for backend in ("nussbaumer", "fft_dd"):
         nodes, ms = _step_nodes(backend)
         rule = ("stays eager" if backend in graphs.EAGER_BACKENDS
@@ -2128,6 +2211,7 @@ def rank_main(job: str, out) -> int:
         cp = CB_MXU
         rng = TfheRng(0)                    # phase 5's seed, keys and inputs
         csk = circuit.CircuitSecretKey.generate(cp, rng)
+        torch.cuda.reset_peak_memory_stats()    # not the gate cases' peak
         cck = circuit.CircuitCloudKey.generate(csk, rng, backend="chunked",
                                                prepare_bk=False)
         cct = torch.from_numpy(np.load(out / "cb_ct.npy")).cuda()
@@ -2239,6 +2323,167 @@ def phase_sharded(smi: str, gate_ref: dict, cb_ref: dict):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the reference's own parameter blocks
+# ---------------------------------------------------------------------------
+
+# poc_CircuitBootstrapping.cpp:18-34 (the PoC's proposed block) and :70-85
+# (its active one), as params.py defines them: both decompose lvl2 at
+# Bg = 2^9 (two digit planes) and keep the whole 8-limb key (bk_limbs = 0)
+REF_BLOCKS = ("CB_PAPER", "CB_ACTIVE")
+
+
+def _programs_txt() -> str:
+    from tfhe_tpu_torch import graphs
+    progs = graphs.stats()
+    return (f"{len(progs)} programs, pools "
+            f"{sum(p['pool_bytes'] for p in progs) / 1e9:.3f} GB")
+
+
+def phase_ref_block(smi: str, name: str) -> dict:
+    """Phase 12 for one block: keys on the card, the default step's graphed
+    launch at B=256 (one untimed, one timed), the TRGSW checks (PERF.md
+    §6: every row within 2^-8 of the torus, h_w/4 at the levels
+    cleared_levels names, a CMux at the last of them, all 64 LUTs), then
+    the acc, sacc and FUSED steps on the same inputs, each TRGSW-identical
+    to the default.  Returns the launch counts by path."""
+    import os
+    from tfhe_tpu_torch import noise, params, tgsw
+    from tfhe_tpu_torch.boot import circuit
+    from tfhe_tpu_torch.ops.engine import make_engine
+    from tfhe_tpu_torch.rng import TfheRng
+    from tfhe_tpu_torch.utils import observability as obs
+    P = getattr(params, name)
+    tag = name.lower()
+    k, ell1, p2 = P.lvl1.k, P.tgsw_lvl1.l, P.tgsw_lvl2
+    check(p2.key_limbs == 0 and p2.bgbit == 9, f"{name}: want the whole "
+          f"8-limb lvl2 key at Bg = 2^9")
+    penalty = noise.shared_rotation_penalty(P)
+    check(penalty > noise.SHARED_ROTATION_MAX_PENALTY, f"{name}: the shared "
+          f"rotation should be refused")
+    steps = P.n_lvl0 * ell1
+
+    cell_start()
+    rng = TfheRng(0)
+    sk = circuit.CircuitSecretKey.generate(P, rng)
+    spans0 = {n: v["total_s"] for n, v in obs.report()["spans"].items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ck = circuit.CircuitCloudKey.generate(sk, rng, backend="chunked")
+    keygen_s = time.perf_counter() - t0
+    keygen_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    keys_gb = torch.cuda.memory_allocated() / 1e9
+    wmt = ck.data["bk"]["wmt"]
+    Jm = (k + 1) * p2.l * CB_M
+    check(tuple(wmt.shape) == (P.n_lvl0, (k + 1) * 8, P.n_lvl2 + CB_M, Jm),
+          f"{name}: wmt of shape {tuple(wmt.shape)}")
+    parts = ", ".join(
+        f"{n.split('.')[-1]} {v['total_s'] - spans0.get(n, 0.0):.2f} s"
+        for n, v in obs.report()["spans"].items()
+        if n.startswith("keygen.circuit."))
+    print(f"phase 12 {name} keygen on the card: {keygen_s:.2f} s ({parts}); "
+          f"peak {keygen_peak_gb:.2f} GB, resident {keys_gb:.2f} GB: wmt "
+          f"{tuple(wmt.shape)} {_nbytes(wmt) / 1e9:.2f} GB (J*m = {Jm}, "
+          f"8 limbs, 2 planes), privKS {tuple(ck.data['privks'].shape)} "
+          f"{_nbytes(ck.data['privks']) / 1e9:.2f} GB, preKS "
+          f"{tuple(ck.data['preks'].shape)}; shared rotation refused "
+          f"(penalty {penalty:.3g}) [{smi}]")
+
+    r, idx, bits, ct = _lut_inputs(sk, rng)
+    batch = ct.shape[0]
+    cb = circuit.make_circuit_bootstrap_staged(P, backend="chunked")
+    torch.cuda.reset_peak_memory_stats()
+    gsw, first, wall, counts = _cb_launch(cb, ct, ck)
+    launch_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _wmt_only(name, ck)
+    _only(counts, {"rotate_decompose64_ck": steps, "ck_dot64p": steps},
+          f"{name} default step")
+    check(tuple(gsw.shape) == (batch, k + 1, ell1, k + 1, P.n_lvl1),
+          f"{name}: TRGSW batch of shape {tuple(gsw.shape)}")
+    graph_cell(f"{name} chunked default step B={batch}",
+               lambda: cb(ct, ck.data), gsw, wall, first)
+    print_cell(GRAPH_CELLS.pop(), smi, "12")
+    print(f"phase 12 {name} chunked default step B={batch}: "
+          f"{wall * 1e3 / batch:.3f} ms per ciphertext, {batch / wall:.2f} "
+          f"ct/s ({wall:.3f} s for one launch of {ell1} rotations x "
+          f"{P.n_lvl0} steps and {ell1 * (k + 1)} privKS products; first "
+          f"launch {first:.3f} s with its captures, {_programs_txt()}); peak "
+          f"of the two launches {launch_peak_gb:.2f} GB; launches "
+          f"{ {n: c for n, c in counts.items() if c} } [{smi}]")
+    by_path = {tag: counts}
+
+    # where the launch's time goes: one default step's device time (its two
+    # kernels and the int64 epilogue), the key switches' call times
+    eng = make_engine(tgsw.engine_config(p2), "chunked")
+    acc = torch.randint(-2**63, 2**63 - 1, (batch, k + 1, P.n_lvl2),
+                        dtype=torch.int64, device=wmt.device)
+    a0 = torch.randint(0, 2 * P.n_lvl2, (batch,), dtype=torch.int32,
+                       device=wmt.device)
+    step_ms = device_ms(lambda: eng.cmux_step(
+        a0, acc, {"wmt": wmt[0]}, l=p2.l, bgbit=p2.bgbit, offset=p2.offset),
+        10)
+    pre_ms, priv_ms = _keyswitch_ms(P, ck, ct)
+    n_priv = ell1 * (k + 1)
+    total = step_ms * steps + pre_ms + priv_ms * n_priv
+    print(f"phase 12 {name} breakdown B={batch}: default step {step_ms:.4f} "
+          f"ms of device time x {steps} ({step_ms * steps / (wall * 1e3):.1%}"
+          f" of the launch), preKS {pre_ms:.3f} ms x 1, privKS "
+          f"{priv_ms:.3f} ms x {n_priv} ({priv_ms * n_priv / (wall * 1e3):.1%}"
+          f"); sum {total:.1f} ms vs {wall * 1e3:.1f} ms per launch")
+    del acc, a0
+
+    levels = cleared_levels(P)
+    check(levels == [0, 1], f"{name}: the worksheet clears h_w/4 at levels "
+          f"{levels}, not at [0, 1] as PERF.md states")
+    worst = check_trgsw_probe(gsw, bits, sk, P)
+    print(f"phase 12 {name} TRGSW rows: all {batch * (k + 1) * ell1} rows "
+          f"within 2^-8 of the torus of K_z * bit * h_w (worst {worst} < "
+          f"{PROBE_LIMIT})")
+    worst = check_trgsw_rows(gsw, bits, sk, P, levels)
+    print(f"phase 12 {name} TRGSW rows: the (z=1) rows of levels {levels} "
+          f"(h_w/4 clears 6 sigma of the worksheet's noise there) within "
+          f"h_w/4; worst error per level {worst}")
+    worst, limit = check_cmux(gsw, bits, sk, P, level=levels[-1])
+    print(f"phase 12 {name} CMux: all {batch} TRGSWs select the right "
+          f"message with the digit on level {levels[-1]} (worst phase error "
+          f"{worst} < {limit})")
+    check_luts(gsw, idx, r.permutation(16), sk, P, name)
+    print(f"phase 12 {name} LUT: all {len(idx)} 4-bit LUTs decode "
+          f"table[index]")
+
+    for _, step, var, value, kernels in CK64_STEPS:
+        os.environ[var] = value
+        try:
+            got, first, wall_s, counts = _cb_launch(cb, ct, ck)
+            programs = _programs_txt()
+        finally:
+            del os.environ[var]
+        check(torch.equal(got, gsw), f"{name} {step}: the TRGSWs differ "
+              f"from the default step's")
+        _only(counts, {n: steps for n in kernels}, f"{name} {step}")
+        by_path[f"{tag}_{step}"] = counts
+        print(f"phase 12 {name} chunked {var}={value} B={batch}: "
+              f"{wall_s * 1e3 / batch:.3f} ms per ciphertext ({wall_s:.3f}"
+              f" s for one launch, first {first:.3f} s, {programs}) against "
+              f"the default's {wall * 1e3 / batch:.3f}; TRGSWs bit-identical "
+              f"to the default step's; launches "
+              f"{ {n: c for n, c in counts.items() if c} } [{smi}]")
+    del ck, cb, gsw
+    cell_start()
+    return by_path
+
+
+def phase_ref_blocks(smi: str) -> dict:
+    """Phase 12: every block of REF_BLOCKS, one after the other."""
+    by_path = {}
+    for name in REF_BLOCKS:
+        t0 = time.perf_counter()
+        by_path.update(phase_ref_block(smi, name))
+        print(f"phase 12 {name}: {time.perf_counter() - t0:.1f} s in all")
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2273,6 +2518,8 @@ def main() -> int:
     cb_ref = {"ct": state.pop("ct"), "gsw": state.pop("gsw").cpu()}
     del state
     by_path.update(phase_sharded(smi, gate_ref, cb_ref))
+    del cb_ref
+    by_path.update(phase_ref_blocks(smi))
     from tfhe_tpu_torch.ops import kernels as K
     check(len(results) == len(K.KERNELS), f"phase 2 checked "
           f"{len(results)} of {len(K.KERNELS)} kernels")

@@ -269,11 +269,13 @@ def test_chunked_naive64_and_the_32_bit_rule():
 
 @pytest.mark.parametrize("N,k,l,bgbit,m", [(128, 1, 5, 8, 32),
                                            (128, 1, 4, 9, 64),
+                                           (128, 1, 6, 9, 64),
                                            (256, 2, 4, 9, 64)])
 def test_rotate_decompose64_ck_plain(N, k, l, bgbit, m):
     """Against the Pallas kernel (interpret) on the data columns; the pad
     columns of each (chunk, plane) block, which ck_dot64p never reads, are
-    zero here and left unwritten by the Pallas kernel."""
+    zero here and left unwritten by the Pallas kernel.  l = 6 at Bg = 2^9
+    is CB_PAPER's lvl2 gadget (two planes, J*m = 768)."""
     r = np.random.default_rng(5)
     p, _ = _tgsw_pair(l, bgbit, N, k)
     B = 4
@@ -285,9 +287,14 @@ def test_rotate_decompose64_ck_plain(N, k, l, bgbit, m):
     want = np.asarray(pk.rotate_decompose64_ck(
         jnp.asarray(a), lo, hi, l=l, bgbit=bgbit, offset=p.offset, m=m,
         planes=P, tb=B, interpret=True))
+    kw = dict(l=l, bgbit=bgbit, offset=p.offset, m=m, planes=P)
     got = K.rotate_decompose64_ck(torch.from_numpy(a), torch.from_numpy(acc),
-                                  l=l, bgbit=bgbit, offset=p.offset, m=m,
-                                  planes=P).numpy()
+                                  **kw)
+    # the flat entry (the acc and sacc steps' emitter) gives the same
+    flat = K.rotate_decompose64_ck_flat(
+        torch.from_numpy(a), torch.from_numpy(acc.reshape(B, -1)), N=N, **kw)
+    assert torch.equal(flat, got)
+    got = got.numpy()
     jm = (k + 1) * l * m
     ckp = K.ck_width(jm)
     got, want = got.reshape(B, -1, ckp), want.reshape(B, -1, ckp)
@@ -306,7 +313,7 @@ def test_rotate_decompose64_ck_plain(N, k, l, bgbit, m):
 
 @pytest.mark.parametrize("N,kp1,l,U,L,m,P,lgsize", [
     (128, 2, 2, 2, 3, 32, 1, 2), (128, 2, 2, 2, 4, 64, 2, 2),
-    (256, 3, 2, 3, 2, 64, 1, 3)])
+    (128, 2, 6, 2, 8, 64, 2, 2), (256, 3, 2, 3, 2, 64, 1, 3)])
 def test_ck_dot64p_plain(N, kp1, l, U, L, m, P, lgsize):
     r = np.random.default_rng(2)
     C, Jm = N // m, kp1 * l * m
@@ -330,7 +337,8 @@ def test_ck_dot64p_plain(N, kp1, l, U, L, m, P, lgsize):
 
 
 @pytest.mark.parametrize("N,kp1,l,L,m,P", [
-    (128, 2, 2, 3, 32, 1), (128, 2, 2, 4, 64, 2), (256, 3, 2, 2, 64, 1)])
+    (128, 2, 2, 3, 32, 1), (128, 2, 2, 4, 64, 2), (128, 2, 6, 8, 64, 2),
+    (256, 3, 2, 2, 64, 1)])
 def test_ck_dot64p_acc_plain_with_wmt(N, kp1, l, L, m, P):
     """ck_dot64p_acc on the K-packed key (its plain version contracts wmt)
     against the Pallas kernel (interpret) at test_ck_dot64p_plain's
@@ -356,7 +364,8 @@ def test_ck_dot64p_acc_plain_with_wmt(N, kp1, l, L, m, P):
 
 
 @pytest.mark.parametrize("N,m,Jm,P,ok", [
-    (2048, 64, 640, 1, True), (2048, 64, 512, 2, True), (64, 32, 96, 1, True),
+    (2048, 64, 640, 1, True), (2048, 64, 512, 2, True),
+    (2048, 64, 768, 2, True), (64, 32, 96, 1, True),
     (32, 16, 64, 1, False), (128, 32, 200, 1, False), (128, 64, 256, 3, False),
     (64, 2, 16, 1, True)])
 def test_ck64_kernel_domain_and_plans(N, m, Jm, P, ok):
@@ -387,10 +396,12 @@ def test_ck_dot64p_asserts_the_int32_bound():
     with pytest.raises(ValueError, match="int32 accumulation bound"):
         K.ck_dot64p(x, wmt, N=128, m=64, planes=2, digit_bits=20)
     # prepare holds the key to the same bound: J=32 rows of 9-bit digits
-    # at N=2048 exceed it, J=16 (CB_ACTIVE's (k+1)*l2 = 8, doubled) do not
+    # at N=2048 exceed it, J=16 (CB_ACTIVE's (k+1)*l2 = 8, doubled) and
+    # J=12 (CB_PAPER's (k+1)*l2) do not
     te = engine.ChunkedEngine(engine.EngineConfig(N=2048, out_bits=64,
                                                   digit_bits=9))
     assert K.ck_dot64p_exact(16, 2048, 64, 9)
+    assert K.ck_dot64p_exact(12, 2048, 64, 9)
     with pytest.raises(ValueError, match="int32 accumulation bound"):
         te.prepare(torch.zeros((32, 1, 2048), dtype=torch.int64))
 

@@ -25,7 +25,7 @@ import torch
 from tfhe_tpu_torch import lwe
 from tfhe_tpu_torch.boot import circuit, gate
 from tfhe_tpu_torch.ops import kernels as K
-from tfhe_tpu_torch.params import CB_TOY, GATE_TOY
+from tfhe_tpu_torch.params import CB_TOY, GATE_TOY, make_circuit_params
 from tfhe_tpu_torch.rng import TfheRng
 
 pytestmark = pytest.mark.cuda
@@ -372,12 +372,13 @@ def _cb_offset(l, bgbit):
 
 
 # the 64-bit emitter's cases (B, k, N, l, bgbit, m): CB_MXU at the steps'
-# batches (256, and the narrow 1, 3, 100), CB_ACTIVE (two planes), k = 2,
+# batches (256, and the narrow 1, 3, 100), CB_ACTIVE and CB_PAPER (two
+# planes; CB_PAPER's J*m = 768), k = 2,
 # m = 16, 32 and 64, and pad shapes (J*m = 96, 160, 320: not a multiple of
 # 128)
 RD64_CASES = [(B, 1, 2048, 5, 8, 64) for B in (1, 3, 100, 256)] + [
     (256, 1, 2048, 4, 9, 64), (3, 1, 2048, 4, 9, 64), (7, 2, 256, 4, 9, 64),
-    (5, 1, 128, 5, 8, 32), (100, 1, 256, 5, 8, 16), (9, 2, 128, 2, 9, 16),
+    (256, 1, 2048, 6, 9, 64), (5, 1, 128, 5, 8, 32), (100, 1, 256, 5, 8, 16), (9, 2, 128, 2, 9, 16),
     (3, 1, 128, 3, 8, 16), (33, 1, 512, 5, 8, 16), (70, 1, 256, 5, 8, 32)]
 
 
@@ -433,13 +434,15 @@ def test_rotate_decompose64_ck_writes_its_pad_columns(cuda, B, k, N, l,
 
 
 # the wgmma contractions' cases: CB_MXU's shape (J = 10, 12 limb groups, one
-# plane) at every batch, CB_ACTIVE's (J = 8, 16 groups, two planes), m = 32
+# plane) at every batch, CB_ACTIVE's (J = 8, 16 groups, two planes) and
+# CB_PAPER's (J = 12, 16 groups, two planes), m = 32
 # and 64, N from the 64-column tile up, limb counts that leave a ragged
 # last group, B = 300 (three 128-row tiles, the last one ragged).  Every tile's first added windows start below key row 0 and
 # its last subtracted ones end past N + m: TMA's zero fill is the mask.
 CK64_CASES = [(B, 2048, 10, 12, 64, 1) for B in (1, 3, 64, 65, 100, 256)] + [
     (256, 2048, 8, 16, 64, 2), (37, 2048, 8, 16, 64, 2),
-    (65, 512, 8, 16, 64, 2), (300, 1024, 10, 12, 64, 1),
+    (256, 2048, 12, 16, 64, 2), (65, 512, 8, 16, 64, 2),
+    (300, 1024, 10, 12, 64, 1),
     (70, 256, 6, 3, 32, 1), (100, 256, 4, 5, 32, 2),
     (64, 128, 6, 4, 32, 1), (9, 128, 4, 5, 64, 2), (5, 64, 4, 3, 32, 1)]
 
@@ -526,6 +529,7 @@ def test_ck_dot64p_every_plan(cuda, B, N, J, UL, m, P, rows):
 
 @pytest.mark.parametrize("B,N,J,UL,m,P", [(256, 2048, 10, 12, 64, 1),
                                           (100, 2048, 8, 16, 64, 2),
+                                          (256, 2048, 12, 16, 64, 2),
                                           (65, 256, 6, 3, 32, 1)])
 def test_ck_dot64p_extreme_digits(cuda, B, N, J, UL, m, P):
     """Digits at the planes' extremes against key limbs of -128: the
@@ -625,6 +629,7 @@ def test_ck_cmux_step32_unsupported_shape_raises(cuda):
 # ck_dot64p_acc's cases: (B, N, l, kp1, L, m, P)
 CK64_ACC_CASES = [(B, 2048, 5, 2, 6, 64, 1) for B in (1, 3, 64, 65, 100, 256)
                   ] + [(256, 2048, 4, 2, 8, 64, 2), (37, 2048, 4, 2, 8, 64, 2),
+                       (256, 2048, 6, 2, 8, 64, 2),
                        (1, 256, 2, 3, 3, 64, 1), (70, 128, 4, 2, 5, 32, 2),
                        (100, 256, 3, 2, 4, 32, 1), (5, 64, 2, 2, 3, 32, 1)]
 
@@ -668,6 +673,7 @@ def test_ck_dot64p_acc_every_plan(cuda, B, N, l, kp1, L, m, P, plan,
                                              (100, 1, 2048, 5, 8, 64),
                                              (256, 1, 2048, 4, 9, 64),
                                              (3, 1, 2048, 4, 9, 64),
+                                             (256, 1, 2048, 6, 9, 64),
                                              (9, 1, 128, 3, 8, 16)])
 def test_rotate_decompose64_ck_flat(cuda, B, k, N, l, bgbit, m):
     r = np.random.default_rng(9)
@@ -681,9 +687,9 @@ def test_rotate_decompose64_ck_flat(cuda, B, k, N, l, bgbit, m):
     assert K.rotate_decompose64_ck.launches == before
 
 
-def _cb_toy(dev):
+def _cb_toy(dev, P=CB_TOY):
     rng = TfheRng(7)
-    sk = circuit.CircuitSecretKey.generate(CB_TOY, rng)
+    sk = circuit.CircuitSecretKey.generate(P, rng)
     ck = circuit.CircuitCloudKey.generate(sk, rng, device=dev)
     bits = np.array([0, 1, 1, 0, 1])
     msgs = np.where(bits.astype(bool), -(1 << 31), 0).astype(np.int32)
@@ -724,6 +730,34 @@ def test_cb_toy_each_64_bit_step(cuda, monkeypatch, env, kernels):
                                "ck_dot64p_sacc", "ck_cmux_step64")}
     assert {k for k, v in steps.items() if v} == set(kernels)
     assert len({steps[k] for k in kernels}) == 1
+
+
+# a toy at CB_PAPER's gadgets and key switches (l1 = 4, lvl2 Bg = 2^9 / l2 =
+# 6: two planes, J*m = 768; the whole 8-limb key; preKS t = 15 and privKS
+# t = 32 at base 2) and toy widths
+CB_PAPER_TOY = make_circuit_params(
+    n_lvl0=12, n_lvl1=64, n_lvl2=128, bgbit_lvl1=8, ell_lvl1=4, bgbit_lvl2=9,
+    ell_lvl2=6, bk_stdev=2.0**-50, ks_stdev_10=2.0**-25, ks_len_10=15,
+    ks_basebit_10=1, ks_stdev_21=2.0**-31, ks_len_21=32, ks_basebit_21=1)
+
+
+@pytest.mark.parametrize("env", [{}, {"TFHE_CK64_PATH": "acc"},
+                                 {"TFHE_CK64_PATH": "sacc"},
+                                 {"TFHE_CK64_FUSED": "1"}])
+def test_cb_paper_toy_same_on_card_and_cpu(cuda, monkeypatch, env):
+    """The CB_PAPER-gadget toy's circuit bootstrap (one rotation per level)
+    on the card, through each 64-bit step and graphed
+    (make_circuit_bootstrap_staged), equals the CPU's bit for bit."""
+    ck, ct = _cb_toy("cpu", CB_PAPER_TOY)
+    want = circuit.circuit_bootstrap(ct, ck.data, CB_PAPER_TOY,
+                                     shared_rotation=False)
+    ck, ct = _cb_toy(cuda, CB_PAPER_TOY)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    cb = circuit.make_circuit_bootstrap_staged(CB_PAPER_TOY,
+                                               shared_rotation=False)
+    for _ in range(2):                         # the capture, then a replay
+        assert torch.equal(cb(ct, ck.data).cpu(), want)
 
 
 def _v1_case(cuda, B, k, N, l, bgbit, key_shift, seed):
@@ -818,13 +852,14 @@ def _ck_dot64p_sacc_rows(x, wmt, acc, *, N, m, planes, kp1, key_shift,
 
 
 # ck_dot64p_sacc's and ck_cmux_step64's cases: (B, N, l, kp1, L, m, P):
-# CB_MXU at the paths' batch and the tails, CB_ACTIVE-shaped (P = 2, 8
-# limbs), k = 2, odd limb counts (a 4-row limb group straddles polynomials),
-# m below the 64-column tile, a ragged K tail (J*m = 96, 160 or 352: not a
-# multiple of 128)
+# CB_MXU at the paths' batch and the tails, CB_ACTIVE- and CB_PAPER-shaped
+# (P = 2, 8 limbs; J*m = 512 and 768), k = 2, odd limb counts (a 4-row
+# limb group straddles polynomials), m below the 64-column tile, a ragged K
+# tail (J*m = 96, 160 or 352: not a multiple of 128)
 CK64_ATOMIC_CASES = [(B, 2048, 5, 2, 6, 64, 1) for B in (1, 3, 37, 100, 256)
                      ] + [(256, 2048, 4, 2, 8, 64, 2),
                           (37, 2048, 4, 2, 8, 64, 2),
+                          (256, 2048, 6, 2, 8, 64, 2),
                           (1, 256, 2, 3, 3, 64, 1), (70, 128, 4, 2, 5, 32, 2),
                           (65, 256, 3, 3, 4, 32, 1), (9, 128, 3, 2, 5, 16, 2),
                           (130, 256, 11, 2, 3, 16, 1)]
@@ -887,7 +922,8 @@ def _step64_case(r, B, N, l, kp1, L, m, P, extreme):
 @pytest.mark.parametrize("extreme", [False, True])
 @pytest.mark.parametrize("B,N,l,kp1,L,m,P", CK64_ATOMIC_CASES)
 def test_ck_cmux_step64(cuda, B, N, l, kp1, L, m, P, extreme):
-    """The chosen plan, both row tiles and forced window splits (one, two,
+    """The chosen plan, both row tiles where their key ring fits (at J*m =
+    768 only the 64-row one does) and forced window splits (one, two,
     every window its own slice), against the plain version on the card;
     extreme digits from the offsets that make every digit -half, every
     digit half - 1, and at P = 2 every digit 64 (planes -64 and 1)."""
@@ -909,6 +945,10 @@ def test_ck_cmux_step64(cuda, B, N, l, kp1, L, m, P, extreme):
         chosen = K.ck_cmux_step64_plan(B, kp1, N, m, kp1 * l * m, L, P, cuda)
         for plan in ((64, 1), (128, 1), (64, 2), (128, 2), (128, nw),
                      (64, chosen[1])):
+            if kp1 * l * m > 640 and plan[0] == 128:
+                assert not K._occupancy("ck_cmux_step64_stages", 128,
+                                        kp1 * l * m)
+                continue
             got = _ck_cmux_step64_plan(da, dacc, dwmt, plan=plan, **kw)
             torch.cuda.synchronize()
             assert torch.equal(got, want), plan
@@ -916,15 +956,19 @@ def test_ck_cmux_step64(cuda, B, N, l, kp1, L, m, P, extreme):
 
 def test_ck_cmux_step64_plan(cuda):
     """The plan: 128 rows above B = 64 where the ring holds two 32 KB key
-    stages beside the two digit buffers, else 64; the C query of the ring's
+    stages beside the two digit buffers, else 64 (CB_PAPER's J*m = 768
+    leaves one stage at 128 rows); the C query of the ring's
     stages; a narrow batch splits its tiles' windows, and m = 2 (not a
     multiple of 4) has no plan."""
     assert K._occupancy("ck_cmux_step64_stages", 128, 640) == 2
     assert K._occupancy("ck_cmux_step64_stages", 64, 640) == 4
     assert K._occupancy("ck_cmux_step64_stages", 128, 1280) == 0
     assert K._occupancy("ck_cmux_step64_stages", 64, 1280) == 2
+    assert K._occupancy("ck_cmux_step64_stages", 128, 768) == 0
+    assert K._occupancy("ck_cmux_step64_stages", 64, 768) == 4
     plan = K.ck_cmux_step64_plan
     assert plan(256, 2, 2048, 64, 640, 6, 1, cuda)[0] == 128
+    assert plan(256, 2, 2048, 64, 768, 8, 2, cuda)[0] == 64   # CB_PAPER
     assert plan(64, 2, 2048, 64, 640, 6, 1, cuda)[0] == 64
     assert plan(256, 2, 2048, 64, 1280, 6, 1, cuda)[0] == 64
     assert 1 <= plan(256, 2, 2048, 64, 640, 6, 1, cuda)[1] <= 33
