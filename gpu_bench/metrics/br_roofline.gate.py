@@ -1,0 +1,2 @@
+"""br_roofline.gate: blind-rotation roofline bound over device busy time."""
+from gpu_bench.readers import br_roofline as read  # noqa: F401
