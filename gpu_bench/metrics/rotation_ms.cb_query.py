@@ -1,0 +1,8 @@
+"""rotation_ms.cb_query: stream ms a query of the circuit bootstrap's program
+B (the lvl2 blind rotation and extract), span graph.circuit.b, summed over
+its replays (one a level)."""
+from gpu_bench.spans import stage_ms
+
+
+def read(run):
+    return stage_ms("b")

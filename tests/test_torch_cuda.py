@@ -8,7 +8,8 @@ Small and ragged shapes (batches that do not fill a 64-row tile, every limb
 count, both key shifts, one and two digit planes), the device guard, every
 captured program (tfhe_tpu_torch.graphs: the blind rotation, the bootstrap
 function, the staged circuit bootstrap, the scheduler's launches and
-chains) against graphs.disable(), plus GATE_TOY
+chains) against graphs.disable(), the tracer's stream spans of the
+staged circuit bootstrap under torch.profiler, plus GATE_TOY
 bootstraps (on the onthefly, matmul, conv, conv_bf16 and nussbaumer
 engines) and CB_TOY circuit bootstraps (on each of the four 64-bit steps,
 and on conv) that must give the same ciphertexts on the card as on the
@@ -1218,6 +1219,62 @@ def test_graphed_circuit_bootstrap_staged(cuda, monkeypatch, env):
     assert captures == 4
     assert torch.equal(cb(ct, ck.data).cpu(),
                        circuit.circuit_bootstrap(cpu_ct, cpu_ck.data, CB_TOY))
+
+
+def test_traced_circuit_bootstrap_stream_spans(cuda):
+    """Under torch.profiler the graphed staged circuit bootstrap's program
+    spans (A, B a level, C a row block) all carry stream times, which sum
+    within 5% of the call's synchronised wall (CB_TOY with 400 lvl0 steps,
+    so that the card's work outweighs the host's between programs).  A
+    capture while the profiler records succeeds and holds the nodes of a
+    capture without it: no event was recorded into the graph.  No span
+    appears on the card's timeline (a user annotation would: the device
+    time readers would count it as busy)."""
+    import dataclasses
+    import time
+    from torch.profiler import ProfilerActivity, profile
+    from tfhe_tpu_torch import graphs
+    from tfhe_tpu_torch.utils import observability as obs
+    P = dataclasses.replace(CB_TOY, n_lvl0=400)
+    ck, ct = _cb_toy(cuda, P)
+    cb = circuit.make_circuit_bootstrap_staged(P, shared_rotation=False)
+    graphs.clear()
+    want = cb(ct, ck.data)
+    nodes = sorted((s["site"], s["nodes"]) for s in graphs.stats())
+    K.reset_launches()
+    cb(ct, ck.data)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    graphs.clear()
+    obs.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        first = cb(ct, ck.data)                      # captures
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        got = cb(ct, ck.data)                        # replays
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        traced_launches = _launch_counts()
+    assert torch.equal(first, want) and torch.equal(got, want)
+    assert sorted((s["site"], s["nodes"]) for s in graphs.stats()) == nodes
+    assert traced_launches == launches
+    recs = obs.spans()
+    last = [r for r in recs if r["name"] == "circuit.bootstrap"][-1]
+    progs = [r for r in recs if r["parent"] == last["id"]]
+    assert [r["name"] for r in progs] == (
+        ["graph.circuit.a"] + ["graph.circuit.b"] * 2
+        + ["graph.circuit.c"] * 4)
+    stream_ms = sum(r["stream_end_ms"] - r["stream_start_ms"] for r in progs)
+    assert stream_ms == pytest.approx(wall_ms, rel=0.05)
+    assert "stream_ms_total" in obs.report()["spans"]["graph.circuit.b"]
+    names = {r["name"] for r in recs}
+    on_card = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert on_card and not names & set(on_card)
+    graphs.clear()
+    obs.reset()
 
 
 @pytest.mark.parametrize("chain", ["1", "4"])

@@ -190,7 +190,6 @@ class CircuitCloudKey:
         prepares its own slice from it (``parallel.shard``)."""
         dev = _device.resolve(device)
         p = sk.params
-        obs.count("keygen.circuit")
         with obs.span("keygen.circuit"):
             with obs.span("keygen.circuit.preks"):
                 preks = lwe.KeySwitchKey.generate(sk.lwe_lvl1, sk.key_lvl0,
@@ -319,9 +318,13 @@ def make_circuit_bootstrap_staged(p: CircuitParams, backend: str = "chunked",
     ``circuit_bootstrap``, as the JAX package's three staged programs (A, B
     and C of ``_circuit_bootstrap``): on the card each stage is one captured
     CUDA graph (``graphs.run``), replayed on later calls.  Counts
-    ``bootstrap.circuit_launches`` once a call, outside the programs."""
+    ``bootstrap.circuit_launches`` once a call, outside the programs; a
+    call is the span ``circuit.bootstrap``, whose children are the stages'
+    ``graph.circuit.a``, ``.b`` (one a rotation) and ``.c`` (one a TRGSW
+    row block)."""
     def fn(samples, key_data):
         obs.count("bootstrap.circuit_launches")
-        return _circuit_bootstrap(samples, key_data, p, backend,
-                                  shared_rotation, graphs.run)
+        with obs.span("circuit.bootstrap"):
+            return _circuit_bootstrap(samples, key_data, p, backend,
+                                      shared_rotation, graphs.run)
     return fn

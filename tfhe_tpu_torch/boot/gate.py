@@ -70,7 +70,6 @@ class CloudKey:
         first, then the key switch), so one seed gives identical keys."""
         dev = _device.resolve(device)
         p = sk.params
-        obs.count("keygen.gate")
         with obs.span("keygen.gate"):
             gsw = tgsw.encrypt(sk.ring_key, sk.lwe_key.key, p.tgsw, rng,
                                stdev=p.tgsw.tlwe.stdev, device="cpu")
@@ -136,7 +135,8 @@ def make_bootstrap_fn(params: GateParams, mu: int = MU_BOOL,
     rotation, extract, key switch) is one captured CUDA graph per samples
     shape and key (``graphs.run``), replayed on later calls; the
     ``bootstrap.*`` counters count outside it, once per call, as the JAX
-    package counts outside its jit."""
+    package counts outside its jit; a call is the span ``graph.bootstrap``
+    (``graphs.run``)."""
     def fn(key_data, samples):
         _count_launch(samples)
         return graphs.run(

@@ -31,6 +31,10 @@ running a kernel, so ``run`` takes back what the capture added to every
 It counts ``graph.captures`` and ``graph.replays``, and a site may name a
 counter for its cache misses (the scheduler counts ``circuit.wave_compiles``
 and ``circuit.chain_compiles``, as the JAX package counts its compiles).
+A replay (or an eager run) is the span ``graph.<site>``, which times the
+card's stream while a profiler records; a capture is ``graph.capture``, and
+spans inside a warm-up or capture keep no records, so no event is ever
+recorded into a graph.
 
 Eager, always: CPU tensors (every tier-1 test; cache misses still count
 the site's counter, as the JAX package compiles on its CPU too); calls
@@ -86,6 +90,9 @@ _disabled = 0
 class _Eager:
     """A cache entry for a program that runs eagerly (CPU tensors or an
     eager backend): it only records that the site's counter counted it."""
+
+
+_EAGER = _Eager()
 
 
 @contextlib.contextmanager
@@ -178,9 +185,12 @@ def _nested() -> bool:
 
 @contextlib.contextmanager
 def _inside():
+    """A warm-up or capture: nested programs run inline, and spans keep no
+    records (a capture must never record an event into the graph)."""
     _local.depth = getattr(_local, "depth", 0) + 1
     try:
-        yield
+        with obs.muted():
+            yield
     finally:
         _local.depth -= 1
 
@@ -304,15 +314,38 @@ def run(site: str, structure, fn, inputs: tuple, keys: tuple = (), *,
     its key tensors (parameters, backend, gate kinds); ``keys`` are the
     tensors ``fn`` reads without taking them as inputs; ``backend`` is the
     engine the program runs (checked against ``EAGER_BACKENDS``);
-    ``compiles`` names the counter of this site's cache misses."""
-    if not enabled() or _nested():
+    ``compiles`` names the counter of this site's cache misses.
+
+    A capture runs under the span ``graph.capture``; every other call (a
+    replay, or an eager run) under ``graph.<site>``, which times the
+    card's stream while traced (``utils.observability``)."""
+    if _nested():
         return fn(*inputs)
-    cpu = inputs[0].device.type == "cpu"
-    if not cpu and torch.cuda.is_current_stream_capturing():
+    dev = inputs[0].device
+    if dev.type != "cpu" and torch.cuda.is_current_stream_capturing():
         return fn(*inputs)                     # an outer capture records it
-    eager = cpu or backend in EAGER_BACKENDS
+    key, prog = _lookup(site, structure, inputs, keys, backend, compiles) \
+        if enabled() else (None, _EAGER)
+    if prog is None:
+        with obs.span("graph.capture"), _lock:
+            prog = _Program(site, fn, inputs, keys)
+            _programs[key] = prog
+            _evict()
+        obs.count("graph.captures")
+        out, prog.first = prog.first, None
+        return out
+    with obs.span(f"graph.{site}", stream=dev):
+        if prog is _EAGER:
+            return fn(*inputs)
+        return prog.replay(inputs)
+
+
+def _lookup(site, structure, inputs, keys, backend, compiles):
+    """(cache key, what runs): ``_EAGER``, a captured ``_Program``, or None
+    where the program is to be captured; counts ``compiles`` on a miss."""
+    eager = inputs[0].device.type == "cpu" or backend in EAGER_BACKENDS
     if eager and not compiles:
-        return fn(*inputs)
+        return None, _EAGER
     key = _key(site, structure, inputs, keys)
     with _lock:
         prog = _programs.get(key)
@@ -322,19 +355,9 @@ def run(site: str, structure, fn, inputs: tuple, keys: tuple = (), *,
             if compiles:
                 obs.count(compiles)
             if eager:
-                prog = _programs[key] = _Eager()
+                prog = _programs[key] = _EAGER
                 _evict()
-    if isinstance(prog, _Eager):
-        return fn(*inputs)
-    if prog is not None:
-        return prog.replay(inputs)
-    with _lock:
-        prog = _Program(site, fn, inputs, keys)
-        _programs[key] = prog
-        _evict()
-    obs.count("graph.captures")
-    out, prog.first = prog.first, None
-    return out
+    return key, prog
 
 
 def _evict():

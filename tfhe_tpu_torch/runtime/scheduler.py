@@ -29,8 +29,11 @@ the same order.  ``bootstrap.launches`` and ``bootstrap.ciphertexts`` are
 counted by ``gate.bootstrap`` itself (once per launch, a replay adding what
 its capture counted; in the JAX package the scheduler counts them, since
 its bootstrap runs under jit); ``circuit.gates``, ``circuit.waves``, the
-``circuit.wave_width`` observation and the ``circuit.wave.*`` and
-``circuit.chain`` spans are counted here.
+``circuit.wave_width`` observation and the spans are counted here: an
+evaluation is the span ``circuit.evaluate``, each launch (chain) a
+``circuit.wave.<kind>`` (``circuit.chain``) with the children
+``sched.operands`` (the host's fetch, stacks and per-gate array uploads)
+and then ``graph.wave`` (``graph.chain``), the program.
 """
 
 from __future__ import annotations
@@ -212,6 +215,11 @@ def evaluate(circ: Circuit, inputs, ck_data, params, outputs,
     level's mixed binary gates go through one bootstrap of
     wx*x + wy*y + (0,..,0,c0) with per-gate constants; a MUX launch is
     gate.gate_mux (two bootstraps)."""
+    with obs.span("circuit.evaluate"):
+        return _evaluate(circ, inputs, ck_data, params, outputs, backend)
+
+
+def _evaluate(circ, inputs, ck_data, params, outputs, backend):
     n = params.lwe.n
     dev = ck_data["ksw"].device
     inputs = torch.as_tensor(inputs).to(dev)
@@ -231,27 +239,26 @@ def evaluate(circ: Circuit, inputs, ck_data, params, outputs,
     keys = graphs.leaves(ck_data)
 
     def run(kind, grp):
-        if kind == "mux":
-            c, x, y = (torch.stack([fetch(g[o]) for g in grp])
-                       for o in (1, 2, 3))
-            flat = [t.reshape(-1, n + 1) for t in (c, x, y)]
-            res = graphs.run(
-                "wave", ("mux", flat[0].shape, params, backend),
-                lambda *xs: gate.gate_mux(ck_data, *xs, params, backend),
-                tuple(flat), keys, backend=backend,
-                compiles="circuit.wave_compiles")
-            res = res.reshape(c.shape)
-        else:
-            a = torch.stack([fetch(g[1]) for g in grp])
-            b = torch.stack([fetch(g[2]) for g in grp])
-            affine = (torch.tensor([_AFFINE[g[0]][i] for g in grp],
-                                   dtype=torch.int64, device=dev)
-                      for i in range(3))
-            res = graphs.run(
-                "wave", ("binary", a.shape, params, backend),
-                lambda *xs: _binary(ck_data, *xs, params, backend),
-                (a, b, *affine), keys, backend=backend,
-                compiles="circuit.wave_compiles")
+        with obs.span("sched.operands"):
+            if kind == "mux":
+                c, x, y = (torch.stack([fetch(g[o]) for g in grp])
+                           for o in (1, 2, 3))
+                shape = c.shape
+                args = tuple(t.reshape(-1, n + 1) for t in (c, x, y))
+                program = (lambda *xs: gate.gate_mux(ck_data, *xs, params,
+                                                     backend))
+            else:
+                a = torch.stack([fetch(g[1]) for g in grp])
+                b = torch.stack([fetch(g[2]) for g in grp])
+                shape = a.shape
+                args = (a, b, *(torch.tensor([_AFFINE[g[0]][i] for g in grp],
+                                             dtype=torch.int64, device=dev)
+                                for i in range(3)))
+                program = (lambda *xs: _binary(ck_data, *xs, params,
+                                               backend))
+        res = graphs.run("wave", (kind, args[0].shape, params, backend),
+                         program, args, keys, backend=backend,
+                         compiles="circuit.wave_compiles").reshape(shape)
         for i, g in enumerate(grp):
             store[g[4]] = res[i]
 
@@ -282,94 +289,102 @@ def _binary(ck_data, a, b, c0, wx, wy, params, backend):
 
 def _run_chained(launches, K, store, lead, n, ck_data, params, backend):
     """Execute the launch list in chains of K consecutive launches, each
-    chain ONE program (the JAX package's ``_run_chained``).
-
-    The host pass builds the chain's structural signature (operand topology
-    with external wires numbered by first use) and its per-gate arrays:
-    gate kinds, input negations and constant inputs fold into the affine
-    (c0, wx, wy) arrays of binary launches and the sign / constant arrays of
-    MUX launches, so every full-adder bit slice of a ripple adder has the
-    same signature.  The arrays and the stacked external wires are the
-    program's inputs."""
-    mu = int(gate.MU_BOOL)
+    chain ONE program (the JAX package's ``_run_chained``), on the
+    operands of ``_chain_operands``."""
     dev = ck_data["ksw"].device
     keys = graphs.leaves(ck_data)
     for s in range(0, len(launches), K):
         chain = launches[s:s + K]
-        ext_pos: dict = {}              # base wire -> ext stack index
-        ext_wires: list = []
-        internal: dict = {}             # base wire -> (launch idx, gate idx)
-        sig = []
-        tr = []
-
-        def tag_of(ref):
-            base, neg, cval = ref
-            if base < 0:
-                return ("c",), neg, cval
-            if base in internal:
-                return ("i",) + internal[base], neg, None
-            if base not in ext_pos:
-                ext_pos[base] = len(ext_wires)
-                ext_wires.append(base)
-            return ("e", ext_pos[base]), neg, None
-
-        for d, (kind, grp) in enumerate(chain):
-            gsig = []
-            if kind == "binary":
-                c0, wx, wy = ([0] * len(grp) for _ in range(3))
-                for i, g in enumerate(grp):
-                    gc0, gwx, gwy = _AFFINE[g[0]]
-                    c0[i] = gc0
-                    tags = []
-                    for ref, w, arr in ((g[1], gwx, wx), (g[2], gwy, wy)):
-                        t, neg, cval = tag_of(ref)
-                        ws = -w if neg else w
-                        if t[0] == "c":
-                            # trivial (0,..,0,+-mu) input: only the body
-                            # contributes; fold it into c0
-                            c0[i] += ws * (mu if cval else -mu)
-                            arr[i] = 0
-                        else:
-                            arr[i] = ws
-                        tags.append(t)
-                    gsig.append(tuple(tags))
-                tr.extend((c0, wx, wy))
-            else:                       # mux: c ? x : y
-                sgn = [[1] * len(grp) for _ in range(3)]
-                cv = [[0] * len(grp) for _ in range(3)]
-                for i, g in enumerate(grp):
-                    tags = []
-                    for o, ref in enumerate((g[1], g[2], g[3])):
-                        t, neg, cval = tag_of(ref)
-                        if t[0] == "c":
-                            cv[o][i] = (-1 if neg else 1) * (
-                                mu if cval else -mu)
-                        else:
-                            sgn[o][i] = -1 if neg else 1
-                        tags.append(t)
-                    gsig.append(tuple(tags))
-                tr.extend((*sgn, *cv))
-            sig.append((kind, tuple(gsig)))
-            for i, g in enumerate(grp):
-                internal[g[4]] = (d, i)
-
-        sig = tuple(sig)
-        if ext_wires:
-            ext = torch.stack([store[w] for w in ext_wires])
-        else:
-            ext = torch.zeros((0, *lead, n + 1), dtype=torch.int32,
-                              device=dev)
-        arrays = tuple(torch.tensor(v, dtype=torch.int64, device=dev)
-                       for v in tr)
         with obs.span("circuit.chain"):
+            with obs.span("sched.operands"):
+                sig, ext, arrays = _chain_operands(chain, store, lead, n,
+                                                   dev)
             results = graphs.run(
                 "chain", (sig, lead, n, params, backend),
                 _make_chain_fn(ck_data, sig, lead, n, params, backend),
                 (ext, *arrays), keys, backend=backend,
                 compiles="circuit.chain_compiles")
-        for (kind, grp), res in zip(chain, results):
+            for (kind, grp), res in zip(chain, results):
+                for i, g in enumerate(grp):
+                    store[g[4]] = res[i]
+
+
+def _chain_operands(chain, store, lead, n, dev):
+    """The host pass of one chain: (signature, stacked external wires,
+    per-gate arrays on ``dev``).
+
+    The signature is the chain's structure (operand topology with external
+    wires numbered by first use); gate kinds, input negations and constant
+    inputs fold into the affine (c0, wx, wy) arrays of binary launches and
+    the sign / constant arrays of MUX launches, so every full-adder bit
+    slice of a ripple adder has the same signature.  The arrays and the
+    stacked external wires are the program's inputs."""
+    mu = int(gate.MU_BOOL)
+    ext_pos: dict = {}              # base wire -> ext stack index
+    ext_wires: list = []
+    internal: dict = {}             # base wire -> (launch idx, gate idx)
+    sig = []
+    tr = []
+
+    def tag_of(ref):
+        base, neg, cval = ref
+        if base < 0:
+            return ("c",), neg, cval
+        if base in internal:
+            return ("i",) + internal[base], neg, None
+        if base not in ext_pos:
+            ext_pos[base] = len(ext_wires)
+            ext_wires.append(base)
+        return ("e", ext_pos[base]), neg, None
+
+    for d, (kind, grp) in enumerate(chain):
+        gsig = []
+        if kind == "binary":
+            c0, wx, wy = ([0] * len(grp) for _ in range(3))
             for i, g in enumerate(grp):
-                store[g[4]] = res[i]
+                gc0, gwx, gwy = _AFFINE[g[0]]
+                c0[i] = gc0
+                tags = []
+                for ref, w, arr in ((g[1], gwx, wx), (g[2], gwy, wy)):
+                    t, neg, cval = tag_of(ref)
+                    ws = -w if neg else w
+                    if t[0] == "c":
+                        # trivial (0,..,0,+-mu) input: only the body
+                        # contributes; fold it into c0
+                        c0[i] += ws * (mu if cval else -mu)
+                        arr[i] = 0
+                    else:
+                        arr[i] = ws
+                    tags.append(t)
+                gsig.append(tuple(tags))
+            tr.extend((c0, wx, wy))
+        else:                       # mux: c ? x : y
+            sgn = [[1] * len(grp) for _ in range(3)]
+            cv = [[0] * len(grp) for _ in range(3)]
+            for i, g in enumerate(grp):
+                tags = []
+                for o, ref in enumerate((g[1], g[2], g[3])):
+                    t, neg, cval = tag_of(ref)
+                    if t[0] == "c":
+                        cv[o][i] = (-1 if neg else 1) * (
+                            mu if cval else -mu)
+                    else:
+                        sgn[o][i] = -1 if neg else 1
+                    tags.append(t)
+                gsig.append(tuple(tags))
+            tr.extend((*sgn, *cv))
+        sig.append((kind, tuple(gsig)))
+        for i, g in enumerate(grp):
+            internal[g[4]] = (d, i)
+
+    if ext_wires:
+        ext = torch.stack([store[w] for w in ext_wires])
+    else:
+        ext = torch.zeros((0, *lead, n + 1), dtype=torch.int32,
+                          device=dev)
+    arrays = tuple(torch.tensor(v, dtype=torch.int64, device=dev)
+                   for v in tr)
+    return tuple(sig), ext, arrays
 
 
 def _make_chain_fn(ck_data, sig, lead, n, params, backend):

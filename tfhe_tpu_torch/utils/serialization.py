@@ -23,7 +23,6 @@ import torch
 from tfhe_tpu_torch import device as _device
 from tfhe_tpu_torch import lwe, params as P
 from tfhe_tpu_torch.ops.engine import map_prepared
-from tfhe_tpu_torch.utils import observability as obs
 
 
 def _params_to_dict(obj):
@@ -172,9 +171,8 @@ def load_circuit_key(path: str, backend: str | None = None, device=None):
     if meta.get("format") != "circuit_raw_bk":
         raise ValueError(f"not a circuit key file: {meta}")
     backend = backend or meta["backend"]
-    with obs.span("keyload.circuit.bk_prepare"):
-        prep = _circuit.prepare_circuit_bk(tree["bk_raw"].to(dev), params,
-                                           backend)
+    prep = _circuit.prepare_circuit_bk(tree["bk_raw"].to(dev), params,
+                                       backend)
     preks = lwe.KeySwitchKey.from_limbs(tree["preks"].numpy(), params.ks10,
                                         params.n_lvl1, params.n_lvl0,
                                         device=dev)
