@@ -19,9 +19,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      library yardstick where one exists (torch._int_mm of the same int8
      product; for materialize_w and materialize_wt torch.flip of the
      vector's windows, flip_w and flip_wt), and its bound on an H100 SXM:
-     materialize_w (GATE_DEFAULT's key, the one a path runs, and
-     GATE_FAST2's) and its K-packed entry materialize_wt (GATE_FAST2's,
-     GATE_MXU's and CB_MXU lvl2's, the conv circuit path's keys), the
+     materialize_w (GATE_DEFAULT's and GATE_FAST2's keys; on no path) and
+     its K-packed entry materialize_wt (GATE_DEFAULT's, GATE_FAST2's, an
+     ep=3 slice of it, GATE_MXU's and CB_MXU lvl2's, the conv circuit
+     path's keys), the
      fused step (wgmma + TMA on the K-packed key) at GATE_FAST2 B=8192 and
      B=1024 and GATE_MXU B=8192, the v1 fused step at GATE_FAST2 and
      GATE_MXU B=8192 (also equal to v2's kernel), the 64-bit kernels (and
@@ -36,9 +37,11 @@ Phases (each prints its own lines; any failure exits non-zero):
      (beside the two-kernel default and acc steps it replaces),
      ck_cmux_step32 at GATE_MXU B=8192, GATE_DEFAULT B=256, GATE_MXU
      B=256 and 512 (the adder's narrow launches) and tail batches B=1, 3,
-     100, with the flat carry; the two kernels whose reduction is split over
-     blocks (mm_recombine_acc, ck_cmux_step32) also with split=1 forced,
-     equal to the chosen (tile_rows, S) plan; then the fused step's 64-
+     100, with the flat carry; mm_recombine_acc_wt (wgmma + TMA on the
+     K-packed key) at GATE_DEFAULT B=8192, 628 and 256; the two kernels
+     whose reduction is split over blocks (mm_recombine_acc_wt,
+     ck_cmux_step32) also with split=1 forced, equal to the chosen
+     (tile_rows, S) plan; then the fused step's 64-
      and 128-column plans, forced and as chosen, over a sweep of batches,
      the parts of one fused step (key loads, digit build, wgmmas: stripped
      builds of its kernel) at GATE_FAST2 B=8192, and the split kernels
@@ -51,8 +54,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      other CMux kernel;
      gate_nand and gate_mux truth tables on a small batch;
   4. generic step: GATE_DEFAULT (N=1024, 4 key limbs, so the fused step is
-     ineligible) at B=256: rotate_decompose + materialize_w +
-     mm_recombine_acc, 630 of each per launch, decrypt-correct; each
+     ineligible) at B=256: rotate_decompose + materialize_wt +
+     mm_recombine_acc_wt, 630 of each per launch, decrypt-correct; each
      kernel's device time and share of a step and of the launch;
   5. circuit bootstrap: CB_MXU (n0=500, N1=1024, N2=2048 Torus64, lvl2
      Bg=2^8/l=5, 6-limb bk) at B=256 on the chunked engine through
@@ -99,10 +102,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      exact on, fft_f64 within 2^4 and fft_dd within 2^8; each one
      accumulate's device ms (call ms for nussbaumer and fft_dd, whose
      hundreds of kernels a call overflow the launch queue) and launches of
-     materialize_w, materialize_wt and mm_recombine_acc;
+     materialize_w, materialize_wt and mm_recombine_acc_wt;
   9. engine paths: GATE_DEFAULT B=256 from phase 4's seed on conv (every
      ciphertext equal to phase 4's onthefly ones; 630 rotate_decompose,
-     materialize_w and mm_recombine_acc a launch), on nussbaumer and on
+     materialize_wt and mm_recombine_acc_wt a launch), on nussbaumer and on
      fft_f64 (every bit decrypts, the gate_nand truth table holds); the
      CB_MXU circuit bootstrap B=256 on conv, JAX's default backend, its key
      prepared from phase 5's raw TRGSWs (every TRGSW equal to phase 5's
@@ -135,13 +138,13 @@ Phases (each prints its own lines; any failure exits non-zero):
      B=8192.  Every rank's rows must equal phase 3's (the gate paths) or
      phase 5's (the circuit) one-process outputs bit for bit and decrypt;
      each rank must launch, a launch, 500 each of rotate_decompose,
-     materialize_w (at J=3 under ep=3) and mm_recombine_acc on the shard
+     materialize_wt (at J=3 under ep=3) and mm_recombine_acc_wt on the shard
      gate path, 500 materialize_wt and fused_cmux_step_v2 on the tp path,
      1,000 rotate_decompose64 and ck_dot64p (J*m = 320) on the circuit
      path, and no other CMux kernel; printed: each rank's wall a launch,
      the all-reduce's share of it and its key slice's bytes (ranks share
      one card: not a scaling figure).  Phase 2 holds the kernels at these
-     shapes too (materialize_w J=3, rotate_decompose and mm_recombine_acc
+     shapes too (materialize_wt J=3, rotate_decompose and mm_recombine_acc_wt
      at GATE_FAST2 B=1024, K=1536, ck_dot64p at J*m = 320);
   12. the reference's parameter blocks: CB_PAPER (l1=4; lvl2 Bg=2^9/l2=6,
      J*m = 768; base-2 key switches) and CB_ACTIVE (l1=2; Bg=2^9/l2=4),
@@ -160,8 +163,8 @@ Phases (each prints its own lines; any failure exits non-zero):
 
 The line before the last is a JSON object with one entry per kernel (the
 test-only fused_cmux_step v1 runs on no path, as in the JAX package, and
-counts 0 launches; rotate_decompose64 runs on phase 11's sharded circuit
-path); the last line is {"ok": true, "device": {...}}.  Exits non-zero, with no result,
+counts 0 launches, as does materialize_w, whose layout no product of the
+port reads; rotate_decompose64 runs on phase 11's sharded circuit path); the last line is {"ok": true, "device": {...}}.  Exits non-zero, with no result,
 when no CUDA device is present.  Imports nothing of JAX or of ``tfhe_tpu``.
 """
 
@@ -435,20 +438,20 @@ def _kernel_cases(seed: int = 0):
     def expo(B, N):
         return torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
 
-    # materialize_w: GATE_DEFAULT's step key (L=4, J=6, U=2, 2N=2048), the
-    # one a path runs (GATE_DEFAULT onthefly and conv), then GATE_FAST2's
-    # (L=3, J=9, U=3, 2N=1024); materialize_wt, the K-packed entry:
-    # GATE_FAST2's key, then GATE_MXU's (L=3, J=6, U=2, 2N=2048) and CB_MXU
-    # lvl2's (L=6, J=10, U=2, 2N=4096: the conv circuit path).  Library:
-    # torch.flip of the rotated vector's windows (flip_w, flip_wt)
-    v_fast2 = i8((3, 9, 3, 1024))
-    # (phase 11's shard path: an ep=3 rank's J=3 slice of GATE_FAST2's key)
+    # materialize_w (on no path; the JAX package's layout): GATE_DEFAULT's
+    # step key (L=4, J=6, U=2, 2N=2048) and GATE_FAST2's (L=3, J=9, U=3,
+    # 2N=1024); materialize_wt, the K-packed entry: GATE_DEFAULT's key (its
+    # onthefly and conv paths), GATE_FAST2's, an ep=3 rank's J=3 slice of it
+    # (phase 11's shard path), GATE_MXU's (L=3, J=6, U=2, 2N=2048) and
+    # CB_MXU lvl2's (L=6, J=10, U=2, 2N=4096: the conv circuit path).
+    # Library: torch.flip of the rotated vector's windows (flip_w, flip_wt)
+    v_default, v_fast2 = i8((4, 6, 2, 2048)), i8((3, 9, 3, 1024))
     for name, wrapper, plain, lib, keys in (
             ("materialize_w", K.materialize_w, K.materialize_w_plain,
-             "flip_w", (i8((4, 6, 2, 2048)), v_fast2, i8((3, 3, 3, 1024)))),
+             "flip_w", (v_default, v_fast2)),
             ("materialize_wt", K.materialize_wt, K.materialize_wt_plain,
-             "flip_wt", (v_fast2, i8((3, 6, 2, 2048)),
-                         i8((6, 10, 2, 4096))))):
+             "flip_wt", (v_default, v_fast2, i8((3, 3, 3, 1024)),
+                         i8((3, 6, 2, 2048)), i8((6, 10, 2, 4096))))):
         for v in keys:
             L, J, U, twoN = v.shape
             out_bytes = L * J * U * (twoN // 2) ** 2
@@ -497,8 +500,10 @@ def _kernel_cases(seed: int = 0):
                       bound_ms(_nbytes(a, acc, w, acc), macs),
                       ("_int_mm", (digits, wcat)), True))
 
-    # rotate_decompose + mm_recombine_acc: GATE_DEFAULT (N=1024, k=1, l=3,
-    # L=4) at B=256
+    # rotate_decompose + mm_recombine_acc_wt: GATE_DEFAULT (N=1024, k=1,
+    # l=3, L=4) at B=256; the product also at the wide cell's B=8192 (its
+    # path's shape, first) and the adder's mean launch, 628 rows; the
+    # K-packed key wt (L, U*N, K), as materialize_wt builds it
     p = GATE_DEFAULT.tgsw
     B, kp1, l, N, L = 256, 2, 3, 1024, 4
     acc = i32((B, kp1, N))
@@ -510,16 +515,19 @@ def _kernel_cases(seed: int = 0):
                   f"{PALLAS}:163", K.rotate_decompose,
                   K.rotate_decompose_plain, (a, acc), kw,
                   bound_ms(_nbytes(a, acc) + out_bytes), None, False))
-    x = i8((B, kp1 * l * N), -64, 64)
-    w = i8((L, kp1 * l * N, kp1 * N))
-    macs = B * kp1 * l * N * kp1 * N * L
-    wcat = w.permute(1, 0, 2).reshape(kp1 * l * N, L * kp1 * N)
-    cases.append(("mm_recombine_acc", "GATE_DEFAULT B=256",
-                  "csrc/mm_recombine_acc.cu",
-                  f"{PALLAS}:1535", K.mm_recombine_acc,
-                  K.mm_recombine_acc_plain, (x, w, acc), {"shift_base": 0},
-                  bound_ms(_nbytes(x, w, acc, acc), macs),
-                  ("_int_mm", (x, wcat)), False))
+    wt = i8((L, kp1 * N, kp1 * l * N))
+    wcat = wt.permute(2, 0, 1).reshape(kp1 * l * N, L * kp1 * N)
+    for B in (8192, 628, 256):
+        x = i8((B, kp1 * l * N), -64, 64)
+        acc = i32((B, kp1 * N))
+        macs = B * kp1 * l * N * kp1 * N * L
+        cases.append(("mm_recombine_acc_wt", f"GATE_DEFAULT B={B}",
+                      "csrc/mm_recombine_acc.cu",
+                      f"{PALLAS}:1535", K.mm_recombine_acc_wt,
+                      K.mm_recombine_acc_wt_plain, (x, wt, acc),
+                      {"shift_base": 0},
+                      bound_ms(_nbytes(x, wt, acc, acc), macs),
+                      ("_int_mm", (x, wcat)), True))
 
     # phase 11's shard path at GATE_FAST2 (k=2, l=3, N=512, L=3), B=1024:
     # the whole accumulator's digits, then an ep=3 rank's J=3 slice
@@ -534,13 +542,13 @@ def _kernel_cases(seed: int = 0):
                   K.rotate_decompose, K.rotate_decompose_plain, (a, acc), kw,
                   bound_ms(_nbytes(a, acc) + B * kp1 * l * N), None, False))
     x = i8((B, J * N), -64, 64)
-    w = i8((L, J * N, kp1 * N))
-    wcat = w.permute(1, 0, 2).reshape(J * N, L * kp1 * N)
-    cases.append(("mm_recombine_acc", f"GATE_FAST2 ep=3 B={B}",
+    wt = i8((L, kp1 * N, J * N))
+    wcat = wt.permute(2, 0, 1).reshape(J * N, L * kp1 * N)
+    cases.append(("mm_recombine_acc_wt", f"GATE_FAST2 ep=3 B={B}",
                   "csrc/mm_recombine_acc.cu", f"{PALLAS}:1535",
-                  K.mm_recombine_acc, K.mm_recombine_acc_plain, (x, w, acc),
-                  {"shift_base": 8},
-                  bound_ms(_nbytes(x, w, acc, acc), B * J * N * kp1 * N * L),
+                  K.mm_recombine_acc_wt, K.mm_recombine_acc_wt_plain,
+                  (x, wt, acc), {"shift_base": 8},
+                  bound_ms(_nbytes(x, wt, acc, acc), B * J * N * kp1 * N * L),
                   ("_int_mm", (x, wcat)), False))
 
     # rotate_decompose64_ck + ck_dot64p: the circuit bootstrap's lvl2 step at
@@ -854,7 +862,7 @@ EMITTERS = {"rotate_decompose": "rotate_decompose_kernel",
             "rotate_decompose64_ck": "rotate_decompose64_kernel",
             "rotate_decompose64_ck_flat": "rotate_decompose64_kernel"}
 # the kernels whose reduction is split over blocks (K slices, chunk windows)
-SPLIT_KERNELS = ("mm_recombine_acc", "ck_cmux_step32")
+SPLIT_KERNELS = ("mm_recombine_acc_wt", "ck_cmux_step32")
 # the 64-bit contractions on the K-packed key wmt, and what their plans hold
 K64_PLANS = {"ck_dot64p": "rows", "ck_dot64p_sacc": "rows",
              "ck_dot64p_acc": "rows, limbs", "ck_cmux_step64": "rows, split"}
@@ -883,10 +891,11 @@ def _k64_plan(name, dev_args, kw):
 def _plan(name, dev_args, kw):
     """(tile_rows, S) the wrapper of ``name`` chooses for these inputs."""
     from tfhe_tpu_torch.ops import kernels as K
-    if name == "mm_recombine_acc":
-        x, w, _ = dev_args
-        L, Kd, UN = w.shape
-        return 64, K.mm_recombine_acc_split(x.shape[0], Kd, UN, L, x.device)
+    if name == "mm_recombine_acc_wt":
+        x, wt, _ = dev_args
+        L, UN, Kd = wt.shape
+        return K.mm_recombine_acc_plan(x.shape[0], Kd, UN,
+                                       K.sm_count(x.device))[:2]
     a, acc, wm = dev_args
     B, kp1, N = acc.shape
     return K.ck_cmux_step32_plan(B, kp1, N, kw["m"], wm.shape[1],
@@ -910,20 +919,24 @@ def phase_splits(results, reps: int = 10):
             r.integers(-2**31, 2**31, shape).astype(np.int32)).cuda()
 
     rows = []
-    B, K_, UN, L = 256, 6144, 2048, 4          # GATE_DEFAULT's generic step
-    x, w, acc = i8((B, K_), -64, 64), i8((L, K_, UN)), i32((B, UN))
-    want = K.mm_recombine_acc_plain(x, w, acc)
-    row = {"shape": f"GATE_DEFAULT B={B}", "ms": {}}
-    for S in (1, 2, 3, 4, 6, 8, 12):
-        def run():
-            return K.mm_recombine_acc(x, w, acc, split=S)
-        _compare(f"mm_recombine_acc split={S}", run(), want)
-        row["ms"][f"64x{S}"] = cuda_ms(run, reps)
-    rows.append(row)
-    print(f"phase 2 splits mm_recombine_acc {row['shape']} (64-row tile x "
-          f"S: ms): {row['ms']}")
-    results["mm_recombine_acc"]["splits"] = rows
-    del x, w, acc, want
+    K_, UN, L = 6144, 2048, 4                  # GATE_DEFAULT's generic step
+    wt = i8((L, UN, K_))
+    for B in (256, 628, 768):
+        x, acc = i8((B, K_), -64, 64), i32((B, UN))
+        want = K.mm_recombine_acc_wt_plain(x, wt, acc)
+        row = {"shape": f"GATE_DEFAULT B={B}", "chosen": _plan(
+            "mm_recombine_acc_wt", (x, wt, acc), {}), "ms": {}}
+        for S in (1, 2, 3, 4, 6, 8, 12):
+            def run():
+                return K.mm_recombine_acc_wt(x, wt, acc, split=S)
+            _compare(f"mm_recombine_acc_wt B={B} split={S}", run(), want)
+            row["ms"][f"{row['chosen'][0]}x{S}"] = device_ms(run, reps)
+        rows.append(row)
+        print(f"phase 2 splits mm_recombine_acc_wt {row['shape']} chosen "
+              f"{row['chosen']} (rows x S: device ms): {row['ms']}")
+        del x, acc, want
+    results["mm_recombine_acc_wt"]["splits"] = rows
+    del wt
 
     rows = []
     kp1, l, N, m = 2, 3, 1024, 128
@@ -1178,10 +1191,10 @@ def phase_generic(smi: str, batch: int = 256):
     counts = _launch_counts()
     ok = gate.decrypt_bool(sk, out) == bits.astype(bool)
     check(ok.all(), f"GATE_DEFAULT: {int((~ok).sum())} of {batch} bits wrong")
-    for name in ("rotate_decompose", "materialize_w", "mm_recombine_acc"):
+    for name in ("rotate_decompose", "materialize_wt", "mm_recombine_acc_wt"):
         check(counts[name] == n, f"GATE_DEFAULT: {name} launched "
               f"{counts[name]} times, want {n}")
-    for name in ("fused_cmux_step_v2", "materialize_wt"):
+    for name in ("fused_cmux_step_v2", "materialize_w"):
         check(counts[name] == 0,
               f"GATE_DEFAULT: {name} ran with 4 key limbs")
     graph_cell(f"GATE_DEFAULT onthefly B={batch}", lambda: boot(ck.data, ct),
@@ -1204,13 +1217,13 @@ def phase_generic(smi: str, batch: int = 256):
     a0 = torch.randint(0, 2 * N, (batch,), dtype=torch.int32, device="cuda")
     kw = dict(l=p.l, bgbit=p.bgbit, offset=p.offset)
     x = K.rotate_decompose(a0, acc, **kw).reshape(batch, -1)
-    w = K.materialize_w(prep0["v"])
+    wt = K.materialize_wt(prep0["v"])
     parts = {
         "rotate_decompose": device_ms(lambda: K.rotate_decompose(a0, acc,
                                                                  **kw)),
-        "materialize_w": device_ms(lambda: K.materialize_w(prep0["v"])),
-        "mm_recombine_acc": device_ms(lambda: K.mm_recombine_acc(
-            x, w, acc.reshape(batch, -1), shift_base=eng.cfg.key_shift))}
+        "materialize_wt": device_ms(lambda: K.materialize_wt(prep0["v"])),
+        "mm_recombine_acc_wt": device_ms(lambda: K.mm_recombine_acc_wt(
+            x, wt, acc.reshape(batch, -1), shift_base=eng.cfg.key_shift))}
     step = device_ms(lambda: blind_rotate.cmux_step(eng, a0, acc, prep0, p))
     launch_ms = wall * 1e3
     print(f"phase 4 breakdown B={batch} (device time): " + ", ".join(
@@ -1426,7 +1439,7 @@ def phase_circuit(smi: str):
               f"{counts[name]} times, want {steps}")
     _wmt_only("CB_MXU", ck)
     for name in ("materialize_w", "materialize_wt", "rotate_decompose",
-                 "mm_recombine_acc", "fused_cmux_step_v2"):
+                 "mm_recombine_acc_wt", "fused_cmux_step_v2"):
         check(counts[name] == 0, f"CB_MXU: 32-bit kernel {name} launched "
               f"inside the circuit bootstrap")
     check(tuple(gsw.shape) == (batch, k + 1, ell1, k + 1, P.n_lvl1),
@@ -1568,8 +1581,10 @@ def phase_circuit_step(smi: str, state: dict, phase: str, step: str,
 # ---------------------------------------------------------------------------
 
 # kernels that run on no path of the port (only its tests and phase 2 call
-# them, as only the JAX package's tests call their Pallas kernels)
-TEST_ONLY = ("fused_cmux_step",)
+# them): fused_cmux_step (v1), as only the JAX package's tests call its
+# Pallas kernel, and materialize_w, whose layout no product of the port
+# reads (they take materialize_wt's K-packed key)
+TEST_ONLY = ("fused_cmux_step", "materialize_w")
 
 
 def _gate_run(P, backend, bits, chain, seed=0, cell=None):
@@ -1852,7 +1867,7 @@ def phase_engines(smi: str, batch: int = 256, seed: int = 8):
     both; fft_f64 within 2^4 and fft_dd within 2^8 of it at 32.  Prints
     each backend's device ms of one accumulate (call ms for the engines of
     CALL_TIMED) and its launches of materialize_w, materialize_wt and
-    mm_recombine_acc."""
+    mm_recombine_acc_wt."""
     from tfhe_tpu_torch import tgsw
     from tfhe_tpu_torch.ops import kernels as K
     from tfhe_tpu_torch.ops.engine import make_engine
@@ -1896,7 +1911,7 @@ def phase_engines(smi: str, batch: int = 256, seed: int = 8):
             torch.cuda.synchronize()
             counts = {n: getattr(K, n).launches
                       for n in ("materialize_w", "materialize_wt",
-                                "mm_recombine_acc")}
+                                "mm_recombine_acc_wt")}
             ref = want["key2m" if backend == "nussbaumer" else "key"]
             check(got.device == x.device and got.dtype == ref.dtype
                   and got.shape == ref.shape,
@@ -1914,11 +1929,9 @@ def phase_engines(smi: str, batch: int = 256, seed: int = 8):
                       f"differs from the exact yardstick")
                 what = "bit-exact"
             if backend.startswith("conv"):
-                launched = ({"materialize_w": 1, "materialize_wt": 0,
-                             "mm_recombine_acc": cfg.plane_split[1]}
-                            if bits == 32 else {"materialize_w": 0,
-                                                "materialize_wt": 1,
-                                                "mm_recombine_acc": 0})
+                launched = {"materialize_w": 0, "materialize_wt": 1,
+                            "mm_recombine_acc_wt": (cfg.plane_split[1]
+                                                    if bits == 32 else 0)}
                 check(counts == launched,
                       f"engine {backend} {bits}-bit: launches {counts}")
             else:
@@ -1961,8 +1974,8 @@ def phase_engine_paths(smi: str, default_out, cb_state: dict):
     bits = np.random.default_rng(2).integers(0, 2, batch)
     by_path = {}
     for backend, kernels in (
-            ("conv", {"rotate_decompose": n, "materialize_w": n,
-                      "mm_recombine_acc": n}),
+            ("conv", {"rotate_decompose": n, "materialize_wt": n,
+                      "mm_recombine_acc_wt": n}),
             ("nussbaumer", {"rotate_decompose": n}),
             ("fft_f64", {"rotate_decompose": n})):
         sk, ck, out, wall, counts, keygen_s, peak_gb = _gate_run(
@@ -2257,8 +2270,8 @@ def phase_sharded(smi: str, gate_ref: dict, cb_ref: dict):
     torch.cuda.empty_cache()
     want_gate, want_cb = gate_ref["out"], cb_ref["gsw"]
     by_path = {}
-    generic = {"rotate_decompose": n, "materialize_w": n,
-               "mm_recombine_acc": n}
+    generic = {"rotate_decompose": n, "materialize_wt": n,
+               "mm_recombine_acc_wt": n}
     expect = {"shard_ep3": (3, 1024, generic),
               "shard_dp2": (2, 2048, generic),
               "mesh_tp2": (2, 1024, {"materialize_wt": n,

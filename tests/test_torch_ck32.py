@@ -276,7 +276,7 @@ def test_choose_split(resident, plans):
         if B <= 256:
             assert S > 1 and blocks(B)(t) * S <= 132 * resident[t]
     assert K.choose_split(blocks(256), lambda t: 0, 132, 9) == (None, 0)
-    # mm_recombine_acc at GATE_DEFAULT B=256: 64 tiles of 192 K steps
+    # one tile size and a large fixed cost: 64 tiles of 192 steps
     assert K.choose_split(lambda t: 64, lambda t: 1, 132, 192, tiles=(64,),
                           overhead=16) == (64, 2)
 

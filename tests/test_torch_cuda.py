@@ -199,6 +199,78 @@ def test_mm_recombine_acc(cuda, B, L, shift, split):
     assert torch.equal(got.cpu(), want)
 
 
+# the K-packed entry at the paths' K: GATE_DEFAULT (K = 6,144, U*N =
+# 2,048), GATE_FAST2 (4,608, 1,536) and an ep=3 slice of it (1,536, 1,536)
+_MM_KUN = [(6144, 2048), (4608, 1536), (1536, 1536)]
+
+
+def _mm_case(B, K_, UN, L, cuda, seed=2):
+    """x, wt, acc of one case, drawn on the card."""
+    g = torch.Generator(device=cuda).manual_seed(seed + B + K_ + L)
+    x = torch.randint(-64, 65, (B, K_), generator=g, device=cuda,
+                      dtype=torch.int8)
+    wt = torch.randint(-128, 128, (L, UN, K_), generator=g, device=cuda,
+                       dtype=torch.int8)
+    acc = torch.randint(-2**31, 2**31, (B, UN), generator=g, device=cuda,
+                        dtype=torch.int32)
+    return x, wt, acc
+
+
+@pytest.mark.parametrize("B", [1, 3, 64, 200, 256, 628, 768, 8192])
+@pytest.mark.parametrize("K_,UN", _MM_KUN)
+@pytest.mark.parametrize("L,shift", [(1, 24), (2, 16), (3, 8), (4, 0)])
+def test_mm_recombine_acc_wt(cuda, B, K_, UN, L, shift):
+    """The K-packed entry at its chosen plan against its plain version on
+    the card: batches in one 64-row tile, ragged 128-row tiles (200, 628)
+    and the gate paths' widths, every limb count and key shift."""
+    x, wt, acc = _mm_case(B, K_, UN, L, cuda)
+    want = K.mm_recombine_acc_wt_plain(x, wt, acc, shift_base=shift)
+    got = K.mm_recombine_acc_wt(x, wt, acc, shift_base=shift)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B,rows,split,ctas", [
+    (200, 64, 1, 7),          # many units a block: the ring's phases wrap
+    (2200, 128, 1, 132),      # 18 row tiles: a group of 16, then one of 2
+    (2200, 128, 3, 5),
+    (628, 64, 2, 132),
+    (8192, 128, 2, 132),
+    (3, 128, 5, 1)])          # one block walks every unit
+def test_mm_recombine_acc_forced_plans(cuda, B, rows, split, ctas):
+    """Plans the shape would not choose, through the raw entry, at
+    GATE_DEFAULT's K and width and a nonzero shift."""
+    K_, UN, L, shift = 6144, 2048, 4, 8
+    x, wt, acc = _mm_case(B, K_, UN, L, cuda, seed=7)
+    want = K.mm_recombine_acc_wt_plain(x, wt, acc, shift_base=shift)
+    out = torch.empty_like(acc)        # the entry copies acc there if S > 1
+    K._launch("mm_recombine_acc", x.device, x.data_ptr(), wt.data_ptr(),
+              acc.data_ptr(), out.data_ptr(), B, K_, UN, L, shift, rows,
+              split, ctas)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+def test_mm_recombine_acc_plan_counter(cuda):
+    """Each launch counts its plan: B=8192 takes whole-K 128-row units,
+    256 rows a K split."""
+    from tfhe_tpu_torch.utils import observability as obs
+    seen = {}
+    for B in (8192, 256):
+        x, wt, acc = _mm_case(B, 6144, 2048, 4, cuda)
+        before = obs.report()["counters"]
+        K.mm_recombine_acc_wt(x, wt, acc)
+        after = obs.report()["counters"]
+        rows, S, _ = K.mm_recombine_acc_plan(B, 6144, 2048, K.sm_count(cuda))
+        name = f"mm_recombine.plan.{rows}x64.s{S}"
+        assert {k: v - before.get(k, 0) for k, v in after.items()
+                if k.startswith("mm_recombine.plan.")
+                and v != before.get(k, 0)} == {name: 1}
+        seen[B] = (rows, S)
+    assert seen[8192] == (128, 1) and seen[256][0] == 128
+    assert seen[256][1] > 1
+
+
 @pytest.mark.parametrize("B", [1, 3, 64, 65, 100, 8191, 8192])
 @pytest.mark.parametrize("L,key_shift", [(1, 0), (1, 8), (2, 0), (2, 8),
                                          (3, 0), (3, 8)])
@@ -322,8 +394,8 @@ def test_fused_cmux_step_v2_unsupported_shape_raises(cuda):
 
 def test_unsupported_shape_raises_instead_of_falling_back(cuda):
     x = torch.zeros((8, 64), dtype=torch.int8, device=cuda)
-    w = torch.zeros((1, 64, 64), dtype=torch.int8, device=cuda)
-    acc = torch.zeros((8, 64), dtype=torch.int32, device=cuda)
+    w = torch.zeros((1, 64, 32), dtype=torch.int8, device=cuda)
+    acc = torch.zeros((8, 32), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="kernel"):
         K.mm_recombine_acc(x, w, acc)
     with pytest.raises(ValueError, match="kernel"):
@@ -1006,8 +1078,8 @@ def test_exact_engines_same_on_card_and_cpu(cuda, backend, bits, digit_bits,
                                             key_limbs, B, J, U, N):
     """conv, conv_bf16 and nussbaumer on the card equal their CPU results
     bit for bit; conv also equals the exact onthefly (32 bits) or chunked
-    (64 bits) engine, and launches materialize_w and mm_recombine_acc once a
-    digit plane at 32 bits, materialize_wt once at 64."""
+    (64 bits) engine, and launches materialize_wt once, and
+    mm_recombine_acc_wt once a digit plane at 32 bits."""
     from tfhe_tpu_torch.ops import engine
     cfg = engine.EngineConfig(N=N, out_bits=bits, digit_bits=digit_bits,
                               key_limbs=key_limbs)
@@ -1021,10 +1093,9 @@ def test_exact_engines_same_on_card_and_cpu(cuda, backend, bits, digit_bits,
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
     if backend.startswith("conv"):
-        assert (K.materialize_w.launches, K.materialize_wt.launches) == (
-            (1, 0) if bits == 32 else (0, 1))
-        assert K.mm_recombine_acc.launches == (cfg.plane_split[1]
-                                               if bits == 32 else 0)
+        assert (K.materialize_w.launches, K.materialize_wt.launches) == (0, 1)
+        assert K.mm_recombine_acc_wt.launches == (cfg.plane_split[1]
+                                                  if bits == 32 else 0)
         exact = engine.make_engine(cfg, "onthefly" if bits == 32
                                    else "chunked")
         assert torch.equal(got, exact.accumulate(x.to(cuda),
@@ -1479,11 +1550,12 @@ def test_sharded_on_card(cuda, tmp_path):
         n = GATE_TOY.lwe.n
         n0 = CB_TOY.n_lvl0 * (1 if shared else CB_TOY.tgsw_lvl1.l)
         for name in ("ep-1x2", "ep-2x1"):
-            for k in ("rotate_decompose", "materialize_w", "mm_recombine_acc"):
+            for k in ("rotate_decompose", "materialize_wt",
+                      "mm_recombine_acc_wt"):
                 assert counts[name][k] == n, (name, k)
         # GATE_TOY's N=64 is outside the fused kernel's domain: the tp
         # rank's whole-key rotation takes the generic step too
-        assert counts["tp-1x2"]["mm_recombine_acc"] == n
+        assert counts["tp-1x2"]["mm_recombine_acc_wt"] == n
         assert counts["chunked"]["rotate_decompose64"] == n0
         assert counts["chunked"]["ck_dot64p"] == n0
         assert counts["conv"]["materialize_wt"] == n0

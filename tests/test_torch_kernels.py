@@ -127,7 +127,10 @@ def test_rotate_decompose(N, k, l, bgbit):
 
 @pytest.mark.parametrize("L,shift", [(3, 8), (2, 0), (4, 0)])
 @pytest.mark.parametrize("flat_acc", [False, True])
-def test_mm_recombine_acc(L, shift, flat_acc):
+@pytest.mark.parametrize("entry", ["w", "wt"])
+def test_mm_recombine_acc(L, shift, flat_acc, entry):
+    """The JAX package's signature (w in materialize_w's layout) and the
+    K-packed entry (wt = w transposed, materialize_wt's layout)."""
     r = np.random.default_rng(2)
     B, N, J, U = 8, 128, 4, 2
     x = r.integers(-64, 64, (B, J * N)).astype(np.int8)
@@ -136,42 +139,63 @@ def test_mm_recombine_acc(L, shift, flat_acc):
     want = pk.mm_recombine_acc(jnp.asarray(x), jnp.asarray(w),
                                jnp.asarray(acc), shift_base=shift, tm=B,
                                tn=N, tk=N, interpret=True)
-    got = K.mm_recombine_acc(torch.from_numpy(x), torch.from_numpy(w),
-                             torch.from_numpy(acc), shift_base=shift)
+    if entry == "w":
+        got = K.mm_recombine_acc(torch.from_numpy(x), torch.from_numpy(w),
+                                 torch.from_numpy(acc), shift_base=shift)
+    else:
+        wt = torch.from_numpy(w.transpose(0, 2, 1).copy())
+        got = K.mm_recombine_acc_wt(torch.from_numpy(x), wt,
+                                    torch.from_numpy(acc), shift_base=shift)
     _same(got, want)
 
 
 @pytest.mark.parametrize("steps,split,plan", [
-    (192, 1, (192, 1)), (192, 2, (96, 2)), (192, 5, (39, 5)),
-    (25, 3, (9, 3)), (10, 6, (2, 5)), (4, 9, (1, 4))])
+    (48, 1, (48, 1)), (48, 2, (24, 2)), (48, 4, (12, 4)), (48, 5, (10, 5)),
+    (12, 5, (3, 4)), (7, 3, (3, 3)), (5, 4, (2, 3)), (3, 9, (1, 3))])
 def test_mm_recombine_acc_k_slices(steps, split, plan):
-    """mm_recombine_acc's K split (split_plan): slices of ceil(steps / S)
-    32-deep steps cover K exactly once, the last one ragged and none empty;
-    their recombined partial products, added mod 2^32 onto acc_in as the
-    kernel's atomics do, give the plain version bit for bit."""
+    """mm_recombine_acc_wt's K split (split_plan): slices of ceil(steps / S)
+    128-deep stages cover K exactly once, the last one ragged and none
+    empty; their recombined partial products, added mod 2^32 onto acc_in as
+    the kernel's atomics do, give the plain version bit for bit."""
     assert K.split_plan(steps, split) == plan
     n, slices = plan
     bounds = [(s * n, min(steps, (s + 1) * n)) for s in range(slices)]
     assert bounds[-1][1] == steps and all(lo < hi for lo, hi in bounds)
-    if steps > 32:
+    if steps > 8:
         return                               # the plan alone at path sizes
     r = np.random.default_rng(5)
-    B, UN, L, shift = 5, 128, 4, 0
-    x = torch.from_numpy(r.integers(-64, 64, (B, 32 * steps)).astype(np.int8))
-    w = torch.from_numpy(r.integers(-128, 128, (L, 32 * steps, UN))
+    B, UN, L, shift, D = 5, 64, 4, 0, K.MM_BK
+    x = torch.from_numpy(r.integers(-64, 64, (B, D * steps)).astype(np.int8))
+    w = torch.from_numpy(r.integers(-128, 128, (L, D * steps, UN))
                          .astype(np.int8))
     acc = torch.from_numpy(_i32(r, (B, UN)))
     got = acc.to(torch.int64)
     for lo, hi in bounds:
-        ks = slice(32 * lo, 32 * hi)
+        ks = slice(D * lo, D * hi)
         zero = torch.zeros_like(acc)
         got = got + K.mm_recombine_acc_plain(x[:, ks], w[:, ks], zero,
                                              shift_base=shift)
     want = pk.mm_recombine_acc(jnp.asarray(x.numpy()), jnp.asarray(w.numpy()),
                                jnp.asarray(acc.numpy()), shift_base=shift,
-                               tm=B, tn=UN, tk=32, interpret=True)
+                               tm=B, tn=UN, tk=D, interpret=True)
     _same(K.mm_recombine_acc(x, w, acc, shift_base=shift), want)
     _same(T.wrap32(got), want)
+
+
+@pytest.mark.parametrize("B,K_,UN,plan", [
+    (8192, 6144, 2048, (128, 1, 132)),   # GATE_DEFAULT wide: 2,048 units
+    (628, 6144, 2048, (128, 2, 132)),    # the adder's mean launch
+    (256, 6144, 2048, (128, 2, 128)),
+    (768, 6144, 2048, (128, 2, 132)),
+    (1, 6144, 2048, (64, 4, 128)),
+    (3, 1536, 1536, (64, 4, 96)),        # an ep=3 slice of GATE_FAST2
+    (100, 800, 256, (128, 7, 28))])      # a ragged K tail (7 stages)
+def test_mm_recombine_acc_plan(B, K_, UN, plan):
+    """The plan by shape on 132 SMs: 128-row units above 64 rows; no split
+    where the units fill the card many times, else the split that fills
+    every SM with the fewest rounds; one block an SM at most."""
+    assert K.mm_recombine_acc_plan(B, K_, UN, 132) == plan
+    assert K.mm_recombine_acc_plan(B, K_, UN, 132, 2)[1] == 2
 
 
 def test_mm_recombine_acc_rejects_a_bad_split():

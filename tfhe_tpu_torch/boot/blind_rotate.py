@@ -15,10 +15,11 @@ tensor-core contraction.  Each step takes, in order:
     Torus64 accumulator carried natively as (B, k+1, N) int64;
   * else the generic step: ``rotate_decompose`` (32 bits, bgbit <= 8) or the
     plain rotate + decompose, then ``engine.accumulate_into``
-    (``materialize_w`` + ``mm_recombine_acc`` on the onthefly and conv
-    engines at 32 bits; on the conv engine at 64 bits ``materialize_wt`` and
-    one int8 GEMM a limb and digit plane; the Nussbaumer and FFT engines'
-    own products).  The conv, Nussbaumer and FFT engines have no step of
+    (the K-packed key, ``materialize_wt`` or the matmul engine's dense key
+    transposed, + ``mm_recombine_acc_wt`` on the onthefly, matmul and conv
+    engines at 32 bits; on the conv engine at 64 bits ``materialize_wt``
+    and one int8 GEMM a limb and digit plane; the Nussbaumer and FFT
+    engines' own products).  The conv, Nussbaumer and FFT engines have no step of
     their own and take it on both devices; the chunked engine's 64-bit
     generic step is plain torch code and serves only the CPU.
 

@@ -19,7 +19,7 @@ shares, CB_MXU and CB_ACTIVE rotate once per level).
 On the card the blind rotation runs the chunked engine's 64-bit step
 (``rotate_decompose64_ck`` + ``ck_dot64p``), the port's default backend
 here; ``backend="conv"`` (the JAX package's default) gives the same TRGSWs
-bit for bit through the generic step (``materialize_w`` + int8 GEMMs, no
+bit for bit through the generic step (``materialize_wt`` + int8 GEMMs, no
 step kernel of its own); the pre-key-switch and the
 private key switch are one-hot int8 products (``torch._int_mm``), as the
 JAX package leaves them to XLA.  Keys are generated with the host's

@@ -47,9 +47,7 @@ SIGNATURES = {
                          [_P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _I,
                           _P]),
     "mm_recombine_acc": ("tfhe_mm_recombine_acc",
-                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "mm_recombine_acc_occupancy": ("tfhe_mm_recombine_acc_occupancy", [_I],
-                                   "mm_recombine_acc"),
+                         [_P, _P, _P, _P] + [_I] * 8 + [_P]),
     "fused_cmux_step": ("tfhe_fused_cmux_step",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _I, _I,
                          _P]),

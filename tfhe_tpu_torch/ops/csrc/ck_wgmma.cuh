@@ -1,8 +1,9 @@
 // The mainloop of the chunked-key contractions on Hopper (ck_dot64p.cu,
 // ck_dot64p_acc.cu, ck_dot64p_sacc.cu; ck_cmux_step64.cu takes its key side
-// and its epilogue): int8 wgmma on operands that TMA loads into an mbarrier
-// ring, over the K-packed chunked key wmt (UL, N+m, J*m) int8,
-// wmt[g, q, (j,s)] = limb[q - s] (ChunkedEngine.prepare).
+// and its epilogue; mm_recombine_acc.cu its plan, ring and launch): int8
+// wgmma on operands that TMA loads into an mbarrier ring, over the K-packed
+// chunked key wmt (UL, N+m, J*m) int8, wmt[g, q, (j,s)] = limb[q - s]
+// (ChunkedEngine.prepare).
 //
 // A block owns a tile of FOLDED output columns [i0, i0 + TN) of LG
 // consecutive limb groups g0 .. g0 + LG - 1 for 64 WG batch rows (WG

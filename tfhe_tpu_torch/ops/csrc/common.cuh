@@ -1,5 +1,5 @@
-// Shared pieces of the int8 mma.sync GEMM used by mm_recombine_acc.cu and
-// ck_cmux_step32.cu (both through pipeline.cuh).
+// Pieces of the int8 mma.sync GEMM of ck_cmux_step32.cu (with
+// pipeline.cuh).
 //
 // Block tile: BM rows x BN=128 output columns, K consumed BK at a time, with
 // THREADS = 8*BK threads = BM/32 x 4 warps; each warp owns a 32x32 output

@@ -23,8 +23,9 @@
 // chosen from the SM count.  The copies take 16 * (rows + cols) bytes.
 // Each staged run leaves by LDS.128 -> STG.128, a warp moving 512
 // contiguous bytes of a row.  materialize_w's stores are st.global.cs
-// (evict-first in the L2): its reader, mm_recombine_acc, streams W once;
-// materialize_wt's are plain, as fused_cmux_step_v2 rereads Wt from the L2.
+// (evict-first in the L2: a reader of W streams it once); materialize_wt's
+// are plain, as fused_cmux_step_v2 and mm_recombine_acc reread Wt from the
+// L2.
 #include <cstdint>
 #include <cuda_runtime.h>
 

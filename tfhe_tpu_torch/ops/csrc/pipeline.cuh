@@ -1,14 +1,13 @@
-// Pipelined key staging and the split-reduction epilogue of the two
-// mma.sync 32-bit kernels (mm_recombine_acc.cu, ck_cmux_step32.cu).
+// Pipelined key staging and the split-reduction epilogue of the mma.sync
+// 32-bit kernel ck_cmux_step32.cu.
 //
 // The key tile of one 32-deep step sits in shared memory transposed (words
 // of four consecutive k per column, as mma's B operand wants them) in an
 // XOR-swizzled layout without padding (swz), double-buffered so that one
 // barrier per step suffices: the buffer a thread writes at step g was last
-// read at step g-2, before the barrier of step g-1.  Each kernel fills it
-// its own way while the MMAs of the step before run: ck_cmux_step32 from
-// registers prefetched a step ahead, mm_recombine_acc from a cp.async ring
-// three steps ahead (each the faster of the two on its kernel, PERF.md).
+// read at step g-2, before the barrier of step g-1.  The kernel fills it
+// from registers prefetched a step ahead while the MMAs of the step before
+// run (faster there than a cp.async ring, PERF.md).
 //
 // Split reduction: a block that owns only a slice of an output's sum adds
 // its recombined uint32 result into the output with red.global.add.u32;

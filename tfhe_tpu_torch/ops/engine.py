@@ -129,16 +129,17 @@ def _key_limbs_doubled(cfg: EngineConfig, key_polys):
     return _limbs_doubled(cfg, key_polys)
 
 
-def _fold_planes(cfg: EngineConfig, x, w, acc):
+def _fold_planes(cfg: EngineConfig, x, wt, acc):
     """acc + sum_p (plane_p(x) @ w limbs) << (pb*p + key_shift): the whole
-    product, one mm_recombine_acc per digit plane.  x: (..., J, N);
-    w: (L, J*N, U*N); acc: (M, U, N) with M the flattened lead of x."""
+    product, one mm_recombine_acc_wt per digit plane.  x: (..., J, N);
+    wt: (L, U*N, J*N), the K-packed key; acc: (M, U, N) with M the
+    flattened lead of x."""
     pb, _ = cfg.plane_split
     planes = _digit_planes(cfg, x)
     for p in range(planes.shape[0]):
-        flat = planes[p].reshape(acc.shape[0], w.shape[1])
-        acc = kernels.mm_recombine_acc(flat.contiguous(), w, acc,
-                                       shift_base=cfg.key_shift + pb * p)
+        flat = planes[p].reshape(acc.shape[0], wt.shape[2])
+        acc = kernels.mm_recombine_acc_wt(flat.contiguous(), wt, acc,
+                                          shift_base=cfg.key_shift + pb * p)
     return acc
 
 
@@ -241,27 +242,25 @@ class MatmulEngine(_EngineBase):
         w = mat.permute(0, 1, 3, 2, 4)                      # (L,J,t,U,i)
         return {"w": w.reshape(cfg.num_limbs, J * N, U * N).contiguous()}
 
-    def _w(self, prepared):
-        return prepared["w"]
-
     def _wt(self, prepared):
-        """The K-packed key of the fused step: the dense W transposed per
-        call (a copy of L*J*U*N^2 bytes, 21.2 MB at GATE_FAST2)."""
+        """The K-packed key of the fused step and of mm_recombine_acc_wt:
+        the dense W transposed per call (a copy of L*J*U*N^2 bytes, 21.2 MB
+        at GATE_FAST2)."""
         return prepared["w"].transpose(1, 2).contiguous()
 
     def accumulate(self, x, prepared):
-        w = self._w(prepared)
-        L, JN, UN = w.shape
+        wt = self._wt(prepared)
+        L, UN, JN = wt.shape
         N = self.cfg.N
         lead = x.shape[:-2]
         M = x[..., 0, 0].numel()
-        acc = torch.zeros((M, UN // N, N), dtype=torch.int32, device=w.device)
-        return _fold_planes(self.cfg, x, w, acc).reshape(*lead, UN // N, N)
+        acc = torch.zeros((M, UN // N, N), dtype=torch.int32, device=wt.device)
+        return _fold_planes(self.cfg, x, wt, acc).reshape(*lead, UN // N, N)
 
     def accumulate_into(self, acc, x, prepared):
         if acc.ndim != 3 or x.ndim != 3:
             return acc + self.accumulate(x, prepared)
-        return _fold_planes(self.cfg, x, self._w(prepared), acc)
+        return _fold_planes(self.cfg, x, self._wt(prepared), acc)
 
     def cmux_step(self, a, acc, prepared, *, l, bgbit, offset):
         if not self._fused_ok(acc, l, bgbit):
@@ -273,18 +272,15 @@ class MatmulEngine(_EngineBase):
 
 class OnTheFlyMatmulEngine(MatmulEngine):
     """Keys stored as O(N) doubled-limb vectors (L, J, U, 2N) int8; every
-    call materializes the negacyclic limb matrices (kernels.materialize_w,
-    or kernels.materialize_wt in the fused step's K-packed layout) and runs
-    the same int8 GEMM as MatmulEngine.  The dense matrices would cost N
-    times the key memory (n * 21 MB at GATE_FAST2)."""
+    call materializes the negacyclic limb matrices K-packed
+    (kernels.materialize_wt) and runs the same int8 GEMM or fused step as
+    MatmulEngine.  The dense matrices would cost N times the key memory
+    (n * 21 MB at GATE_FAST2)."""
 
     def prepare(self, key_polys):
         J, U, N = key_polys.shape
         assert N == self.cfg.N
         return {"v": _key_limbs_doubled(self.cfg, key_polys).contiguous()}
-
-    def _w(self, prepared):
-        return kernels.materialize_w(prepared["v"])
 
     def _wt(self, prepared):
         return kernels.materialize_wt(prepared["v"])
@@ -537,12 +533,11 @@ class ConvEngine(_EngineBase):
     The product takes onthefly's route instead of a convolution: each call
     gathers v back from k (one gather; v[..., N] is the one entry k lacks,
     and no Toeplitz entry reads it: they are v[(i-t) mod 2N] with |i-t| < N,
-    so it is written 0), then at 32 bits ``kernels.materialize_w`` and one
-    ``kernels.mm_recombine_acc`` per digit plane (the onthefly product); at
-    64 bits ``kernels.materialize_wt`` (the same kernel's K-packed entry)
-    and one int8 GEMM (``lwe._int8_matmul``) per limb and digit plane on
-    its transposed view, the limbs recombined in int64.  cuBLAS reads that
-    column-major operand about 8 times faster than the row-major W
+    so it is written 0), then ``kernels.materialize_wt`` and at 32 bits
+    one ``kernels.mm_recombine_acc_wt`` per digit plane (the onthefly
+    product); at 64 bits one int8 GEMM (``lwe._int8_matmul``) per limb and
+    digit plane on its transposed view, the limbs recombined in int64.
+    cuBLAS reads that column-major operand about 8 times faster than the row-major W
     (tools/torch_conv64_ab.py, CB_MXU lvl2 B=256, NVIDIA H100 80GB HBM3 at
     700 W: 0.55 against 4.48-4.51 ms for the six GEMMs).  No convolution
     library runs: PyTorch has no int8 convolution on CUDA, cuDNN's float32
@@ -599,7 +594,7 @@ class ConvEngine(_EngineBase):
         M = x[..., 0, 0].numel()
         if cfg.out_bits == 32:
             acc = torch.zeros((M, U, N), dtype=torch.int32, device=v.device)
-            return _fold_planes(cfg, x, kernels.materialize_w(v),
+            return _fold_planes(cfg, x, kernels.materialize_wt(v),
                                 acc).reshape(*lead, U, N)
         pb, P = cfg.plane_split
         max_plane = (1 << (cfg.digit_bits - 1)) if P == 1 else 64
@@ -616,8 +611,8 @@ class ConvEngine(_EngineBase):
     def accumulate_into(self, acc, x, prepared):
         if self.cfg.out_bits != 32 or acc.ndim != 3 or x.ndim != 3:
             return T.add(acc, self.accumulate(x, prepared))
-        w = kernels.materialize_w(self._v(prepared["k"], x.shape[-2]))
-        return _fold_planes(self.cfg, x, w, acc)
+        wt = kernels.materialize_wt(self._v(prepared["k"], x.shape[-2]))
+        return _fold_planes(self.cfg, x, wt, acc)
 
 
 def make_engine(cfg: EngineConfig, backend: str = "matmul"):

@@ -19,7 +19,7 @@ exact) and the mod-2^32 recombination runs in int64.
   materialize_w               materialize_w                 bytes written (L*J*U*N*N)
   materialize_wt              materialize_w (K-packed)      bytes written (L*J*U*N*N)
   rotate_decompose            rotate_decompose              bytes moved (4 + l per coeff)
-  mm_recombine_acc            mm_recombine_acc              int8 MACs (W bytes at small B)
+  mm_recombine_acc_wt         mm_recombine_acc              int8 MACs (wt bytes at small B)
   fused_cmux_step             fused_cmux_step (v1)          int8 MACs
   fused_cmux_step_v2          fused_cmux_step_v2            int8 MACs
   rotate_decompose64          rotate_decompose64            bytes moved (8 + l*P per coeff)
@@ -51,10 +51,11 @@ import torch
 
 from tfhe_tpu_torch import torus as T
 from tfhe_tpu_torch.ops import _build, poly
+from tfhe_tpu_torch.utils import observability as obs
 
 # dynamic shared memory a block may use on sm_90 (bytes)
 MAX_SMEM = 232448
-_BM, _BN, _BK = 64, 128, 32                     # the 64-row tile (csrc/)
+_BN, _BK = 128, 32             # ck_cmux_step32's mma.sync tile (csrc/common.cuh)
 
 
 def _on_cpu(*tensors) -> bool:
@@ -163,8 +164,9 @@ def materialize_w(v):
     of column block u) is a contiguous run of the vector rotated by N;
     a block stages 16 byte-shifted copies of its vector's runs in shared
     memory, so that every run leaves as aligned 16-byte words, stored
-    evict-first (mm_recombine_acc, W's reader, streams it once); the grid
-    from materialize_w_plan."""
+    evict-first (a reader of W streams it once); the grid from
+    materialize_w_plan.  The port's paths take the K-packed entry,
+    materialize_wt."""
     return _materialize(materialize_w, materialize_w_plain, v, False)
 
 
@@ -179,7 +181,7 @@ def materialize_wt(v):
     """v: (L, J, U, 2N) int8 doubled limb vectors -> the K-packed key
     Wt: (L, U*N, J*N) int8 with Wt[l, (u,i), (j,t)] = v[l,j,u,(i-t) mod 2N],
     materialize_w's W transposed (K contiguous for each output column, as
-    fused_cmux_step_v2's wgmma reads it).
+    the wgmmas of fused_cmux_step_v2 and mm_recombine_acc_wt read it).
 
     Kernel: csrc/materialize_w.cu, its second entry (the K-packed layout of
     pallas_kernels.materialize_w): materialize_w's kernel on the vector
@@ -320,60 +322,119 @@ def mm_recombine_acc(x, w, acc_in, *, shift_base: int = 0, split: int = 0):
     x: (B, K) int8; w: (L, K, U*N) int8 (materialize_w layout); acc_in:
     (B, U, N) or (B, U*N) int32.  Returns int32 in acc_in's shape.
 
-    Kernel: csrc/mm_recombine_acc.cu (replaces
-    pallas_kernels.mm_recombine_acc).  Bound by int8 tensor-core MACs at
-    large B and by the W stream at small B; mma.sync tiles of 64 x 128 keep
-    every limb's accumulator in registers, so recombination is one
-    epilogue.  The K walk is cut into ``split`` slices on the grid
-    (split_plan; 0 lets choose_split pick from the SM count and the
-    kernel's occupancy), each added into the output with 32-bit atomics
-    after acc_in is copied there; with one slice the epilogue adds acc_in
-    and stores.  Each slice's 32-deep steps are pipelined: cp.async keeps
-    the x and W rows of the next three steps in flight while this step's
-    MMAs run."""
-    _check(x, "mm_recombine_acc x", torch.int8, 2)
+    The JAX package's signature.  On the CPU its plain version; on a card
+    mm_recombine_acc_wt's kernel on w transposed (a copy of L*K*U*N bytes
+    a call; the port's paths hold the K-packed key and call
+    mm_recombine_acc_wt directly).  ``split`` as there."""
     _check(w, "mm_recombine_acc w", torch.int8, 3)
+    if _on_cpu(x, w, acc_in):
+        _mm_checks(x, w.shape[0], w.shape[1], w.shape[2], acc_in, split)
+        return mm_recombine_acc_plain(x, w, acc_in, shift_base=shift_base)
+    return mm_recombine_acc_wt(x, w.transpose(1, 2).contiguous(), acc_in,
+                               shift_base=shift_base, split=split)
+
+
+def mm_recombine_acc_wt_plain(x, wt, acc_in, *, shift_base: int = 0):
+    return mm_recombine_acc_plain(x, wt.transpose(1, 2), acc_in,
+                                  shift_base=shift_base)
+
+
+def _mm_checks(x, L, K, UN, acc_in, split):
+    _check(x, "mm_recombine_acc x", torch.int8, 2)
     _require(acc_in.dtype == torch.int32 and acc_in.ndim in (2, 3)
              and acc_in.is_contiguous(),
              "mm_recombine_acc acc_in: contiguous (B, U, N) or (B, U*N) int32")
     _require(split >= 0, "mm_recombine_acc: split must be >= 0 (0 chooses)")
-    B, K = x.shape
-    L, Kw, UN = w.shape
-    _require(K == Kw, "mm_recombine_acc: x and w disagree on K")
+    B = x.shape[0]
+    _require(x.shape[1] == K, "mm_recombine_acc: x and the key disagree on K")
     _require(acc_in.shape[0] == B and acc_in[0].numel() == UN,
              "mm_recombine_acc: acc_in must be (B, U*N)")
-    if _on_cpu(x, w, acc_in):
-        return mm_recombine_acc_plain(x, w, acc_in, shift_base=shift_base)
+
+
+# mm_recombine_acc_wt's kernel (csrc/mm_recombine_acc.cu): a work unit is
+# ``rows`` batch rows x MM_COLS output columns of every limb over one K
+# slice of whole MM_BK-deep stages
+MM_COLS, MM_BK = 64, 128
+MM_OVERHEAD = 8            # a unit's fixed cost (fill, epilogue), in stages
+
+
+def mm_recombine_acc_wt(x, wt, acc_in, *, shift_base: int = 0,
+                        split: int = 0):
+    """acc_in + sum_l (x @ wt[l]^T) << (8l + shift_base), mod 2^32.
+
+    x: (B, K) int8; wt: (L, U*N, K) int8, the K-packed key of
+    materialize_wt (wt[l, c, k] = w[l, k, c]); acc_in: (B, U, N) or
+    (B, U*N) int32.  Returns int32 in acc_in's shape.
+
+    Kernel: csrc/mm_recombine_acc.cu (replaces
+    pallas_kernels.mm_recombine_acc).  Bound by int8 tensor-core MACs at
+    large B and by the key stream at small B; on the card by the operand
+    tiles' L2 traffic.  Both operands reach shared memory by TMA, K-major;
+    int8 wgmma multiplies 64-row tiles by the L limbs' 64-column key boxes
+    stacked along N, so every limb's accumulator of an output sits in one
+    thread and the recombination is one epilogue.  A persistent grid walks
+    (row tile, column tile, K slice) units in an L2-friendly order.  The
+    plan (mm_recombine_acc_plan: 64 or 128 rows, the K split) follows the
+    shape and the SM count; ``split`` > 0 forces the split (the slices are
+    added into the output with 32-bit atomics after acc_in is copied
+    there).  Each launch counts ``mm_recombine.plan.<rows>x64.s<split>``
+    (utils.observability).  The kernel takes K % 16 == 0, U*N % 64 == 0,
+    1 to 4 limbs."""
+    _check(wt, "mm_recombine_acc wt", torch.int8, 3)
+    L, UN, K = wt.shape
+    _mm_checks(x, L, K, UN, acc_in, split)
+    if _on_cpu(x, wt, acc_in):
+        return mm_recombine_acc_wt_plain(x, wt, acc_in, shift_base=shift_base)
     _require(1 <= L <= 4, "mm_recombine_acc: the kernel takes 1 to 4 limbs")
-    _require(K % _BK == 0 and UN % _BN == 0,
-             f"mm_recombine_acc: the kernel needs K % {_BK} == 0 and "
-             f"U*N % {_BN} == 0")
-    split = split or mm_recombine_acc_split(B, K, UN, L, x.device)
+    _require(K % 16 == 0 and UN % MM_COLS == 0,
+             f"mm_recombine_acc: the kernel needs K % 16 == 0 and U*N % "
+             f"{MM_COLS} == 0")
+    _require(shift_base >= 0, "mm_recombine_acc: shift_base must be >= 0")
+    _require(x.data_ptr() % 16 == 0 and wt.data_ptr() % 16 == 0,
+             "mm_recombine_acc: the kernel needs 16-byte aligned x and wt")
+    B = x.shape[0]
+    rows, S, ctas = mm_recombine_acc_plan(B, K, UN, sm_count(x.device),
+                                          split)
     out = torch.empty_like(acc_in)
-    mm_recombine_acc.launches += 1
+    mm_recombine_acc_wt.launches += 1
+    obs.count(f"mm_recombine.plan.{rows}x{MM_COLS}.s{S}")
     _launch("mm_recombine_acc", x.device,
-            x.data_ptr(), w.data_ptr(), acc_in.data_ptr(),
-            out.data_ptr(), B, K, UN, L, shift_base, split)
+            x.data_ptr(), wt.data_ptr(), acc_in.data_ptr(), out.data_ptr(),
+            B, K, UN, L, shift_base, rows, S, ctas)
     return out
 
 
-mm_recombine_acc.launches = 0
-
-
-def mm_recombine_acc_split(B: int, K: int, UN: int, L: int, device) -> int:
-    """The K split mm_recombine_acc's kernel takes for these shapes on the
-    card ``device`` lies on (choose_split over its 64-row tiles; one K step
-    of 32 is the unit of work, a block's fixed cost ~16 of them).  Memoized:
-    the steps of a rotation ask again with the same shapes."""
-    return _mm_split(B, K, UN, L, _device_index(device))
+mm_recombine_acc_wt.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _mm_split(B, K, UN, L, dev):
-    return choose_split(
-        lambda t: (UN // _BN) * -(-B // t),
-        lambda t: _occupancy("mm_recombine_acc_occupancy", L),
-        sm_count(dev), K // _BK, tiles=(_BM,), overhead=16)[1]
+def mm_recombine_acc_plan(B: int, K: int, UN: int, sms: int,
+                          split: int = 0) -> tuple:
+    """(rows, split, blocks) of an mm_recombine_acc_wt launch on a card of
+    ``sms`` SMs (csrc/mm_recombine_acc.cu): units of ``rows`` batch rows
+    (128, two consumer warpgroups; 64 where B <= 64) x MM_COLS columns of
+    every limb over one of ``split`` K slices (split_plan over the
+    MM_BK-deep stages), walked by ``blocks`` = min(units, sms) persistent
+    blocks, one an SM.
+
+    The split, where not forced: the smallest S that minimizes
+    ceil(units / sms) x (stages a slice + MM_OVERHEAD), the rounds of
+    equal units times a unit's cost.  A batch whose tiles fill the card
+    many times keeps S = 1 (GATE_DEFAULT B=8192: 2,048 units); a narrow
+    one is cut while the cut pays (B=628: S = 2, 320 units).  MM_OVERHEAD
+    is fitted to the kernel's device time over forced splits at B = 256 to
+    1,024 (PERF.md §6); the limb count did not move the best split,
+    so it is not an input."""
+    rows = 64 if B <= 64 else 128
+    steps = -(-K // MM_BK)
+    tiles = -(-B // rows) * (UN // MM_COLS)
+
+    def cost(S):
+        n, slices = split_plan(steps, S)
+        return -(-tiles * slices // sms) * (n + MM_OVERHEAD)
+    S = split or min(range(1, steps + 1), key=lambda S: (cost(S), S))
+    S = split_plan(steps, S)[1]
+    return rows, S, min(tiles * S, sms)
 
 
 # ---------------------------------------------------------------------------
@@ -1034,9 +1095,10 @@ def sm_count(device) -> int:
 
 def split_plan(steps: int, split: int) -> tuple:
     """(slice length, slices) of a reduction of ``steps`` steps cut
-    ``split`` ways, as mm_recombine_acc's kernel cuts its K walk
-    (csrc/mm_recombine_acc.cu): slices of ceil(steps / split) steps, the last one
-    ragged; a split that would leave a slice empty takes fewer slices."""
+    ``split`` ways, as mm_recombine_acc_wt's kernel cuts its K walk of
+    MM_BK-deep stages (csrc/mm_recombine_acc.cu): slices of ceil(steps /
+    split) steps, the last one ragged; a split that would leave a slice
+    empty takes fewer slices."""
     split = max(1, min(split, steps))
     n = -(-steps // split)
     return n, -(-steps // n)
@@ -1338,7 +1400,7 @@ def _ck64_plan(B, kp1, N, m, Jm, L, planes, dev):
 KERNELS = (materialize_w, materialize_wt, rotate_decompose, fused_cmux_step,
            fused_cmux_step_v2, rotate_decompose64, rotate_decompose64_ck,
            rotate_decompose64_ck_flat, ck_dot64p, ck_dot64p_sacc,
-           ck_dot64p_acc, ck_cmux_step32, ck_cmux_step64, mm_recombine_acc)
+           ck_dot64p_acc, ck_cmux_step32, ck_cmux_step64, mm_recombine_acc_wt)
 
 
 def reset_launches():

@@ -19,7 +19,7 @@ the whole accumulator (``kernels.rotate_decompose`` at 32 bits,
 ``kernels.rotate_decompose64`` at 64, whose plain layout makes a rank's J
 slice a contiguous row range) and contracts its J/ep digit rows through
 the engine's generic product, ``eng.accumulate``: on the onthefly engine
-``materialize_w`` + ``mm_recombine_acc`` at K = (J/ep)*N, on the chunked
+``materialize_wt`` + ``mm_recombine_acc_wt`` at K = (J/ep)*N, on the chunked
 engine ``ck_layout`` + ``ck_dot64p`` at J*m = (J/ep)*m, on conv
 ``materialize_wt`` + int8 GEMMs.  No fused step takes a digit slice, and
 neither does the JAX package's (its sharded step is the generic one), so

@@ -23,7 +23,7 @@ its parts (FCS_PART=1..4 builds: key loads and transpose, digit build,
 wgmmas, key loads alone) and v2's kernel on the same key K-packed (what the
 in-kernel transpose costs).  At the three keys a path runs, this tree's
 rounds also time the path's step: the materialize launch followed by the
-kernel that reads its output (GATE_DEFAULT: mm_recombine_acc at B=256;
+kernel that reads its output (GATE_DEFAULT: mm_recombine_acc_wt at B=256;
 GATE_FAST2 and GATE_MXU: fused_cmux_step_v2 at B=8192), for the chosen plan
 and for 32 and 64 rows, beside that reader alone, so that what a plan costs
 the reader shows.  Then, once, the launch floor.  With
@@ -31,7 +31,7 @@ the reader shows.  Then, once, the launch floor.  With
 chip_smoke.py in a subprocess, in turns (parent, this tree, this tree,
 parent, ``--rounds`` times): phase 3 (GATE_FAST2 onthefly B=8192, 500
 materialize_wt a launch) and phase 4 (GATE_DEFAULT onthefly B=256, 630
-materialize_w); v1 runs on no path.
+materialize_wt); materialize_w and v1 run on no path.
 
 Needs one card and nvcc; prints one line per measurement and the card's
 name and power limit.
@@ -137,11 +137,11 @@ class MatCase:
         return list(dict.fromkeys(plans))
 
     def with_reader(self, rng, p, B):
-        """The kernel the path runs on this output: mm_recombine_acc on
-        digits of B rows (materialize_w), or fused_cmux_step_v2 at B
-        (materialize_wt); p is the parameter set."""
+        """The kernel the path runs on this output (materialize_wt's):
+        fused_cmux_step_v2 at B, or mm_recombine_acc_wt on digits of B rows
+        where the key has 4 limbs; p is the parameter set."""
         L, J, U, N = self.shape
-        if self.wt:
+        if L <= 3:
             a = torch.from_numpy(rng.integers(0, 2 * N, (B,))
                                  .astype(np.int32)).cuda()
             acc = torch.from_numpy(rng.integers(-2**31, 2**31, (B, U, N))
@@ -152,8 +152,8 @@ class MatCase:
             x = torch.from_numpy(rng.integers(-64, 64, (B, J * N))
                                  .astype(np.int8)).cuda()
             acc = torch.zeros((B, U, N), dtype=torch.int32, device="cuda")
-            self.reader = lambda: K.mm_recombine_acc(x, self.out, acc)
-        name = "fused_cmux_step_v2" if self.wt else "mm_recombine_acc"
+            self.reader = lambda: K.mm_recombine_acc_wt(x, self.out, acc)
+        name = "fused_cmux_step_v2" if L <= 3 else "mm_recombine_acc_wt"
         self.reader_tag = f"{name} B={B}"
         return self
 
@@ -175,10 +175,11 @@ class MatCase:
 
 
 def mat_cases(rng) -> list:
-    """materialize_w at GATE_DEFAULT's key (with its path's reader) and
-    GATE_FAST2's; materialize_wt at GATE_FAST2's and GATE_MXU's (with
-    theirs)."""
-    return [MatCase(rng, "GATE_DEFAULT", "materialize_w", (4, 6, 2, 1024))
+    """materialize_w at GATE_DEFAULT's key and GATE_FAST2's; materialize_wt
+    at GATE_DEFAULT's, GATE_FAST2's and GATE_MXU's (with their paths'
+    readers)."""
+    return [MatCase(rng, "GATE_DEFAULT", "materialize_w", (4, 6, 2, 1024)),
+            MatCase(rng, "GATE_DEFAULT", "materialize_wt", (4, 6, 2, 1024))
             .with_reader(rng, GATE_DEFAULT.tgsw, 256),
             MatCase(rng, "GATE_FAST2", "materialize_w", (3, 9, 3, 512)),
             MatCase(rng, "GATE_FAST2", "materialize_wt", (3, 9, 3, 512))
