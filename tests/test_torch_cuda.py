@@ -19,6 +19,8 @@ sharded bootstraps of tfhe_tpu_torch.parallel on two gloo ranks sharing
 the card.  Imports nothing of JAX.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -26,7 +28,7 @@ import torch
 from tfhe_tpu_torch import lwe
 from tfhe_tpu_torch.boot import circuit, gate
 from tfhe_tpu_torch.ops import kernels as K
-from tfhe_tpu_torch.params import CB_TOY, GATE_TOY, make_circuit_params
+from tfhe_tpu_torch.params import CB_PAPER_TOY, CB_TOY, GATE_TOY
 from tfhe_tpu_torch.rng import TfheRng
 
 pytestmark = pytest.mark.cuda
@@ -588,6 +590,40 @@ def test_ck_dot64p(cuda, B, N, J, UL, m, P):
     assert torch.equal(got, K.ck_dot64p_plain(dx, dwmt, **kw))
 
 
+@pytest.mark.parametrize("J,name", [(12, "ck_dot64p.plan.128x64.jm768.p2"),
+                                    (8, "ck_dot64p.plan.128x64.jm512.p2")])
+def test_ck_dot64p_plan_counter(cuda, J, name):
+    """A launch at CB_PAPER's lvl2 shape (B=256, J*m = 768, two planes) and
+    at CB_ACTIVE's (J*m = 512) each count their own plan once, eagerly and
+    under a graph replay (graphs.py adds a replay's counter delta)."""
+    from tfhe_tpu_torch import graphs
+    from tfhe_tpu_torch.utils import observability as obs
+    x, wmt = _ck64_inputs(np.random.default_rng(18), 256, 2048, J, 16, 64, 2)
+    x, wmt = x.to(cuda), wmt.to(cuda)
+    kw = dict(N=2048, m=64, planes=2)
+
+    def plans(call):
+        before = obs.report()["counters"]
+        call()
+        torch.cuda.synchronize()
+        after = obs.report()["counters"]
+        return {k: v - before.get(k, 0) for k, v in after.items()
+                if k.startswith("ck_dot64p") and v != before.get(k, 0)}
+
+    assert plans(lambda: K.ck_dot64p(x, wmt, **kw)) == {name: 1}
+    graphs.clear()
+    fn = functools.partial(K.ck_dot64p, wmt=wmt, **kw)
+
+    def graphed():
+        return graphs.run("test.ck_dot64p", ("ck_dot64p", J), fn, (x,),
+                          (wmt,))
+
+    assert plans(graphed) == {name: 1}         # the capture's warm-up call
+    assert plans(graphed) == {name: 1}         # a replay
+    assert graphs.stats()[0]["replays"] == 1
+    graphs.clear()
+
+
 @pytest.mark.parametrize("rows", [64, 128])
 @pytest.mark.parametrize("B,N,J,UL,m,P", [(65, 1024, 10, 12, 64, 1),
                                           (100, 256, 4, 5, 32, 2),
@@ -803,15 +839,6 @@ def test_cb_toy_each_64_bit_step(cuda, monkeypatch, env, kernels):
                                "ck_dot64p_sacc", "ck_cmux_step64")}
     assert {k for k, v in steps.items() if v} == set(kernels)
     assert len({steps[k] for k in kernels}) == 1
-
-
-# a toy at CB_PAPER's gadgets and key switches (l1 = 4, lvl2 Bg = 2^9 / l2 =
-# 6: two planes, J*m = 768; the whole 8-limb key; preKS t = 15 and privKS
-# t = 32 at base 2) and toy widths
-CB_PAPER_TOY = make_circuit_params(
-    n_lvl0=12, n_lvl1=64, n_lvl2=128, bgbit_lvl1=8, ell_lvl1=4, bgbit_lvl2=9,
-    ell_lvl2=6, bk_stdev=2.0**-50, ks_stdev_10=2.0**-25, ks_len_10=15,
-    ks_basebit_10=1, ks_stdev_21=2.0**-31, ks_len_21=32, ks_basebit_21=1)
 
 
 @pytest.mark.parametrize("env", [{}, {"TFHE_CK64_PATH": "acc"},

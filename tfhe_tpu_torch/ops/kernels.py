@@ -875,6 +875,10 @@ def _ck64_require(name, N, m, Jm, planes, ok=ck64_kernel_ok):
 # (one or two consumer warpgroups sharing each key tile), the rows chosen
 # from B.
 # Memoized: the 1,000 steps of a circuit bootstrap ask with the same shapes.
+# ck_dot64p and ck_dot64p_sacc count their plan and contraction depth a
+# launch in utils.observability, ``<entry>.plan.<rows>x64.jm<J*m>.p<planes>``;
+# graph replays add the count again (graphs.py), so a step pays no host cost.
+
 
 @functools.lru_cache(maxsize=None)
 def ck_dot64p_plan(B: int, N: int, m: int, Jm: int, planes: int) -> int:
@@ -924,7 +928,8 @@ def ck_dot64p(x, wmt, *, N: int, m: int, planes: int = 1,
     (ck_dot64p_plan), and runs, per plane, the chunk windows that reach its
     columns (added) or their X^N wrap (subtracted): C + 1 or C + 2 chunk
     products of depth J*m, key rows outside [0, N+m) read as zero.  The 2N
-    ring never reaches memory."""
+    ring never reaches memory.  Each launch counts
+    ``ck_dot64p.plan.<rows>x64.jm<J*m>.p<planes>`` (utils.observability)."""
     _check(x, "ck_dot64p x", torch.int8, 2)
     UL, Jm = _ck_key_shape("ck_dot64p", wmt, N, m)
     B = x.shape[0]
@@ -939,6 +944,7 @@ def ck_dot64p(x, wmt, *, N: int, m: int, planes: int = 1,
     rows = ck_dot64p_plan(B, N, m, Jm, planes)
     out = torch.empty((UL, B, N), dtype=torch.int32, device=x.device)
     ck_dot64p.launches += 1
+    obs.count(f"ck_dot64p.plan.{rows}x64.jm{Jm}.p{planes}")
     _launch("ck_dot64p", x.device,
             x.data_ptr(), wmt.data_ptr(), out.data_ptr(), B, N,
             m, Jm, UL, planes, ckp, rows)
@@ -1061,6 +1067,7 @@ def ck_dot64p_sacc(x, wmt, acc, *, N: int, m: int, key_shift: int,
     rows = ck_dot64p_plan(x.shape[0], N, m, Jm, planes)
     out = torch.empty_like(acc)
     ck_dot64p_sacc.launches += 1
+    obs.count(f"ck_dot64p_sacc.plan.{rows}x64.jm{Jm}.p{planes}")
     _launch("ck_dot64p_sacc", x.device,
             x.data_ptr(), wmt.data_ptr(), acc.data_ptr(),
             out.data_ptr(), x.shape[0], N, m, Jm, kp1, UL // kp1, planes, ckp,

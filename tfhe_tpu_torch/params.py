@@ -347,3 +347,14 @@ CB_TOY = make_circuit_params(
     ks_stdev_10=2.0**-25, ks_len_10=6, ks_basebit_10=2,
     ks_stdev_21=2.0**-31, ks_len_21=10, ks_basebit_21=3,
 )
+
+# CB_PAPER's gadgets and key switches at CB_TOY's widths: l1 = 4, lvl2 Bg =
+# 2^9 / l2 = 6 (two digit planes, J*m = 768), the whole 8-limb key, preKS
+# t = 15 and privKS t = 32 at base 2.
+CB_PAPER_TOY = make_circuit_params(
+    n_lvl0=12, n_lvl1=64, n_lvl2=128,
+    bgbit_lvl1=8, ell_lvl1=4, bgbit_lvl2=9, ell_lvl2=6,
+    bk_stdev=2.0**-50,
+    ks_stdev_10=2.0**-25, ks_len_10=15, ks_basebit_10=1,
+    ks_stdev_21=2.0**-31, ks_len_21=32, ks_basebit_21=1,
+)
