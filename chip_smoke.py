@@ -30,7 +30,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      digits, which re-laid out must equal the chunk-layout kernel's) at
      CB_MXU, CB_ACTIVE and CB_PAPER B=256, the four 64-bit contractions on the
      K-packed key wmt with their chosen plans, ck_dot64p and ck_dot64p_sacc
-     also at CB_MXU tails B=1, 3, 100,
+     also at CB_MXU tails B=1, 3, 100, ck_dot64p also at a 4-bit query's
+     B=4 at CB_ACTIVE and CB_PAPER (the key-stationary plan),
      rotate_decompose64_ck also at CB_MXU B=1, 3, 100,
      the one-kernel 64-bit step there (CB_PAPER's J*m = 768 on the
      64-row plan) and at CB_MXU tails B=1, 3, 100
@@ -664,6 +665,23 @@ def _kernel_cases(seed: int = 0):
                       bound_ms(_nbytes(x, wmt, acc_flat, acc_flat), macs),
                       lib, True))
 
+    # ck_dot64p at a 4-bit query's B=4 (C*B = 128 stacked rows: the
+    # key-stationary plan) at CB_ACTIVE (two planes, J*m = 512, 16 limb rows)
+    # and CB_PAPER (J*m = 768)
+    B = 4
+    for label, p, L in (("CB_ACTIVE", CB_ACTIVE.tgsw_lvl2, 8),
+                        ("CB_PAPER", CB_PAPER.tgsw_lvl2, 8)):
+        Jm, UL = kp1 * p.l * m, kp1 * L
+        x = i8((B, C * 2 * K.ck_width(Jm)), -64, 65)
+        wmt = i8((UL, N + m, Jm))
+        cases.append(("ck_dot64p", f"{label} B={B}", "csrc/ck_dot64p.cu",
+                      f"{PALLAS}:835", K.ck_dot64p, K.ck_dot64p_plain,
+                      (x, wmt), dict(N=N, m=m, planes=2),
+                      bound_ms(_nbytes(x, wmt) + UL * B * N * 4,
+                               2 * B * UL * N * (Jm // m) * N),
+                      ("_int_mm", (x.reshape(B * C * 2, Jm), _wcat(wmt))),
+                      True))
+
     # ck_cmux_step64: the whole 64-bit step on the flat accumulator at
     # CB_MXU, CB_ACTIVE and CB_PAPER B=256, then CB_MXU tail batches
     for label, p, L, B in (("CB_MXU", CB_MXU.tgsw_lvl2, 6, 256),
@@ -864,14 +882,15 @@ EMITTERS = {"rotate_decompose": "rotate_decompose_kernel",
 # the kernels whose reduction is split over blocks (K slices, chunk windows)
 SPLIT_KERNELS = ("mm_recombine_acc_wt", "ck_cmux_step32")
 # the 64-bit contractions on the K-packed key wmt, and what their plans hold
-K64_PLANS = {"ck_dot64p": "rows", "ck_dot64p_sacc": "rows",
+K64_PLANS = {"ck_dot64p": "rows, kst", "ck_dot64p_sacc": "rows",
              "ck_dot64p_acc": "rows, limbs", "ck_cmux_step64": "rows, split"}
 
 
 def _k64_plan(name, dev_args, kw):
-    """The plan the wrapper of ``name`` chooses for these inputs: the rows
-    of a ck_dot64p or ck_dot64p_sacc block, (rows, limbs) of a
-    ck_dot64p_acc block, (rows, split) of a ck_cmux_step64 launch."""
+    """The plan the wrapper of ``name`` chooses for these inputs: (rows,
+    key-stationary) of a ck_dot64p block, the rows of a ck_dot64p_sacc
+    block, (rows, limbs) of a ck_dot64p_acc block, (rows, split) of a
+    ck_cmux_step64 launch."""
     from tfhe_tpu_torch.ops import kernels as K
     if name == "ck_cmux_step64":
         a, acc, wmt = dev_args
@@ -882,8 +901,9 @@ def _k64_plan(name, dev_args, kw):
     x, wmt = dev_args[:2]
     UL, _, Jm = wmt.shape
     if name in ("ck_dot64p", "ck_dot64p_sacc"):
-        return K.ck_dot64p_plan(x.shape[0], kw["N"], kw["m"], Jm,
-                                kw["planes"])
+        plan = K.ck_dot64p_plan if name == "ck_dot64p" else \
+            K.ck_dot64p_sacc_plan
+        return plan(x.shape[0], kw["N"], kw["m"], Jm, kw["planes"])
     return K.ck_dot64p_acc_plan(x.shape[0], kw["N"], kw["m"], Jm,
                                 UL // kw["kp1"], kw["planes"])
 
@@ -1507,7 +1527,7 @@ def phase_circuit(smi: str):
     total = (rot_ms + dot_ms + epi_ms) * steps + pre_ms + priv_ms * n_priv
     print(f"phase 5 breakdown B={batch}: rotate_decompose64_ck "
           f"{rot_ms:.4f} ms x {steps}, ck_dot64p {dot_ms:.4f} ms x {steps} "
-          f"({dot_plan} rows a block), "
+          f"(plan (rows, kst) {dot_plan}), "
           f"int64 epilogue {epi_ms:.4f} ms x {steps} (whole step "
           f"{step_ms:.4f} ms), preKS {pre_ms:.3f} ms x 1, privKS "
           f"{priv_ms:.3f} ms x {n_priv}; sum {total:.1f} ms vs "

@@ -10,6 +10,7 @@ tests/test_chunked64.py.
 """
 
 import pathlib
+import re
 
 import numpy as np
 import jax
@@ -372,21 +373,141 @@ def test_ck64_kernel_domain_and_plans(N, m, Jm, P, ok):
     """The 64-bit contractions' domain is one predicate (ck_cmux_step64's
     adds m % 4 == 0 for its four-coefficient digit builds): the plan
     functions raise outside it, and inside it choose the rows from B (two
-    warpgroups above 64 rows) and ck_dot64p_acc's limbs a pass from L's
-    parity."""
+    warpgroups above 64 rows), ck_dot64p's key-stationary plan where C*B
+    is at most KST_ROWS (m a multiple of 64, J*m at most 768), and
+    ck_dot64p_acc's limbs a pass from L's parity."""
     assert K.ck64_kernel_ok(N, m, Jm, P) == ok
     assert K.ck_cmux_step64_ok(N, m, Jm, P) == (ok and m % 4 == 0)
     for B in (1, 64, 65, 256):
         rows = 128 if B > 64 else 64
         if not ok:
-            with pytest.raises(ValueError, match="kernel needs"):
-                K.ck_dot64p_plan(B, N, m, Jm, P)
+            for plan in (K.ck_dot64p_plan, K.ck_dot64p_sacc_plan):
+                with pytest.raises(ValueError, match="kernel needs"):
+                    plan(B, N, m, Jm, P)
             with pytest.raises(ValueError, match="kernel needs"):
                 K.ck_dot64p_acc_plan(B, N, m, Jm, 6, P)
             continue
-        assert K.ck_dot64p_plan(B, N, m, Jm, P) == rows
+        stacked = (N // m) * B
+        kst = stacked <= 1280 and m % 64 == 0 and Jm <= 768
+        assert K.ck_dot64p_plan(B, N, m, Jm, P) == (
+            (128, True) if kst else (rows, False))
+        assert K.ck_dot64p_sacc_plan(B, N, m, Jm, P) == rows
         assert K.ck_dot64p_acc_plan(B, N, m, Jm, 6, P) == (rows, 2)
         assert K.ck_dot64p_acc_plan(B, N, m, Jm, 5, P) == (rows, 1)
+
+
+@pytest.mark.parametrize("B,N,m,Jm,P,plan", [
+    (1, 2048, 64, 512, 2, (128, True)), (2, 2048, 64, 512, 2, (128, True)),
+    (3, 2048, 64, 512, 2, (128, True)), (4, 2048, 64, 512, 2, (128, True)),
+    (5, 2048, 64, 512, 2, (128, True)), (40, 2048, 64, 512, 2, (128, True)),
+    (41, 2048, 64, 512, 2, (64, False)), (64, 2048, 64, 512, 2, (64, False)),
+    (256, 2048, 64, 512, 2, (128, False)),
+    (4, 2048, 64, 768, 2, (128, True)), (40, 2048, 64, 768, 2, (128, True)),
+    (256, 2048, 64, 768, 2, (128, False)),
+    (4, 2048, 64, 896, 2, (64, False)), (3, 2048, 64, 640, 1, (128, True)),
+    (1, 2048, 32, 512, 2, (64, False)), (80, 2048, 128, 512, 1, (128, True)),
+    (81, 2048, 128, 512, 1, (128, False)),
+    (16, 256, 64, 256, 1, (128, True)), (320, 256, 64, 256, 1, (128, True)),
+    (321, 256, 64, 256, 1, (128, False))])
+def test_ck_dot64p_plan_kst(B, N, m, Jm, P, plan):
+    """The key-stationary plan exactly where the C*B stacked rows are at
+    most KST_ROWS (1,280, the measured crossover: B = 40 at C = 32; 128
+    stacked rows a block at every B), m is a multiple of the 64-row key
+    tile and the key's 64 rows of 4 limb groups fit in 6 K tiles (J*m <=
+    768): a CB_ACTIVE or CB_PAPER query's B = 4, CB_MXU's B = 3; every
+    wider batch keeps the output-stationary rows (B = 256: 128)."""
+    assert K.KST_ROWS == 1280
+    assert K.ck_dot64p_plan(B, N, m, Jm, P) == plan
+
+
+def test_kst_ktiles_mirrors_the_kernel():
+    """The key-stationary kernel owns the limit on its resident key
+    (KST_MAX_KTILES, held against its shared memory by a static_assert);
+    the plan's KST_KTILES is that number, so the wrapper never picks a
+    launch the kernel refuses."""
+    src = (pathlib.Path(K.__file__).parent / "csrc" / "ck_dot64p.cu"
+           ).read_text()
+    found = re.findall(r"constexpr int KST_MAX_KTILES = (\d+);", src)
+    assert found == [str(K.KST_KTILES)]
+    assert K.ck_kst_ok(2048, 64, 128 * K.KST_KTILES)
+    assert not K.ck_kst_ok(2048, 64, 128 * K.KST_KTILES + 64)
+
+
+def _kst_model(x, wmt, *, N, m, planes, rows):
+    """The key-stationary plan's decomposition in torch, in the kernel's
+    layout: block (z, gz, t) multiplies key rows [64t, 64t + 64) of limb
+    groups [4gz, 4gz + 4) (zero past N+m and UL, as TMA fills them) with
+    stacked rows rr = b*C + c in [rows*z, rows*(z + 1)) (row rr of x seen as
+    (B*C, P*ckp)), planes highest first with Horner's shift by 7, and
+    stages each product row at [z, gz, t, rr % rows, limb*64 + q % 64],
+    negated where its ring position c*m + q lies at or above N; out[g, b,
+    i] is the sum, over every chunk c and both halves, of the staged row
+    b*C + c of the tile holding key row i (+ N) - c*m (the kernel adds each
+    staged row into out by a TMA reduction).  Returns the folded (UL, B, N)
+    int32 and whether every staged row kept one sign."""
+    UL, Npm, Jm = wmt.shape
+    B, C = x.shape[0], N // m
+    NT, GZ, S = -(-Npm // 64), -(-UL // 4), -(-B * C // rows)
+    ckp = K.ck_width(Jm)
+    a = torch.zeros((S * rows, planes, Jm), dtype=torch.float64)
+    a[:B * C] = x.reshape(B * C, planes, ckp)[..., :Jm].double()
+    key = torch.zeros((GZ * 4, NT * 64, Jm), dtype=torch.float64)
+    key[:UL, :Npm] = wmt.double()
+    part = torch.zeros((S, GZ, NT, rows, 256), dtype=torch.int64)
+    rr = torch.arange(S * rows).reshape(S, rows)
+    q = torch.arange(256) % 64
+    one_sign = True
+    for z in range(S):
+        for gz in range(GZ):
+            for t in range(NT):
+                w = key[4 * gz:4 * gz + 4, 64 * t:64 * t + 64].reshape(256,
+                                                                        Jm)
+                acc = torch.zeros((rows, 256), dtype=torch.int64)
+                for p in reversed(range(planes)):
+                    acc = (acc << 7) + (a[rr[z], p] @ w.T).long()
+                r = (rr[z] % C)[:, None] * m + 64 * t + q[None, :]
+                upper = r >= N
+                one_sign &= bool((upper == upper[:, :1]).all())
+                part[z, gz, t] = T.wrap32(torch.where(upper, -acc, acc))
+    out = torch.zeros((UL, B, N), dtype=torch.int64)
+    i = torch.arange(N)
+    g = torch.arange(UL)
+    for b in range(B):
+        for c in range(C):
+            z, rl = divmod(b * C + c, rows)
+            for half in (0, 1):
+                kq = i + half * N - c * m
+                ok = (kq >= 0) & (kq < Npm)
+                kq = kq[ok]
+                out[:, b, ok] += part[z, (g // 4)[:, None], (kq // 64)[None],
+                                      rl, ((g % 4) * 64)[:, None]
+                                      + (kq % 64)[None]]
+    return T.wrap32(out), one_sign
+
+
+@pytest.mark.parametrize("N", [256, 2048])
+@pytest.mark.parametrize("m", [32, 64])
+@pytest.mark.parametrize("P", [1, 2])
+@pytest.mark.parametrize("B", [1, 4])
+def test_ck_dot64p_kst_model(N, m, P, B):
+    """The key-stationary decomposition (key tiles times chunk-stacked
+    digits, folded through the ring tile of c*m + 64t with the X^N sign)
+    equals ck_dot64p_plain, in the kernel's 128-row tiles (several slices
+    of stacked rows where C*B exceeds one), with a ragged last limb group; a
+    stored row keeps one sign exactly where m is a multiple of 64, the
+    condition under which the kernel negates whole rows."""
+    r = np.random.default_rng(40 + N + m + P + B)
+    J, UL = 4, 6
+    Jm = J * m
+    lo, hi = (-128, 128) if P == 1 else (-64, 65)
+    x = torch.from_numpy(r.integers(lo, hi, (B, (N // m) * P * K.ck_width(
+        Jm))).astype(np.int8))
+    wmt = torch.from_numpy(r.integers(-128, 128, (UL, N + m, Jm)).astype(
+        np.int8))
+    want = K.ck_dot64p_plain(x, wmt, N=N, m=m, planes=P)
+    got, one_sign = _kst_model(x, wmt, N=N, m=m, planes=P, rows=128)
+    assert torch.equal(got, want.long())
+    assert one_sign == (m % 64 == 0)
 
 
 def test_ck_dot64p_asserts_the_int32_bound():

@@ -520,6 +520,10 @@ CK64_CASES = [(B, 2048, 10, 12, 64, 1) for B in (1, 3, 64, 65, 100, 256)] + [
     (300, 1024, 10, 12, 64, 1),
     (70, 256, 6, 3, 32, 1), (100, 256, 4, 5, 32, 2),
     (64, 128, 6, 4, 32, 1), (9, 128, 4, 5, 64, 2), (5, 64, 4, 3, 32, 1)]
+# the key-stationary plan's: a query's batches at CB_ACTIVE's lvl2 shape
+# (J*m = 512) and CB_PAPER's (768), one and two planes
+KST_CASES = [(B, 2048, J, 16, 64, P) for B in (1, 2, 3, 4) for J in (8, 12)
+             for P in (1, 2)]
 
 
 def _ck64_inputs(r, B, N, J, UL, m, P, extreme=False):
@@ -549,15 +553,17 @@ def _on_card_vs_plain(fn, plain, args, kw, cuda, **launch):
     assert torch.equal(got, want)
 
 
-def _ck_dot64p_rows(x, wmt, *, N, m, planes, rows):
-    """ck_dot64p's kernel at a forced row tile, through its raw entry (the
-    wrapper chooses the rows from B)."""
+def _ck_dot64p_rows(x, wmt, *, N, m, planes, rows, kst=False):
+    """ck_dot64p's kernel at a forced plan, through its raw entry (the
+    wrapper chooses the plan from C*B): the output-stationary plan's row
+    tile, or the key-stationary plan's (``kst``)."""
     UL, _, Jm = wmt.shape
     out = torch.empty((UL, x.shape[0], N), dtype=torch.int32,
                       device=x.device)
     K._launch("ck_dot64p", x.device,
               x.data_ptr(), wmt.data_ptr(), out.data_ptr(),
-              x.shape[0], N, m, Jm, UL, planes, K.ck_width(Jm), rows)
+              x.shape[0], N, m, Jm, UL, planes, K.ck_width(Jm), rows,
+              int(kst))
     return out
 
 
@@ -575,11 +581,12 @@ def _ck_dot64p_acc_plan(x, wmt, acc, *, N, m, planes, kp1, key_shift,
     return out
 
 
-@pytest.mark.parametrize("B,N,J,UL,m,P", CK64_CASES)
+@pytest.mark.parametrize("B,N,J,UL,m,P", CK64_CASES + KST_CASES)
 def test_ck_dot64p(cuda, B, N, J, UL, m, P):
-    """The chosen plan on wmt as the engine prepares it, and through the
-    32-bit generic contraction's entry from wm (one transpose a call,
-    counted)."""
+    """The chosen plan on wmt as the engine prepares it (the key-stationary
+    one where C*B <= KST_ROWS and m % 64 == 0: KST_CASES, CB_MXU's B = 1, 3
+    and others), and through the 32-bit generic contraction's entry from wm
+    (one transpose a call, counted)."""
     x, wmt = _ck64_inputs(np.random.default_rng(6), B, N, J, UL, m, P)
     kw = dict(N=N, m=m, planes=P)
     _on_card_vs_plain(K.ck_dot64p, K.ck_dot64p_plain, (x, wmt), kw, cuda)
@@ -590,22 +597,29 @@ def test_ck_dot64p(cuda, B, N, J, UL, m, P):
     assert torch.equal(got, K.ck_dot64p_plain(dx, dwmt, **kw))
 
 
-@pytest.mark.parametrize("J,name", [(12, "ck_dot64p.plan.128x64.jm768.p2"),
-                                    (8, "ck_dot64p.plan.128x64.jm512.p2")])
-def test_ck_dot64p_plan_counter(cuda, J, name):
-    """A launch at CB_PAPER's lvl2 shape (B=256, J*m = 768, two planes) and
-    at CB_ACTIVE's (J*m = 512) each count their own plan once, eagerly and
-    under a graph replay (graphs.py adds a replay's counter delta)."""
+@pytest.mark.parametrize("B,J,name", [
+    (256, 12, "ck_dot64p.plan.128x64.jm768.p2"),
+    (256, 8, "ck_dot64p.plan.128x64.jm512.p2"),
+    (4, 8, "ck_dot64p.plan.kst128x64.jm512.p2")])
+def test_ck_dot64p_plan_counter(cuda, B, J, name):
+    """A launch at CB_PAPER's lvl2 shape (B=256, J*m = 768, two planes), at
+    CB_ACTIVE's (J*m = 512) and at a CB_ACTIVE query's B=4 (the
+    key-stationary plan) each count their own plan once, eagerly and under
+    a graph replay (graphs.py adds a replay's counter delta); two replays
+    give the plain version's bits (the key-stationary plan's cross-block
+    sum lands in a different order each time)."""
     from tfhe_tpu_torch import graphs
     from tfhe_tpu_torch.utils import observability as obs
-    x, wmt = _ck64_inputs(np.random.default_rng(18), 256, 2048, J, 16, 64, 2)
+    x, wmt = _ck64_inputs(np.random.default_rng(18), B, 2048, J, 16, 64, 2)
     x, wmt = x.to(cuda), wmt.to(cuda)
     kw = dict(N=2048, m=64, planes=2)
+    want = K.ck_dot64p_plain(x, wmt, **kw)
 
     def plans(call):
         before = obs.report()["counters"]
-        call()
+        out = call()
         torch.cuda.synchronize()
+        assert torch.equal(out, want)
         after = obs.report()["counters"]
         return {k: v - before.get(k, 0) for k, v in after.items()
                 if k.startswith("ck_dot64p") and v != before.get(k, 0)}
@@ -615,36 +629,52 @@ def test_ck_dot64p_plan_counter(cuda, J, name):
     fn = functools.partial(K.ck_dot64p, wmt=wmt, **kw)
 
     def graphed():
-        return graphs.run("test.ck_dot64p", ("ck_dot64p", J), fn, (x,),
-                          (wmt,))
+        return graphs.run("test.ck_dot64p", ("ck_dot64p", B, J), fn, (x,),
+                          (wmt,)).clone()
 
     assert plans(graphed) == {name: 1}         # the capture's warm-up call
     assert plans(graphed) == {name: 1}         # a replay
-    assert graphs.stats()[0]["replays"] == 1
+    assert plans(graphed) == {name: 1}         # and another
+    assert graphs.stats()[0]["replays"] == 2
     graphs.clear()
 
 
-@pytest.mark.parametrize("rows", [64, 128])
-@pytest.mark.parametrize("B,N,J,UL,m,P", [(65, 1024, 10, 12, 64, 1),
-                                          (100, 256, 4, 5, 32, 2),
-                                          (300, 512, 8, 16, 64, 2)])
-def test_ck_dot64p_every_plan(cuda, B, N, J, UL, m, P, rows):
-    """Both row tiles at the same batches, the one the wrapper would not
-    choose included."""
+# (B, N, J, UL, m, P, rows, kst): both row tiles of the output-stationary
+# plan at the same batches, the one the wrapper would not choose included;
+# the key-stationary plan (128 stacked rows) where the wrapper would not
+# take it, C*B over KST_ROWS (several slices, each reading the key; a
+# ragged limb group)
+_EVERY_PLAN_SHAPES = [(65, 1024, 10, 12, 64, 1), (100, 256, 4, 5, 32, 2),
+                      (300, 512, 8, 16, 64, 2), (64, 2048, 8, 16, 64, 2),
+                      (3, 2048, 12, 16, 64, 2)]
+_EVERY_PLAN = [(*shape, rows, False) for shape in _EVERY_PLAN_SHAPES
+               for rows in (64, 128)] + [
+    (*shape, 128, True) for shape in _EVERY_PLAN_SHAPES
+    if K.ck_kst_ok(shape[1], shape[4], shape[2] * shape[4])]
+
+
+@pytest.mark.parametrize("B,N,J,UL,m,P,rows,kst", _EVERY_PLAN)
+def test_ck_dot64p_every_plan(cuda, B, N, J, UL, m, P, rows, kst):
+    """Every plan at the same batches, those the wrapper would not choose
+    included."""
     x, wmt = _ck64_inputs(np.random.default_rng(16), B, N, J, UL, m, P)
     _on_card_vs_plain(_ck_dot64p_rows, K.ck_dot64p_plain, (x, wmt),
-                      dict(N=N, m=m, planes=P), cuda, rows=rows)
+                      dict(N=N, m=m, planes=P), cuda, rows=rows, kst=kst)
 
 
 @pytest.mark.parametrize("B,N,J,UL,m,P", [(256, 2048, 10, 12, 64, 1),
                                           (100, 2048, 8, 16, 64, 2),
                                           (256, 2048, 12, 16, 64, 2),
-                                          (65, 256, 6, 3, 32, 1)])
+                                          (65, 256, 6, 3, 32, 1),
+                                          (4, 2048, 8, 16, 64, 2),
+                                          (1, 2048, 12, 16, 64, 2),
+                                          (3, 2048, 10, 12, 64, 1)])
 def test_ck_dot64p_extreme_digits(cuda, B, N, J, UL, m, P):
     """Digits at the planes' extremes against key limbs of -128: the
     partial sums between the in-place negations and plane shifts reach
     their largest magnitudes (wrapping mod 2^32 where P = 2), and the
-    folded result is still bit-exact."""
+    folded result is still bit-exact, in every plan that takes the
+    shape."""
     x, wmt = _ck64_inputs(np.random.default_rng(17), B, N, J, UL, m, P,
                           extreme=True)
     kw = dict(N=N, m=m, planes=P)
@@ -652,6 +682,9 @@ def test_ck_dot64p_extreme_digits(cuda, B, N, J, UL, m, P):
     for rows in (64, 128):
         _on_card_vs_plain(_ck_dot64p_rows, K.ck_dot64p_plain, (x, wmt), kw,
                           cuda, rows=rows)
+    if K.ck_kst_ok(N, m, J * m):
+        _on_card_vs_plain(_ck_dot64p_rows, K.ck_dot64p_plain, (x, wmt), kw,
+                          cuda, rows=128, kst=True)
 
 
 def test_ck_dot64p_unsupported_shape_raises(cuda):

@@ -54,8 +54,7 @@ SIGNATURES = {
     "rotate_decompose64_ck": ("tfhe_rotate_decompose64_ck",
                               [_P, _P, _P, _I, _I, _I, _I, _I, _U64, _I, _I,
                                _I, _I, _I, _I, _P]),
-    "ck_dot64p": ("tfhe_ck_dot64p", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                     _I, _P]),
+    "ck_dot64p": ("tfhe_ck_dot64p", [_P, _P, _P] + [_I] * 9 + [_P]),
     "ck_dot64p_acc": ("tfhe_ck_dot64p_acc", [_P, _P, _P, _P, _I, _I, _I, _I,
                                              _I, _I, _I, _I, _I, _I, _I,
                                              _P]),

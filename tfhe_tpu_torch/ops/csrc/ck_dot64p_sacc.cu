@@ -84,8 +84,9 @@ int launch(const void* x, const void* wmt, const void* acc,
 
 }  // namespace
 
-// ``rows`` 64 or 128 (one or two consumer warpgroups; kernels.ck_dot64p_plan
-// chooses, as for ck_dot64p), 64 folded columns of 4 limb rows a block.
+// ``rows`` 64 or 128 (one or two consumer warpgroups;
+// kernels.ck_dot64p_sacc_plan chooses, as for ck_dot64p's output-stationary
+// plan), 64 folded columns of 4 limb rows a block.
 // N a multiple of 64, Jm a multiple of 16, P 1 or 2.
 extern "C" int tfhe_ck_dot64p_sacc(const void* x, const void* wmt,
                                    const void* acc, void* out, int B, int N,

@@ -1,6 +1,6 @@
 // Hopper primitives of the wgmma kernels (fused_cmux_step.cu and the
 // chunked-key contractions of ck_wgmma.cuh): mbarriers, TMA tensor loads and
-// the host's tensor-map encoder, warpgroup barriers and fences,
+// reductions and the host's tensor-map encoders, warpgroup barriers and fences,
 // shared-memory matrix descriptors and the int8 wgmma instructions, in
 // inline PTX (sm_90a).
 //
@@ -79,6 +79,28 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// One 3-D TMA reduction: the box at ``src`` in shared memory added, element
+// by element and atomically, into the tensor at the coordinates (elements
+// outside the tensor dropped); the type is the map's.  A bulk-group
+// operation: commit, then wait for its reads before ``src`` is reused.
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map,
+                                                  const void* src, int c0,
+                                                  int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.tile.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)),
+         "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Commits the thread's bulk-group operations (TMA reductions) and waits
+// until they have read their shared-memory sources.
+__device__ __forceinline__ void bulk_commit_wait_read() {
+  asm volatile("cp.async.bulk.commit_group;\n"
+               "cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
@@ -327,6 +349,21 @@ inline bool encode_i8_map(CUtensorMap* map, const void* base, int rank,
                 const_cast<void*>(base), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// An int32 tensor map of rank ``rank``, unswizzled (boxes land row after
+// row, as a plain array), for TMA reductions.
+inline bool encode_i32_map(CUtensorMap* map, const void* base, int rank,
+                           const cuuint64_t* dims, const cuuint64_t* strides,
+                           const cuuint32_t* box) {
+  const EncodeTiled enc = tensor_map_encoder();
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return enc != nullptr
+         && enc(map, CU_TENSOR_MAP_DATA_TYPE_INT32, rank,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_NONE,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

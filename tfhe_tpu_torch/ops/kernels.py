@@ -873,29 +873,71 @@ def _ck64_require(name, N, m, Jm, planes, ok=ck64_kernel_ok):
 # The plans of the wgmma contractions (csrc/ck_dot64p.cu, ck_dot64p_sacc.cu,
 # ck_dot64p_acc.cu): a block owns 64 folded columns for 64 or 128 batch rows
 # (one or two consumer warpgroups sharing each key tile), the rows chosen
-# from B.
+# from B.  ck_dot64p alone also has a key-stationary plan for small batches:
+# a block owns 64 key rows and multiplies them, read once, with 128 of the
+# C*B (chunk, batch) rows stacked along M.
 # Memoized: the 1,000 steps of a circuit bootstrap ask with the same shapes.
 # ck_dot64p and ck_dot64p_sacc count their plan and contraction depth a
-# launch in utils.observability, ``<entry>.plan.<rows>x64.jm<J*m>.p<planes>``;
-# graph replays add the count again (graphs.py), so a step pays no host cost.
+# launch in utils.observability, ``<entry>.plan.<rows>x64.jm<J*m>.p<planes>``
+# (``kst<rows>`` for the key-stationary plan); graph replays add the count
+# again (graphs.py), so a step pays no host cost.
+
+# the stacked rows (C*B) up to which ck_dot64p takes the key-stationary plan:
+# one 128-row slice reads the key once, each further slice reads it again;
+# the crossover against the output-stationary plan, measured at CB_ACTIVE's
+# and CB_PAPER's lvl2 shapes (C = 32, 16 limb rows, two planes, J*m = 512
+# and 768) with a cold key each launch, lies between B = 48 and 56 at J*m =
+# 512 and past 56 at 768 (tools/torch_ck_small_ab.py, PERF.md §6): B = 40
+# here, 23% faster at 512
+KST_ROWS = 1280
+# the key-stationary block's resident key: 64 rows x 4 limb groups x J*m
+# bytes in K tiles of 128, at most 6 (192 KB) beside its digit ring; the
+# kernel owns the limit (KST_MAX_KTILES in csrc/ck_dot64p.cu, held there
+# against its shared memory by a static_assert), this mirrors it
+KST_KTILES = 6
+
+
+def _ck_rows(B: int) -> int:
+    return 128 if B > 64 else 64
+
+
+def ck_kst_ok(N: int, m: int, Jm: int) -> bool:
+    """The key-stationary plan's domain inside ck64_kernel_ok's: m a
+    multiple of the 64-row key tile (a tile's ring positions then share one
+    sign) and a resident key of at most KST_KTILES K tiles."""
+    return m % 64 == 0 and -(-Jm // 128) <= KST_KTILES
 
 
 @functools.lru_cache(maxsize=None)
-def ck_dot64p_plan(B: int, N: int, m: int, Jm: int, planes: int) -> int:
-    """The batch rows of a ck_dot64p or ck_dot64p_sacc block (its 64 columns
-    of 4 limb rows are fixed).  Raises outside ck64_kernel_ok."""
+def ck_dot64p_plan(B: int, N: int, m: int, Jm: int, planes: int) -> tuple:
+    """(rows, kst) of a ck_dot64p launch: the key-stationary plan (kst
+    True; rows 128, a block's slice of the C*B stacked rows) where C*B <=
+    KST_ROWS inside ck_kst_ok, else the output-stationary plan's batch rows
+    (its 64 columns of 4 limb rows are fixed).  Raises outside
+    ck64_kernel_ok."""
     _ck64_require("ck_dot64p", N, m, Jm, planes)
-    return 128 if B > 64 else 64
+    stacked = (N // m) * B
+    if stacked <= KST_ROWS and ck_kst_ok(N, m, Jm):
+        return 128, True
+    return _ck_rows(B), False
+
+
+@functools.lru_cache(maxsize=None)
+def ck_dot64p_sacc_plan(B: int, N: int, m: int, Jm: int, planes: int) -> int:
+    """The batch rows of a ck_dot64p_sacc block (ck_dot64p's
+    output-stationary rows).  Raises outside ck64_kernel_ok."""
+    _ck64_require("ck_dot64p_sacc", N, m, Jm, planes)
+    return _ck_rows(B)
 
 
 @functools.lru_cache(maxsize=None)
 def ck_dot64p_acc_plan(B: int, N: int, m: int, Jm: int, L: int,
                        planes: int) -> tuple:
-    """(rows, limbs) of a ck_dot64p_acc block: the rows as ck_dot64p's, two
-    limbs a pass where L is even, else one.  Raises outside
+    """(rows, limbs) of a ck_dot64p_acc block: the rows as ck_dot64p_sacc's,
+    two limbs a pass where L is even, else one.  Raises outside
     ck64_kernel_ok."""
     _ck64_require("ck_dot64p_acc", N, m, Jm, planes)
-    return 128 if B > 64 else 64, 2 if L % 2 == 0 else 1
+    return _ck_rows(B), 2 if L % 2 == 0 else 1
 
 
 def _ck_key_shape(name, wmt, N, m):
@@ -922,14 +964,21 @@ def ck_dot64p(x, wmt, *, N: int, m: int, planes: int = 1,
     digits the planes encode; 8 for one plane, 9 for two), which the
     wrapper asserts.
 
-    Kernel: csrc/ck_dot64p.cu (replaces pallas_kernels.ck_dot64p).  Bound by
-    int8 tensor-core MACs.  It reads wmt by TMA and runs int8 wgmma.  A
-    block owns 64 folded columns of 4 limb rows for 64 or 128 batch rows
-    (ck_dot64p_plan), and runs, per plane, the chunk windows that reach its
-    columns (added) or their X^N wrap (subtracted): C + 1 or C + 2 chunk
-    products of depth J*m, key rows outside [0, N+m) read as zero.  The 2N
-    ring never reaches memory.  Each launch counts
-    ``ck_dot64p.plan.<rows>x64.jm<J*m>.p<planes>`` (utils.observability)."""
+    Kernel: csrc/ck_dot64p.cu (replaces pallas_kernels.ck_dot64p).  It
+    reads wmt by TMA and runs int8 wgmma, in one of two plans
+    (ck_dot64p_plan).  Output-stationary, bound by int8 tensor-core MACs: a
+    block owns 64 folded columns of 4 limb rows for 64 or 128 batch rows,
+    and runs, per plane, the chunk windows that reach its columns (added)
+    or their X^N wrap (subtracted): C + 1 or C + 2 chunk products of depth
+    J*m, key rows outside [0, N+m) read as zero.  The 2N ring never reaches
+    memory.  Key-stationary, where C*B <= KST_ROWS (B <= 40 at C=32: a
+    4-bit query's B=4), bound by the key's bytes: a block holds 64 key rows
+    of 4 limb rows, read once, against a slice of 128 of the C*B
+    (chunk, batch) rows stacked along M, and adds each product row into
+    its ring tile's outputs (negated above N) with a TMA reduction into
+    out, zeroed first.  Each launch counts
+    ``ck_dot64p.plan.<rows>x64.jm<J*m>.p<planes>`` (``kst<rows>`` for the
+    key-stationary plan; utils.observability)."""
     _check(x, "ck_dot64p x", torch.int8, 2)
     UL, Jm = _ck_key_shape("ck_dot64p", wmt, N, m)
     B = x.shape[0]
@@ -941,13 +990,14 @@ def ck_dot64p(x, wmt, *, N: int, m: int, planes: int = 1,
                     digit_bits or (8 if planes == 1 else 9))
     if _on_cpu(x, wmt):
         return ck_dot64p_plain(x, wmt, N=N, m=m, planes=planes)
-    rows = ck_dot64p_plan(B, N, m, Jm, planes)
+    rows, kst = ck_dot64p_plan(B, N, m, Jm, planes)
     out = torch.empty((UL, B, N), dtype=torch.int32, device=x.device)
     ck_dot64p.launches += 1
-    obs.count(f"ck_dot64p.plan.{rows}x64.jm{Jm}.p{planes}")
+    obs.count(f"ck_dot64p.plan.{'kst' if kst else ''}{rows}x64.jm{Jm}"
+              f".p{planes}")
     _launch("ck_dot64p", x.device,
-            x.data_ptr(), wmt.data_ptr(), out.data_ptr(), B, N,
-            m, Jm, UL, planes, ckp, rows)
+            x.data_ptr(), wmt.data_ptr(), out.data_ptr(), B, N, m, Jm, UL,
+            planes, ckp, rows, int(kst))
     return out
 
 
@@ -1050,13 +1100,13 @@ def ck_dot64p_sacc(x, wmt, acc, *, N: int, m: int, key_shift: int,
     key wmt.
 
     Kernel: csrc/ck_dot64p_sacc.cu (replaces pallas_kernels.ck_dot64p_sacc).
-    Bound by int8 tensor-core MACs, on ck_dot64p's mainloop and grid (64
-    folded columns of 4 limb rows for 64 or 128 batch rows,
-    ck_dot64p_plan).  A block widens and shifts its limbs' folded products,
-    sums those of one polynomial (a group of 4 limb rows may straddle two)
-    and adds the sum into the output with 64-bit atomicAdd, after acc is
-    copied there on the same stream; the additions commute mod 2^64, so the
-    result is the same bits whatever the order."""
+    Bound by int8 tensor-core MACs, on ck_dot64p's output-stationary
+    mainloop and grid (64 folded columns of 4 limb rows for 64 or 128 batch
+    rows, ck_dot64p_sacc_plan).  A block widens and shifts its limbs'
+    folded products, sums those of one polynomial (a group of 4 limb rows
+    may straddle two) and adds the sum into the output with 64-bit
+    atomicAdd, after acc is copied there on the same stream; the additions
+    commute mod 2^64, so the result is the same bits whatever the order."""
     UL, Jm, ckp = _ck_acc_checks("ck_dot64p_sacc", x, wmt, acc, N=N, m=m,
                                  planes=planes, kp1=kp1,
                                  digit_bits=digit_bits)
@@ -1064,7 +1114,7 @@ def ck_dot64p_sacc(x, wmt, acc, *, N: int, m: int, key_shift: int,
         return ck_dot64p_acc_plain(x, wmt, acc, N=N, m=m,
                                    key_shift=key_shift, planes=planes,
                                    kp1=kp1)
-    rows = ck_dot64p_plan(x.shape[0], N, m, Jm, planes)
+    rows = ck_dot64p_sacc_plan(x.shape[0], N, m, Jm, planes)
     out = torch.empty_like(acc)
     ck_dot64p_sacc.launches += 1
     obs.count(f"ck_dot64p_sacc.plan.{rows}x64.jm{Jm}.p{planes}")

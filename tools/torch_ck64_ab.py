@@ -132,7 +132,7 @@ class Case:
         if self.step:
             return K.ck_cmux_step64_plan(self.B, KP1, N, M, self.Jm, self.L,
                                          self.P, self.acc.device)
-        return (K.ck_dot64p_plan(self.B, N, M, self.Jm, self.P),)
+        return (K.ck_dot64p_sacc_plan(self.B, N, M, self.Jm, self.P),)
 
     def plans(self):
         if not self.step:
