@@ -1105,9 +1105,30 @@ def _keys(params, backend, seed=0):
     return rng, sk, ck, time.perf_counter() - t0
 
 
-def _launch_counts():
-    from tfhe_tpu_torch.ops import kernels as K
-    return {k.__name__: k.launches for k in K.KERNELS}
+# the kernel wrappers, in the order of pallas_kernels.py (PERF.md's kernel
+# table); each counts its launches as ``kernel.<name>`` in
+# utils.observability
+KERNELS = ("materialize_w", "materialize_wt", "rotate_decompose",
+           "fused_cmux_step", "fused_cmux_step_v2", "rotate_decompose64",
+           "rotate_decompose64_ck", "rotate_decompose64_ck_flat", "ck_dot64p",
+           "ck_dot64p_sacc", "ck_dot64p_acc", "ck_cmux_step32",
+           "ck_cmux_step64", "mm_recombine_acc_wt")
+
+
+def _kernel_counters() -> dict:
+    """The kernel wrappers' ``kernel.*`` observability counters so far."""
+    from tfhe_tpu_torch.utils import observability as obs
+    return {k: v for k, v in obs.report()["counters"].items()
+            if k.startswith("kernel.")}
+
+
+def _launch_counts(before: dict) -> dict:
+    """Each kernel's launches since the snapshot ``before`` of
+    ``_kernel_counters()``, zeros included, and the 32-bit contraction's
+    per-call key transposes (``ck_dot64p.transposes``, ck_dot64p_wm)."""
+    now = _kernel_counters()
+    return {n: now.get(f"kernel.{n}", 0) - before.get(f"kernel.{n}", 0)
+            for n in KERNELS + ("ck_dot64p.transposes",)}
 
 
 def phase_main(smi: str, batch: int = 8192, chain: int = 2):
@@ -1131,12 +1152,12 @@ def phase_main(smi: str, batch: int = 8192, chain: int = 2):
             out = boot(ck.data, out)
         return out
 
-    K.reset_launches()
+    before = _kernel_counters()
     t0 = time.perf_counter()
     out = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = _launch_counts()
+    counts = _launch_counts(before)
     ok = gate.decrypt_bool(sk, out) == bits.astype(bool)
     check(ok.all(), f"GATE_FAST2: {int((~ok).sum())} of {batch} bits wrong")
     one = boot(ck.data, ct)             # one launch: phase 11's reference
@@ -1203,12 +1224,12 @@ def phase_generic(smi: str, batch: int = 256):
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
 
-    K.reset_launches()
+    before = _kernel_counters()
     t0 = time.perf_counter()
     out = boot(ck.data, ct)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = _launch_counts()
+    counts = _launch_counts(before)
     ok = gate.decrypt_bool(sk, out) == bits.astype(bool)
     check(ok.all(), f"GATE_DEFAULT: {int((~ok).sum())} of {batch} bits wrong")
     for name in ("rotate_decompose", "materialize_wt", "mm_recombine_acc_wt"):
@@ -1390,17 +1411,16 @@ def _cb_launch(cb, ct, ck):
     """One untimed launch (its captures: cell_start cleared the cache),
     then a timed one with every launch count from 0.  Returns the TRGSWs,
     the first and timed walls and the timed launch's counts."""
-    from tfhe_tpu_torch.ops import kernels as K
     cell_start()
     t0 = time.perf_counter()
     cb(ct, ck.data)                     # untimed: first-use set-up, capture
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
-    K.reset_launches()
+    before = _kernel_counters()
     t0 = time.perf_counter()
     gsw = cb(ct, ck.data)
     torch.cuda.synchronize()
-    return gsw, first, time.perf_counter() - t0, _launch_counts()
+    return gsw, first, time.perf_counter() - t0, _launch_counts(before)
 
 
 def _keyswitch_ms(P, ck, ct) -> tuple:
@@ -1457,7 +1477,7 @@ def phase_circuit(smi: str):
     for name in ("rotate_decompose64_ck", "ck_dot64p"):
         check(counts[name] == steps, f"CB_MXU: {name} launched "
               f"{counts[name]} times, want {steps}")
-    _wmt_only("CB_MXU", ck)
+    _wmt_only("CB_MXU", ck, counts)
     for name in ("materialize_w", "materialize_wt", "rotate_decompose",
                  "mm_recombine_acc_wt", "fused_cmux_step_v2"):
         check(counts[name] == 0, f"CB_MXU: 32-bit kernel {name} launched "
@@ -1576,7 +1596,7 @@ def phase_circuit_step(smi: str, state: dict, phase: str, step: str,
                    lambda: cb(ct, ck.data), gsw, wall, first)
     finally:
         del os.environ[var]
-    _wmt_only(f"CB_MXU {step}", ck)
+    _wmt_only(f"CB_MXU {step}", ck, counts)
     check(torch.equal(gsw, state["gsw"]),
           f"CB_MXU {step}: the TRGSWs differ from the default step's")
     _only(counts, {name: steps for name in kernels}, f"CB_MXU {step}")
@@ -1614,7 +1634,6 @@ def _gate_run(P, backend, bits, chain, seed=0, cell=None):
     the chain's output, its wall seconds, the launch counts, keygen seconds
     and peak device memory."""
     from tfhe_tpu_torch.boot import gate
-    from tfhe_tpu_torch.ops import kernels as K
     cell_start()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1632,13 +1651,13 @@ def _gate_run(P, backend, bits, chain, seed=0, cell=None):
             out = boot(ck.data, out)
         return out
 
-    K.reset_launches()
+    before = _kernel_counters()
     t0 = time.perf_counter()
     out = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    counts = _launch_counts()
+    counts = _launch_counts(before)
     ok = gate.decrypt_bool(sk, out) == bits.astype(bool)
     check(ok.all(), f"{backend}: {int((~ok).sum())} of {len(bits)} bits "
           f"wrong")
@@ -1647,21 +1666,19 @@ def _gate_run(P, backend, bits, chain, seed=0, cell=None):
     return sk, ck, out, wall, counts, keygen_s, peak_gb
 
 
-def _wmt_only(what: str, ck):
+def _wmt_only(what: str, ck, counts):
     """The 64-bit prepared key is the K-packed wmt alone (no wm), and the
-    timed launch transposed no key."""
-    from tfhe_tpu_torch.ops import kernels as K
+    timed launch (its ``counts``) transposed no key."""
     check(set(ck.data["bk"]) == {"wmt"}, f"{what}: the 64-bit prepared key "
           f"holds {sorted(ck.data['bk'])}, want wmt alone")
-    check(K.ck_dot64p.transposes == 0, f"{what}: {K.ck_dot64p.transposes} "
-          f"per-call key transposes inside the loop")
+    n = counts["ck_dot64p.transposes"]
+    check(n == 0, f"{what}: {n} per-call key transposes inside the loop")
 
 
 def _only(counts, allowed: dict, what: str):
     """Exactly ``allowed[name]`` launches of each CMux kernel named there,
     none of the others."""
-    from tfhe_tpu_torch.ops import kernels as K
-    for name in (k.__name__ for k in K.KERNELS):
+    for name in KERNELS:
         want = allowed.get(name, 0)
         check(counts[name] == want, f"{what}: {name} launched {counts[name]} "
               f"times, want {want}")
@@ -1834,7 +1851,6 @@ def _circuit_run(circ, cts, ck, outs, name, chain):
     records the cell for phase 10.  Returns the output, the timed wall
     seconds, its launch counts, its observability counters and the first
     run's seconds."""
-    from tfhe_tpu_torch.ops import kernels as K
     from tfhe_tpu_torch.params import GATE_MXU
     from tfhe_tpu_torch.runtime import scheduler
     from tfhe_tpu_torch.utils import observability as obs
@@ -1852,12 +1868,12 @@ def _circuit_run(circ, cts, ck, outs, name, chain):
     first = time.perf_counter() - t0
     rep = obs.report()["counters"]
     obs.reset()
-    K.reset_launches()
+    before = _kernel_counters()
     t0 = time.perf_counter()
     res = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = _launch_counts()
+    counts = _launch_counts(before)
     rep = dict(obs.report()["counters"], **{
         k: v for k, v in rep.items() if k.endswith("_compiles")})
     graph_cell(f"{name}32 x{cts.shape[1]} TFHE_WAVE_CHAIN={chain}", run, res,
@@ -1889,7 +1905,6 @@ def phase_engines(smi: str, batch: int = 256, seed: int = 8):
     CALL_TIMED) and its launches of materialize_w, materialize_wt and
     mm_recombine_acc_wt."""
     from tfhe_tpu_torch import tgsw
-    from tfhe_tpu_torch.ops import kernels as K
     from tfhe_tpu_torch.ops.engine import make_engine
     from tfhe_tpu_torch.ops.nussbaumer import split_mr
     from tfhe_tpu_torch.params import CB_MXU, GATE_DEFAULT
@@ -1926,10 +1941,11 @@ def phase_engines(smi: str, batch: int = 256, seed: int = 8):
             k = key2m if backend == "nussbaumer" else key
             prep = eng.prepare(k)
             torch.cuda.synchronize()
-            K.reset_launches()
+            before = _kernel_counters()
             got = eng.accumulate(x, prep)
             torch.cuda.synchronize()
-            counts = {n: getattr(K, n).launches
+            launched = _launch_counts(before)
+            counts = {n: launched[n]
                       for n in ("materialize_w", "materialize_wt",
                                 "mm_recombine_acc_wt")}
             ref = want["key2m" if backend == "nussbaumer" else "key"]
@@ -1987,7 +2003,6 @@ def phase_engine_paths(smi: str, default_out, cb_state: dict):
     chunked ones).  Returns the launch counts by path."""
     from tfhe_tpu_torch import device, graphs
     from tfhe_tpu_torch.boot import circuit, gate
-    from tfhe_tpu_torch.ops import kernels as K
     from tfhe_tpu_torch.params import CB_MXU, GATE_DEFAULT
     from tfhe_tpu_torch.rng import TfheRng
     P, n, batch = GATE_DEFAULT, GATE_DEFAULT.lwe.n, default_out.shape[0]
@@ -2040,13 +2055,13 @@ def phase_engine_paths(smi: str, default_out, cb_state: dict):
     torch.cuda.reset_peak_memory_stats()
     cb(ct, data)                        # untimed: first-use set-up, capture
     torch.cuda.synchronize()
-    K.reset_launches()
+    before = _kernel_counters()
     t0 = time.perf_counter()
     gsw = cb(ct, data)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    counts = _launch_counts()
+    counts = _launch_counts(before)
     check(torch.equal(gsw, cb_state["gsw"]), "CB_MXU conv: the TRGSWs "
           "differ from phase 5's chunked ones")
     _only(counts, {"materialize_wt": steps}, "CB_MXU conv")
@@ -2175,20 +2190,19 @@ SHARE_NOTE = "ranks share one card; not a scaling figure"
 def _rank_drive(out, rank, results, case, fn, args, warm=True):
     """One untimed launch (``warm``), then a timed one with every launch
     count and the all-reduce's host time from 0; saves the rows."""
-    from tfhe_tpu_torch.ops import kernels as K
     from tfhe_tpu_torch.utils import observability as obs
     if warm:
         fn(*args)
         torch.cuda.synchronize()
-    K.reset_launches()
     obs.reset()
+    before = _kernel_counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rows = fn(*args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     red = obs.report()["spans"].get("parallel.all_reduce", {})
-    results[case] = {"counts": _launch_counts(), "wall_s": wall,
+    results[case] = {"counts": _launch_counts(before), "wall_s": wall,
                      "reduce_s": red.get("total_s", 0.0),
                      "reduce_calls": red.get("count", 0),
                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -2429,7 +2443,7 @@ def phase_ref_block(smi: str, name: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     gsw, first, wall, counts = _cb_launch(cb, ct, ck)
     launch_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    _wmt_only(name, ck)
+    _wmt_only(name, ck, counts)
     _only(counts, {"rotate_decompose64_ck": steps, "ck_dot64p": steps},
           f"{name} default step")
     check(tuple(gsw.shape) == (batch, k + 1, ell1, k + 1, P.n_lvl1),
@@ -2553,9 +2567,8 @@ def main() -> int:
     by_path.update(phase_sharded(smi, gate_ref, cb_ref))
     del cb_ref
     by_path.update(phase_ref_blocks(smi))
-    from tfhe_tpu_torch.ops import kernels as K
-    check(len(results) == len(K.KERNELS), f"phase 2 checked "
-          f"{len(results)} of {len(K.KERNELS)} kernels")
+    check(len(results) == len(KERNELS), f"phase 2 checked "
+          f"{len(results)} of {len(KERNELS)} kernels")
     for name, entry in results.items():
         entry["launches_by_path"] = {path: counts[name]
                                      for path, counts in by_path.items()}
@@ -2563,7 +2576,7 @@ def main() -> int:
         check(entry["launches"] > 0 or name in TEST_ONLY,
               f"{name} never launched on a path")
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [results[k.__name__] for k in K.KERNELS]}))
+    print(json.dumps({"kernels": [results[k] for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -34,6 +34,7 @@ from tfhe_tpu_torch.params import (CB_ACTIVE as T_ACTIVE, CB_MXU as T_MXU,
                                    CB_TOY as T_TOY, TGswParams as TGsw,
                                    TLweParams as TTlwe)
 from tfhe_tpu_torch.rng import TfheRng
+from tfhe_tpu_torch.utils import observability as obs
 
 EXACT = pathlib.Path(__file__).parent / "fixtures" / "ref_exact"
 I64_EDGES = np.array([-2**63, 2**63 - 1, 0, -1, 1, 2**62, -2**62 - 1],
@@ -329,10 +330,12 @@ def test_ck_dot64p_plain(N, kp1, l, U, L, m, P, lgsize):
                       digit_bits=8 if P == 1 else 13)
     _same(got, want)
     # the 32-bit generic contraction's entry transposes wm per call
-    before = K.ck_dot64p.transposes
+    def transposes():
+        return obs.report()["counters"].get("kernel.ck_dot64p.transposes", 0)
+    before = transposes()
     _same(K.ck_dot64p_wm(tx, twm, N=N, m=m, planes=P,
                          digit_bits=8 if P == 1 else 13), want)
-    assert K.ck_dot64p.transposes == before + 1
+    assert transposes() == before + 1
     with pytest.raises(ValueError, match="wmt must be"):
         K.ck_dot64p(tx, twm, N=N, m=m, planes=P, digit_bits=13)
 

@@ -30,6 +30,7 @@ from tfhe_tpu_torch.boot import circuit, gate
 from tfhe_tpu_torch.ops import kernels as K
 from tfhe_tpu_torch.params import CB_PAPER_TOY, CB_TOY, GATE_TOY
 from tfhe_tpu_torch.rng import TfheRng
+from tfhe_tpu_torch.utils import observability as obs
 
 pytestmark = pytest.mark.cuda
 
@@ -39,6 +40,20 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     return torch.device("cuda")
+
+
+def _launches() -> dict:
+    """Every kernel wrapper's launch count so far, by wrapper name (the
+    ``kernel.<wrapper>`` counters; ``ck_dot64p.transposes`` among them)."""
+    return {k[len("kernel."):]: v for k, v in obs.report()["counters"].items()
+            if k.startswith("kernel.")}
+
+
+def _launched(before: dict) -> dict:
+    """What the wrappers launched since the snapshot ``before``, non-zero
+    counts only."""
+    return {k: v - before.get(k, 0) for k, v in _launches().items()
+            if v != before.get(k, 0)}
 
 
 def _i32(r, shape):
@@ -256,7 +271,6 @@ def test_mm_recombine_acc_forced_plans(cuda, B, rows, split, ctas):
 def test_mm_recombine_acc_plan_counter(cuda):
     """Each launch counts its plan: B=8192 takes whole-K 128-row units,
     256 rows a K split."""
-    from tfhe_tpu_torch.utils import observability as obs
     seen = {}
     for B in (8192, 256):
         x, wt, acc = _mm_case(B, 6144, 2048, 4, cuda)
@@ -373,10 +387,10 @@ def test_engine_routes_by_the_fused_kernels_domain(cuda, N, l, fused):
     a = torch.from_numpy(r.integers(0, 2 * N, (100,)).astype(np.int32)).to(
         cuda)
     kw = dict(l=l, bgbit=7, offset=0x81020408)
-    before = K.fused_cmux_step_v2.launches
+    before = _launches()
     got = te.cmux_step(a, acc, prep, **kw)
     assert (got is not None) is fused
-    assert K.fused_cmux_step_v2.launches == before + fused
+    assert _launched(before).get("fused_cmux_step_v2", 0) == fused
     if fused:
         cpu = {name: t.cpu() for name, t in prep.items()}
         want = te.cmux_step(a.cpu(), acc.cpu(), cpu, **kw)
@@ -590,10 +604,10 @@ def test_ck_dot64p(cuda, B, N, J, UL, m, P):
     x, wmt = _ck64_inputs(np.random.default_rng(6), B, N, J, UL, m, P)
     kw = dict(N=N, m=m, planes=P)
     _on_card_vs_plain(K.ck_dot64p, K.ck_dot64p_plain, (x, wmt), kw, cuda)
-    before = K.ck_dot64p.transposes
+    before = _launches()
     dx, dwmt = x.to(cuda), wmt.to(cuda)
     got = K.ck_dot64p_wm(dx, dwmt.transpose(1, 2).contiguous(), **kw)
-    assert K.ck_dot64p.transposes == before + 1
+    assert _launched(before)["ck_dot64p.transposes"] == 1
     assert torch.equal(got, K.ck_dot64p_plain(dx, dwmt, **kw))
 
 
@@ -609,7 +623,6 @@ def test_ck_dot64p_plan_counter(cuda, B, J, name):
     give the plain version's bits (the key-stationary plan's cross-block
     sum lands in a different order each time)."""
     from tfhe_tpu_torch import graphs
-    from tfhe_tpu_torch.utils import observability as obs
     x, wmt = _ck64_inputs(np.random.default_rng(18), B, 2048, J, 16, 64, 2)
     x, wmt = x.to(cuda), wmt.to(cuda)
     kw = dict(N=2048, m=64, planes=2)
@@ -823,10 +836,10 @@ def test_rotate_decompose64_ck_flat(cuda, B, k, N, l, bgbit, m):
     a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
     kw = dict(N=N, l=l, bgbit=bgbit, offset=_cb_offset(l, bgbit), m=m,
               planes=1 if bgbit <= 8 else 2)
-    before = K.rotate_decompose64_ck.launches
+    before = _launches()
     _same_on_card(K.rotate_decompose64_ck_flat,
                   K.rotate_decompose64_ck_flat_plain, (a, acc), kw, cuda)
-    assert K.rotate_decompose64_ck.launches == before
+    assert "rotate_decompose64_ck" not in _launched(before)
 
 
 def _cb_toy(dev, P=CB_TOY):
@@ -863,14 +876,14 @@ def test_cb_toy_each_64_bit_step(cuda, monkeypatch, env, kernels):
     ck, ct = _cb_toy(cuda)
     for name, value in env.items():
         monkeypatch.setenv(name, value)
-    K.reset_launches()
+    before = _launches()
     got = circuit.circuit_bootstrap(ct, ck.data, CB_TOY).cpu()
     assert torch.equal(got, want)
-    steps = {k.__name__: k.launches for k in K.KERNELS
-             if k.__name__ in ("rotate_decompose64_ck", "ck_dot64p",
-                               "rotate_decompose64_ck_flat", "ck_dot64p_acc",
-                               "ck_dot64p_sacc", "ck_cmux_step64")}
-    assert {k for k, v in steps.items() if v} == set(kernels)
+    steps = {k: v for k, v in _launched(before).items()
+             if k in ("rotate_decompose64_ck", "ck_dot64p",
+                      "rotate_decompose64_ck_flat", "ck_dot64p_acc",
+                      "ck_dot64p_sacc", "ck_cmux_step64")}
+    assert set(steps) == set(kernels)
     assert len({steps[k] for k in kernels}) == 1
 
 
@@ -1148,14 +1161,16 @@ def test_exact_engines_same_on_card_and_cpu(cuda, backend, bits, digit_bits,
     eng = engine.make_engine(cfg, backend)
     want = eng.accumulate(x, eng.prepare(key))
     prep = eng.prepare(key.to(cuda))
-    K.reset_launches()
+    before = _launches()
     got = eng.accumulate(x.to(cuda), prep)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
     if backend.startswith("conv"):
-        assert (K.materialize_w.launches, K.materialize_wt.launches) == (0, 1)
-        assert K.mm_recombine_acc_wt.launches == (cfg.plane_split[1]
-                                                  if bits == 32 else 0)
+        n = _launched(before)
+        assert (n.get("materialize_w", 0),
+                n.get("materialize_wt", 0)) == (0, 1)
+        assert n.get("mm_recombine_acc_wt", 0) == (cfg.plane_split[1]
+                                                   if bits == 32 else 0)
         exact = engine.make_engine(cfg, "onthefly" if bits == 32
                                    else "chunked")
         assert torch.equal(got, exact.accumulate(x.to(cuda),
@@ -1200,11 +1215,11 @@ def test_cb_toy_conv_same_on_card_and_cpu(cuda):
     sk = circuit.CircuitSecretKey.generate(CB_TOY, rng)
     ck = circuit.CircuitCloudKey.generate(sk, rng, backend="conv",
                                           device=cuda)
-    K.reset_launches()
+    before = _launches()
     got = circuit.circuit_bootstrap(ct.to(cuda), ck.data, CB_TOY,
                                     backend="conv")
     assert torch.equal(got.cpu(), want)
-    assert K.materialize_wt.launches > 0
+    assert _launched(before)["materialize_wt"] > 0
 
 
 def test_reference_e2e_rotations(cuda):
@@ -1240,12 +1255,7 @@ def test_launch_sets_the_tensors_device_and_takes_its_stream(cuda):
     assert torch.equal(got.cpu(), want) and torch.equal(on_side.cpu(), want)
 
 
-def _launch_counts():
-    return {k.__name__: k.launches for k in K.KERNELS}
-
-
 def _graph_counters():
-    from tfhe_tpu_torch.utils import observability as obs
     c = obs.report()["counters"]
     return c.get("graph.captures", 0), c.get("graph.replays", 0)
 
@@ -1260,16 +1270,16 @@ def _graphed_against_eager(fn, inputs):
     captures, replays = _graph_counters()
     outs, kept = [], []
     for i, args in enumerate(inputs):
-        K.reset_launches()
+        before = _launches()
         out = fn(*args)
         torch.cuda.synchronize()
-        graphed = _launch_counts()
-        K.reset_launches()
+        graphed = _launched(before)
+        before = _launches()
         with graphs.disable():
             want = fn(*args)
         torch.cuda.synchronize()
         assert torch.equal(out, want), i
-        assert graphed == _launch_counts(), i
+        assert graphed == _launched(before), i
         assert sum(graphed.values()) > 0
         outs.append(out)
         kept.append(out.clone())
@@ -1315,7 +1325,6 @@ def test_graphed_blind_rotation(cuda, backend):
 def test_graphed_bootstrap_fn(cuda):
     """make_bootstrap_fn is one graph; bootstrap.launches counts each
     call once, outside it."""
-    from tfhe_tpu_torch.utils import observability as obs
     rng, sk, ck = _toy_gate(cuda, "onthefly")
     boot = gate.make_bootstrap_fn(GATE_TOY, backend="onthefly")
     bits = [np.random.default_rng(i).integers(0, 2, 9) for i in range(3)]
@@ -1365,29 +1374,28 @@ def test_traced_circuit_bootstrap_stream_spans(cuda):
     import time
     from torch.profiler import ProfilerActivity, profile
     from tfhe_tpu_torch import graphs
-    from tfhe_tpu_torch.utils import observability as obs
     P = dataclasses.replace(CB_TOY, n_lvl0=400)
     ck, ct = _cb_toy(cuda, P)
     cb = circuit.make_circuit_bootstrap_staged(P, shared_rotation=False)
     graphs.clear()
     want = cb(ct, ck.data)
     nodes = sorted((s["site"], s["nodes"]) for s in graphs.stats())
-    K.reset_launches()
+    before = _launches()
     cb(ct, ck.data)
     torch.cuda.synchronize()
-    launches = _launch_counts()
+    launches = _launched(before)
     graphs.clear()
     obs.reset()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         first = cb(ct, ck.data)                      # captures
         torch.cuda.synchronize()
-        K.reset_launches()
+        before = _launches()
         t0 = time.perf_counter()
         got = cb(ct, ck.data)                        # replays
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        traced_launches = _launch_counts()
+        traced_launches = _launched(before)
     assert torch.equal(first, want) and torch.equal(got, want)
     assert sorted((s["site"], s["nodes"]) for s in graphs.stats()) == nodes
     assert traced_launches == launches
@@ -1415,7 +1423,6 @@ def test_graphed_circuit_evaluate(cuda, monkeypatch, chain):
     the CPU."""
     from tfhe_tpu_torch import graphs
     from tfhe_tpu_torch.runtime import scheduler
-    from tfhe_tpu_torch.utils import observability as obs
     monkeypatch.setenv("TFHE_WAVE_CHAIN", chain)
     name = "circuit.wave_compiles" if chain == "1" else \
         "circuit.chain_compiles"
@@ -1528,10 +1535,10 @@ def _card_rank(out: str):
         m = make(2, dp, other)
         mod = shard if make is shard.make_mesh else gmesh
         fn, place = mod.make_sharded_bootstrap_fn(GATE_TOY, m, "onthefly")
-        K.reset_launches()
+        before = _launches()
         rows = fn(*place(ck.data, ct))
         torch.cuda.synchronize()
-        counts[name] = {k.__name__: k.launches for k in K.KERNELS}
+        counts[name] = _launched(before)
         np.save(out / f"{name}-r{rank}.npy", rows.cpu().numpy())
     cct = torch.from_numpy(np.load(out / "cct.npy"))
     m = shard.make_mesh(2, dp=1, ep=2)
@@ -1543,10 +1550,10 @@ def _card_rank(out: str):
         fn, place = shard.make_sharded_circuit_bootstrap_fn(CB_TOY, m,
                                                             backend)
         kd, rows = place(cck.data, cct, bk_raw=cck.bk_raw)
-        K.reset_launches()
+        before = _launches()
         gsw = fn(kd, rows)
         torch.cuda.synchronize()
-        counts[backend] = {k.__name__: k.launches for k in K.KERNELS}
+        counts[backend] = _launched(before)
         np.save(out / f"cb-{backend}-r{rank}.npy", gsw.cpu().numpy())
     for dtype, vals in _EXTREMES.items():
         t = torch.tensor(vals, dtype=dtype, device="cuda:0")

@@ -29,7 +29,6 @@ from tfhe_tpu.runtime import scheduler as jsched
 from tfhe_tpu.utils import observability as jobs
 from tfhe_tpu_torch import graphs
 from tfhe_tpu_torch.boot import gate
-from tfhe_tpu_torch.ops import kernels as K
 from tfhe_tpu_torch.params import GATE_TOY as T_TOY
 from tfhe_tpu_torch.rng import TfheRng
 from tfhe_tpu_torch.runtime import scheduler
@@ -105,24 +104,24 @@ def test_evaluate_chained_matches_jax(monkeypatch, name, chain):
 
 def test_counter_bookkeeping():
     """What a capture counts is taken back, and a replay adds it again:
-    kernel launches, the per-call transposes and observability counters."""
+    kernel launches, the per-call transposes and the other counters, all
+    of them observability counters."""
     obs.reset()
-    K.reset_launches()
-    K.materialize_wt.launches = 5
+    obs.count("kernel.materialize_wt", 5)
     obs.count("bootstrap.launches", 2)
     before = graphs.counters()
-    assert before["kernel:materialize_wt"] == 5
-    assert before["kernel:fused_cmux_step_v2"] == 0
+    assert before["kernel.materialize_wt"] == 5
+    assert "kernel.fused_cmux_step_v2" not in before
     assert before["bootstrap.launches"] == 2
-    K.materialize_wt.launches += 500                 # what a capture counts
-    K.fused_cmux_step_v2.launches += 500
-    K.ck_dot64p.transposes += 3
+    obs.count("kernel.materialize_wt", 500)          # what a capture counts
+    obs.count("kernel.fused_cmux_step_v2", 500)
+    obs.count("kernel.ck_dot64p.transposes", 3)
     obs.count("bootstrap.launches")
     obs.count("bootstrap.ciphertexts", 8)
     d = graphs.delta(before, graphs.counters())
-    assert d == {"kernel:materialize_wt": 500,
-                 "kernel:fused_cmux_step_v2": 500,
-                 "kernel:ck_dot64p.transposes": 3,
+    assert d == {"kernel.materialize_wt": 500,
+                 "kernel.fused_cmux_step_v2": 500,
+                 "kernel.ck_dot64p.transposes": 3,
                  "bootstrap.launches": 1, "bootstrap.ciphertexts": 8}
     graphs.add(d, -1)                                # the capture's count out
     after = graphs.counters()
@@ -130,12 +129,11 @@ def test_counter_bookkeeping():
     for _ in range(3):                               # three replays
         graphs.add(d)
     now = graphs.counters()
-    assert now["kernel:materialize_wt"] == 5 + 3 * 500
-    assert now["kernel:fused_cmux_step_v2"] == 3 * 500
-    assert now["kernel:ck_dot64p.transposes"] == 9
+    assert now["kernel.materialize_wt"] == 5 + 3 * 500
+    assert now["kernel.fused_cmux_step_v2"] == 3 * 500
+    assert now["kernel.ck_dot64p.transposes"] == 9
     assert now["bootstrap.launches"] == 2 + 3
     assert now["bootstrap.ciphertexts"] == 3 * 8
-    K.reset_launches()
     obs.reset()
 
 

@@ -17,6 +17,7 @@ from tfhe_tpu.ops import pallas_kernels as pk
 from tfhe_tpu.ops.engine import EngineConfig, OnTheFlyMatmulEngine
 from tfhe_tpu_torch import torus as T
 from tfhe_tpu_torch.ops import kernels as K
+from tfhe_tpu_torch.utils import observability as obs
 
 
 def _offset(N, k, l, bgbit):
@@ -264,10 +265,12 @@ def test_fused_cmux_step_v2_on_materialize_wt(N, k, L):
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
-    before = [k.launches for k in K.KERNELS]
+    obs.reset()
     v = torch.zeros((1, 2, 1, 32), dtype=torch.int8)
     assert torch.equal(K.materialize_w(v), K.materialize_w_plain(v))
-    assert [k.launches for k in K.KERNELS] == before
+    assert torch.equal(K.materialize_wt(v), K.materialize_wt_plain(v))
+    assert not [c for c in obs.report()["counters"]
+                if c.startswith("kernel.")]
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contiguity"])

@@ -29,9 +29,11 @@ engine's fused-epilogue step, ``rotate_decompose64_ck_flat`` +
 ``ck_dot64p_acc``; ``sacc``: the same with the limb axis in the grid,
 ``rotate_decompose64_ck_flat`` + ``ck_dot64p_sacc``), then
 ``TFHE_CK64_FUSED`` when set and not ``"0"`` (the whole step in one
-``ck_cmux_step64`` kernel), then the default step.  The opt-in steps carry
-the accumulator flat, (B, (k+1)*N) int64, through the loop.  None falls back
-to another step: a selected step that does not apply raises.
+``ck_cmux_step64`` kernel), then the default step.  The loop carries the
+accumulator as (B, k+1, N) on every step; the opt-in steps take its flat
+view, (B, (k+1)*N) int64, the JAX package's layout (the tensor is
+contiguous, so the view copies nothing).  None falls back to another step:
+a selected step that does not apply raises.
 
 The decision is the same on the CPU and on the GPU; only the kernel
 wrappers choose between a plain version and a kernel.
@@ -47,6 +49,7 @@ decrypt probes), stays eager.
 
 from __future__ import annotations
 
+import functools
 import os
 
 from tfhe_tpu_torch import graphs, tgsw, tlwe
@@ -83,9 +86,21 @@ def _ck64_path(eng, p: TGswParams, backend: str) -> str:
     return path
 
 
-def cmux_step(eng, a, acc, prep, p: TGswParams):
-    """One CMux step of the loop: acc + (X^a - 1) acc (x) TRGSW, through the
-    engine's own step where it has one, else the generic step."""
+def cmux_step(eng, a, acc, prep, p: TGswParams, path: str = ""):
+    """One CMux step of the loop: acc + (X^a - 1) acc (x) TRGSW on the
+    (B, k+1, N) accumulator.  ``path`` is the 64-bit opt-in step that
+    ``_ck64_path`` chose: its engine method runs on acc's flat view and
+    raises where it does not apply.  Else the engine's own step where it
+    has one, else the generic step."""
+    if path:
+        B, kp1, N = acc.shape
+        out = getattr(eng, _CK64_STEPS[path])(
+            a, acc.reshape(B, kp1 * N), prep, kp1=kp1, l=p.l, bgbit=p.bgbit,
+            offset=p.offset)
+        if out is None:
+            raise ValueError(f"the 64-bit {path} step does not apply to "
+                             f"these parameters")
+        return out.view(B, kp1, N)
     fused = eng.cmux_step(a, acc, prep, l=p.l, bgbit=p.bgbit,
                           offset=p.offset)
     if fused is not None:
@@ -118,22 +133,12 @@ def rotate_steps(acc, bk_prepared, abar, p: TGswParams,
     eng = make_engine(tgsw.engine_config(p), backend)
     steps = abar.t().contiguous()                     # (n, B): rows contiguous
     path = _ck64_path(eng, p, backend)
-    if path:
-        step = getattr(eng, _CK64_STEPS[path])
-        B, kp1, N = acc.shape
-        accf = acc.reshape(B, kp1 * N).contiguous()
-        for i in range(steps.shape[0]):
-            prep_i = step_prepared(bk_prepared, i)
-            accf = step(steps[i], accf, prep_i, kp1=kp1, l=p.l,
-                        bgbit=p.bgbit, offset=p.offset)
-            if accf is None:
-                raise ValueError(f"the 64-bit {path} step does not apply to "
-                                 f"these parameters")
-            yield i, steps[i], accf.view(B, kp1, N)
-        return
+    # the default step keeps cmux_step's five-argument call, which the
+    # benchmark's planted-fault tests replace
+    step = functools.partial(cmux_step, path=path) if path else cmux_step
     for i in range(steps.shape[0]):
         prep_i = step_prepared(bk_prepared, i)
-        acc = cmux_step(eng, steps[i], acc, prep_i, p)
+        acc = step(eng, steps[i], acc, prep_i, p)
         yield i, steps[i], acc
 
 

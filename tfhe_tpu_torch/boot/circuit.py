@@ -40,7 +40,7 @@ from tfhe_tpu_torch import device as _device
 from tfhe_tpu_torch import graphs, lwe, noise, tgsw, tlwe
 from tfhe_tpu_torch import torus as T
 from tfhe_tpu_torch.boot import blind_rotate as br
-from tfhe_tpu_torch.ops.engine import make_engine, stack_prepared
+from tfhe_tpu_torch.ops.engine import make_engine, prepare_stacked
 from tfhe_tpu_torch.params import CircuitParams, KeySwitchParams, LweParams
 from tfhe_tpu_torch.rng import TfheRng
 from tfhe_tpu_torch.utils import observability as obs
@@ -157,11 +157,7 @@ def prepare_circuit_bk(gsw, p: CircuitParams, backend: str = "chunked"):
     stacked over the n0 steps, on gsw's device (for the chunked backend the
     pre-shifted K-packed wmt is ~m/2 times the raw bk: 8.1 GB at CB_MXU)."""
     eng = make_engine(tgsw.engine_config(p.tgsw_lvl2), backend)
-    rows = tgsw.rows(gsw)                                 # (n0, kpl, k+1, N)
-    if backend == "chunked":
-        return eng.prepare(rows)
-    return stack_prepared([eng.prepare(rows[i])
-                           for i in range(rows.shape[0])])
+    return prepare_stacked(eng, tgsw.rows(gsw))
 
 
 @dataclasses.dataclass

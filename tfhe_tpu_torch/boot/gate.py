@@ -23,7 +23,7 @@ from tfhe_tpu_torch import device as _device
 from tfhe_tpu_torch import graphs, lwe, tlwe, tgsw
 from tfhe_tpu_torch import torus as T
 from tfhe_tpu_torch.boot import blind_rotate as br
-from tfhe_tpu_torch.ops.engine import make_engine, stack_prepared
+from tfhe_tpu_torch.ops.engine import make_engine, prepare_stacked
 from tfhe_tpu_torch.params import GateParams, LweParams
 from tfhe_tpu_torch.rng import TfheRng
 from tfhe_tpu_torch.utils import observability as obs
@@ -74,16 +74,7 @@ class CloudKey:
             gsw = tgsw.encrypt(sk.ring_key, sk.lwe_key.key, p.tgsw, rng,
                                stdev=p.tgsw.tlwe.stdev, device="cpu")
             eng = make_engine(tgsw.engine_config(p.tgsw), backend)
-            rows = tgsw.rows(gsw)                      # (n, kpl, k+1, N)
-            if backend == "chunked":
-                # the m-fold pre-shifted key is built on the device from
-                # the raw TRGSW, all steps in one pass: only the raw key
-                # crosses (the wm is 3.34 GB at GATE_MXU, 4.46 GB at
-                # GATE_DEFAULT)
-                prep = eng.prepare(rows.to(dev))
-            else:
-                prep = stack_prepared([eng.prepare(rows[i])
-                                       for i in range(rows.shape[0])], dev)
+            prep = prepare_stacked(eng, tgsw.rows(gsw), dev)
             ksk = lwe.KeySwitchKey.generate(sk.extracted_key, sk.lwe_key,
                                             p.ks, rng, keep_raw=keep_raw_ks,
                                             device=dev)

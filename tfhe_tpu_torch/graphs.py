@@ -26,8 +26,8 @@ launch into a CUDA graph and replays it.
 
 Counters stay honest: the capture runs the wrappers' Python once without
 running a kernel, so ``run`` takes back what the capture added to every
-``ops.kernels`` launch counter (and ``ck_dot64p.transposes``) and every
-``utils.observability`` counter, and adds that delta again on each replay.
+``utils.observability`` counter (the kernel wrappers' ``kernel.<name>``
+launch counts among them) and adds that delta again on each replay.
 It counts ``graph.captures`` and ``graph.replays``, and a site may name a
 counter for its cache misses (the scheduler counts ``circuit.wave_compiles``
 and ``circuit.chain_compiles``, as the JAX package counts its compiles).
@@ -146,14 +146,9 @@ def leaves(tree) -> tuple:
 # ---------------------------------------------------------------------------
 
 def counters() -> dict:
-    """Every counter a replay must account for: each kernel wrapper's
-    launches (``kernel:<name>``), the 32-bit contraction's per-call key
-    transposes, and the observability counters."""
-    from tfhe_tpu_torch.ops import kernels
-    snap = {f"kernel:{k.__name__}": k.launches for k in kernels.KERNELS}
-    snap["kernel:ck_dot64p.transposes"] = kernels.ck_dot64p.transposes
-    snap.update(obs.report()["counters"])
-    return snap
+    """Every counter a replay must account for: the observability
+    counters."""
+    return obs.report()["counters"]
 
 
 def delta(before: dict, after: dict) -> dict:
@@ -164,15 +159,8 @@ def delta(before: dict, after: dict) -> dict:
 
 def add(d: dict, sign: int = 1):
     """Add ``sign`` times the counter delta ``d``."""
-    from tfhe_tpu_torch.ops import kernels
-    wrappers = {k.__name__: k for k in kernels.KERNELS}
     for name, v in d.items():
-        if name == "kernel:ck_dot64p.transposes":
-            kernels.ck_dot64p.transposes += sign * v
-        elif name.startswith("kernel:"):
-            wrappers[name[len("kernel:"):]].launches += sign * v
-        else:
-            obs.count(name, sign * v)
+        obs.count(name, sign * v)
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,9 @@ convolution kernels as the key, evaluated on onthefly's route) at 32 and
 
 A prepared key is a dict whose leaves are tensors, or tuples of tensors
 (the dd FFT key); ``stack_prepared`` and ``step_prepared`` stack per-step
-keys and take one step's back without renaming or reshaping a leaf.
+keys and take one step's back without renaming or reshaping a leaf, and
+``prepare_stacked`` prepares a whole bootstrapping key, every step's TRGSW
+rows, into such a stacked key.
 """
 
 from __future__ import annotations
@@ -167,6 +169,18 @@ def stack_prepared(preps, device=None) -> dict:
                    if isinstance(leaf, tuple)
                    else stack([q[name] for q in preps]))
             for name, leaf in preps[0].items()}
+
+
+def prepare_stacked(eng, rows, device=None) -> dict:
+    """Every step's TRGSW rows (n, kpl, k+1, N) -> the engine-prepared key
+    stacked over the n steps, on ``device`` (None: the rows' device).  The
+    chunked engine prepares all steps in one pass on ``device``, so only the
+    raw rows cross (its pre-shifted key is ~m/2 times their size: 3.34 GB
+    at GATE_MXU); the others prepare step by step where the rows lie."""
+    if isinstance(eng, ChunkedEngine):
+        return eng.prepare(rows if device is None else rows.to(device))
+    return stack_prepared([eng.prepare(rows[i])
+                           for i in range(rows.shape[0])], device)
 
 
 def step_prepared(prepared: dict, i: int) -> dict:

@@ -9,7 +9,8 @@ dtype, shape, device and contiguity, allocates its output with
 ``torch.empty`` on its tensors' device, launches with that device current
 and on its current stream (``_launch``: the device guard; under a graph
 capture that stream is the capturing one), raises if the launch reports an
-error, and adds one to its ``launches`` counter per launch.
+error, and counts each launch as ``kernel.<wrapper>`` in
+``utils.observability`` (the plain versions count nothing).
 
 The plain versions are the same exact integer functions: int8 products are
 contracted in float64 (every dot is an integer below 2^53, so the BLAS sum is
@@ -137,9 +138,8 @@ def materialize_w_plan(L: int, J: int, U: int, N: int, sms: int) -> tuple:
     return rows, cols, threads
 
 
-def _materialize(wrapper, plain, v, kpacked: bool):
+def _materialize(name, plain, v, kpacked: bool):
     """The checks and the launch of both entries."""
-    name = wrapper.__name__
     _check(v, f"{name} v", torch.int8, 4)
     L, J, U, twoN = v.shape
     N = twoN // 2
@@ -149,7 +149,7 @@ def _materialize(wrapper, plain, v, kpacked: bool):
     _require(N >= 16, f"{name}: the kernel needs N >= 16")
     shape = (L, U * N, J * N) if kpacked else (L, J * N, U * N)
     out = torch.empty(shape, dtype=torch.int8, device=v.device)
-    wrapper.launches += 1
+    obs.count(f"kernel.{name}")
     _launch(name, v.device, v.data_ptr(), out.data_ptr(), L, J, U, N,
             *materialize_w_plan(L, J, U, N, sm_count(v.device)))
     return out
@@ -167,10 +167,7 @@ def materialize_w(v):
     evict-first (a reader of W streams it once); the grid from
     materialize_w_plan.  The port's paths take the K-packed entry,
     materialize_wt."""
-    return _materialize(materialize_w, materialize_w_plain, v, False)
-
-
-materialize_w.launches = 0
+    return _materialize("materialize_w", materialize_w_plain, v, False)
 
 
 def materialize_wt_plain(v):
@@ -187,10 +184,7 @@ def materialize_wt(v):
     pallas_kernels.materialize_w): materialize_w's kernel on the vector
     reversed, b[m] = v[(N - m) mod 2N], whose run b[N - i ..] is row
     (l, u, i) of column block j."""
-    return _materialize(materialize_wt, materialize_wt_plain, v, True)
-
-
-materialize_wt.launches = 0
+    return _materialize("materialize_wt", materialize_wt_plain, v, True)
 
 
 # ---------------------------------------------------------------------------
@@ -288,15 +282,12 @@ def rotate_decompose(a, acc, *, l: int, bgbit: int, offset: int):
     _require(rotdec_ok(N, 16), f"rotate_decompose: the kernel needs N % 16 "
              f"== 0, got N={N}")
     out = torch.empty((B, kp1 * l, N), dtype=torch.int8, device=acc.device)
-    rotate_decompose.launches += 1
+    obs.count("kernel.rotate_decompose")
     _launch("rotate_decompose", a.device,
             a.data_ptr(), acc.data_ptr(), out.data_ptr(),
             B, kp1, N, l, bgbit, offset & T.MASK32,
             *rotdec_plan(B, kp1, N, 4, sm_count(acc.device)))
     return out
-
-
-rotate_decompose.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -396,15 +387,12 @@ def mm_recombine_acc_wt(x, wt, acc_in, *, shift_base: int = 0,
     rows, S, ctas = mm_recombine_acc_plan(B, K, UN, sm_count(x.device),
                                           split)
     out = torch.empty_like(acc_in)
-    mm_recombine_acc_wt.launches += 1
+    obs.count("kernel.mm_recombine_acc_wt")
     obs.count(f"mm_recombine.plan.{rows}x{MM_COLS}.s{S}")
     _launch("mm_recombine_acc", x.device,
             x.data_ptr(), wt.data_ptr(), acc_in.data_ptr(), out.data_ptr(),
             B, K, UN, L, shift_base, rows, S, ctas)
     return out
-
-
-mm_recombine_acc_wt.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -543,15 +531,12 @@ def fused_cmux_step_v2(a, acc, wt, *, l: int, bgbit: int, offset: int,
              f"N={N}, l={l}, L={L}, tile_cols={tile_cols} (it needs N % 128 "
              f"== 0, l <= 4, and a key ring of at least l stages)")
     out = torch.empty_like(acc)
-    fused_cmux_step_v2.launches += 1
+    obs.count("kernel.fused_cmux_step_v2")
     _launch("fused_cmux_step", a.device,
             a.data_ptr(), acc.data_ptr(), wt.data_ptr(),
             out.data_ptr(), B, kp1, N, l, L, bgbit, offset & T.MASK32,
             key_shift, cols)
     return out
-
-
-fused_cmux_step_v2.launches = 0
 
 
 # fused_cmux_step (v1)'s plan: a block of 64 rows x 128 columns on the key
@@ -610,15 +595,12 @@ def fused_cmux_step(a, acc, w, *, l: int, bgbit: int, offset: int,
     _require(lb > 0, f"fused_cmux_step: the kernel needs N % 128 == 0, got "
              f"N={N}")
     out = torch.empty_like(acc)
-    fused_cmux_step.launches += 1
+    obs.count("kernel.fused_cmux_step")
     _launch("fused_cmux_step_v1", a.device,
             a.data_ptr(), acc.data_ptr(), w.data_ptr(),
             out.data_ptr(), B, kp1, N, l, bgbit, offset & T.MASK32, key_shift,
             lb)
     return out
-
-
-fused_cmux_step.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -673,10 +655,10 @@ def _check_digits64(name, planes, bgbit, l):
              f"8 for planes=1, <= 14 for planes=2) and l*bgbit <= 64")
 
 
-def _rotate_decompose64_ck(wrapper, a, acc, *, l, bgbit, offset, m, planes):
+def _rotate_decompose64_ck(name, a, acc, *, l, bgbit, offset, m, planes):
     """Checks, then the plain version on the CPU or one launch of
-    csrc/rotate_decompose64_ck.cu counted on ``wrapper``; acc (B, k+1, N)."""
-    name = wrapper.__name__
+    csrc/rotate_decompose64_ck.cu counted as ``kernel.<name>``; acc (B, k+1,
+    N)."""
     _check(a, f"{name} a", torch.int32, 1)
     _require(acc.dtype == torch.int64 and acc.is_contiguous(),
              f"{name} acc: contiguous int64")
@@ -693,7 +675,7 @@ def _rotate_decompose64_ck(wrapper, a, acc, *, l, bgbit, offset, m, planes):
     ckp = ck_width(kp1 * l * m)
     out = torch.empty((B, (N // m) * planes * ckp), dtype=torch.int8,
                       device=acc.device)
-    wrapper.launches += 1
+    obs.count(f"kernel.{name}")
     _launch("rotate_decompose64_ck", a.device, a.data_ptr(), acc.data_ptr(),
             out.data_ptr(), B, kp1, N, l, bgbit, offset & ((1 << 64) - 1), m,
             planes, ckp, *rotdec_plan(B, kp1, N, 8, sm_count(acc.device)))
@@ -718,12 +700,9 @@ def rotate_decompose64_ck(a, acc, *, l: int, bgbit: int, offset: int, m: int,
     store and the pad columns zeroed by the kernel, the grid from
     rotdec_plan.  The card takes m a multiple of 16 (rotdec_ok)."""
     _require(acc.ndim == 3, "rotate_decompose64_ck acc: (B, k+1, N)")
-    return _rotate_decompose64_ck(rotate_decompose64_ck, a, acc, l=l,
+    return _rotate_decompose64_ck("rotate_decompose64_ck", a, acc, l=l,
                                   bgbit=bgbit, offset=offset, m=m,
                                   planes=planes)
-
-
-rotate_decompose64_ck.launches = 0
 
 
 def rotate_decompose64_ck_flat_plain(a, acc, *, N: int, l: int, bgbit: int,
@@ -743,17 +722,14 @@ def rotate_decompose64_ck_flat(a, acc, *, N: int, l: int, bgbit: int,
     port's native int64 (B, k+1, N) tensor already is the flat layout byte
     for byte, so this wrapper launches the same kernel,
     csrc/rotate_decompose64_ck.cu (replaces
-    pallas_kernels.rotate_decompose64_ck_flat), and counts its own
-    launches."""
+    pallas_kernels.rotate_decompose64_ck_flat), and counts its launches as
+    ``kernel.rotate_decompose64_ck_flat``."""
     _require(acc.ndim == 2 and acc.shape[1] % N == 0,
              "rotate_decompose64_ck_flat acc: (B, (k+1)*N)")
-    return _rotate_decompose64_ck(rotate_decompose64_ck_flat, a,
+    return _rotate_decompose64_ck("rotate_decompose64_ck_flat", a,
                                   acc.view(acc.shape[0], -1, N), l=l,
                                   bgbit=bgbit, offset=offset, m=m,
                                   planes=planes)
-
-
-rotate_decompose64_ck_flat.launches = 0
 
 
 def rotate_decompose64_plain(a, acc, *, l: int, bgbit: int, offset: int,
@@ -793,14 +769,11 @@ def rotate_decompose64(a, acc, *, l: int, bgbit: int, offset: int,
              f"16 == 0, got N={N}")
     out = torch.empty((B * kp1, l * planes, N), dtype=torch.int8,
                       device=acc.device)
-    rotate_decompose64.launches += 1
+    obs.count("kernel.rotate_decompose64")
     _launch("rotate_decompose64", a.device, a.data_ptr(), acc.data_ptr(),
             out.data_ptr(), B, kp1, N, l, bgbit, offset & ((1 << 64) - 1),
             planes, *rotdec_plan(B, kp1, N, 8, sm_count(acc.device)))
     return out
-
-
-rotate_decompose64.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -992,7 +965,7 @@ def ck_dot64p(x, wmt, *, N: int, m: int, planes: int = 1,
         return ck_dot64p_plain(x, wmt, N=N, m=m, planes=planes)
     rows, kst = ck_dot64p_plan(B, N, m, Jm, planes)
     out = torch.empty((UL, B, N), dtype=torch.int32, device=x.device)
-    ck_dot64p.launches += 1
+    obs.count("kernel.ck_dot64p")
     obs.count(f"ck_dot64p.plan.{'kst' if kst else ''}{rows}x64.jm{Jm}"
               f".p{planes}")
     _launch("ck_dot64p", x.device,
@@ -1001,16 +974,13 @@ def ck_dot64p(x, wmt, *, N: int, m: int, planes: int = 1,
     return out
 
 
-ck_dot64p.launches = 0
-ck_dot64p.transposes = 0
-
-
 def ck_dot64p_wm(x, wm, **kw):
     """ck_dot64p on the chunked key as the engine prepares it at 32 bits
     (wm (U*L, J*m, N+m), N contiguous): one transpose copy a call (ck_wmt),
-    counted on ``ck_dot64p.transposes``.  The 32-bit generic contraction
-    (ChunkedEngine.accumulate), off the gate paths' own step."""
-    ck_dot64p.transposes += 1
+    counted as ``kernel.ck_dot64p.transposes`` on either device.  The 32-bit
+    generic contraction (ChunkedEngine.accumulate), off the gate paths' own
+    step."""
+    obs.count("kernel.ck_dot64p.transposes")
     return ck_dot64p(x, ck_wmt(wm), **kw)
 
 
@@ -1082,15 +1052,12 @@ def ck_dot64p_acc(x, wmt, acc, *, N: int, m: int, key_shift: int,
     B, L = x.shape[0], UL // kp1
     rows, limbs = ck_dot64p_acc_plan(B, N, m, Jm, L, planes)
     out = torch.empty_like(acc)
-    ck_dot64p_acc.launches += 1
+    obs.count("kernel.ck_dot64p_acc")
     _launch("ck_dot64p_acc", x.device,
             x.data_ptr(), wmt.data_ptr(), acc.data_ptr(),
             out.data_ptr(), B, N, m, Jm, kp1, L, planes, ckp, key_shift, rows,
             limbs)
     return out
-
-
-ck_dot64p_acc.launches = 0
 
 
 def ck_dot64p_sacc(x, wmt, acc, *, N: int, m: int, key_shift: int,
@@ -1116,16 +1083,13 @@ def ck_dot64p_sacc(x, wmt, acc, *, N: int, m: int, key_shift: int,
                                    kp1=kp1)
     rows = ck_dot64p_sacc_plan(x.shape[0], N, m, Jm, planes)
     out = torch.empty_like(acc)
-    ck_dot64p_sacc.launches += 1
+    obs.count("kernel.ck_dot64p_sacc")
     obs.count(f"ck_dot64p_sacc.plan.{rows}x64.jm{Jm}.p{planes}")
     _launch("ck_dot64p_sacc", x.device,
             x.data_ptr(), wmt.data_ptr(), acc.data_ptr(),
             out.data_ptr(), x.shape[0], N, m, Jm, kp1, UL // kp1, planes, ckp,
             key_shift, rows)
     return out
-
-
-ck_dot64p_sacc.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1315,15 +1279,12 @@ def ck_cmux_step32(a, acc, wm, *, l: int, bgbit: int, offset: int, m: int,
     tile_rows, split = ck_cmux_step32_plan(B, kp1, N, m, Jm, L, acc.device,
                                            tile_rows, split)
     out = torch.empty_like(acc)
-    ck_cmux_step32.launches += 1
+    obs.count("kernel.ck_cmux_step32")
     _launch("ck_cmux_step32", a.device,
             a.data_ptr(), acc.data_ptr(), wm.data_ptr(),
             out.data_ptr(), B, kp1, N, m, l, L, bgbit, offset & T.MASK32,
             key_shift, tile_rows, split)
     return out
-
-
-ck_cmux_step32.launches = 0
 
 
 def ck_cmux_step32_plan(B: int, kp1: int, N: int, m: int, Jm: int, L: int,
@@ -1412,15 +1373,12 @@ def ck_cmux_step64(a, acc, wmt, *, l: int, bgbit: int, offset: int, m: int,
     rows, split = ck_cmux_step64_plan(B, kp1, N, m, Jm, L, planes,
                                       acc.device)
     out = torch.empty_like(acc)
-    ck_cmux_step64.launches += 1
+    obs.count("kernel.ck_cmux_step64")
     _launch("ck_cmux_step64", a.device,
             a.data_ptr(), acc.data_ptr(), wmt.data_ptr(),
             out.data_ptr(), B, kp1, N, m, l, L, planes, bgbit,
             offset & ((1 << 64) - 1), key_shift, rows, split)
     return out
-
-
-ck_cmux_step64.launches = 0
 
 
 def ck_cmux_step64_plan(B: int, kp1: int, N: int, m: int, Jm: int, L: int,
@@ -1452,17 +1410,3 @@ def _ck64_plan(B, kp1, N, m, Jm, L, planes, dev):
         overhead=1.0)
     return t, S
 
-
-# in the order of pallas_kernels.py (PERF.md's kernel table)
-KERNELS = (materialize_w, materialize_wt, rotate_decompose, fused_cmux_step,
-           fused_cmux_step_v2, rotate_decompose64, rotate_decompose64_ck,
-           rotate_decompose64_ck_flat, ck_dot64p, ck_dot64p_sacc,
-           ck_dot64p_acc, ck_cmux_step32, ck_cmux_step64, mm_recombine_acc_wt)
-
-
-def reset_launches():
-    """Every kernel's launch count, and the per-call key transposes of the
-    32-bit generic contraction (ck_dot64p_wm), to 0."""
-    for k in KERNELS:
-        k.launches = 0
-    ck_dot64p.transposes = 0

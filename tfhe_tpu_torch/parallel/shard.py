@@ -50,7 +50,7 @@ from tfhe_tpu_torch import lwe, noise, tgsw, tlwe
 from tfhe_tpu_torch import torus as T
 from tfhe_tpu_torch.boot.blind_rotate import generic_digits
 from tfhe_tpu_torch.ops import kernels, poly
-from tfhe_tpu_torch.ops.engine import make_engine, stack_prepared, \
+from tfhe_tpu_torch.ops.engine import make_engine, prepare_stacked, \
     step_prepared
 from tfhe_tpu_torch.parallel.mesh import (Mesh, _grid_mesh,
                                           place_batch_rows, place_tree)
@@ -255,10 +255,7 @@ def local_circuit_bk(bk_raw, p, mesh: Mesh, backend: str = "chunked"):
     rows = tgsw.rows(torch.as_tensor(bk_raw))[:, jlo:jhi]
     rows = rows.contiguous().to(mesh.device)
     eng = make_engine(tgsw.engine_config(pl), backend)
-    if backend == "chunked":
-        return eng.prepare(rows)
-    return stack_prepared([eng.prepare(rows[i])
-                           for i in range(rows.shape[0])])
+    return prepare_stacked(eng, rows)
 
 
 def _circuit_key_local(key_data, mesh: Mesh, backend: str, p, bk_raw):
