@@ -39,7 +39,11 @@ Phases (each prints its own lines; any failure exits non-zero):
      ck_cmux_step32 at GATE_MXU B=8192, GATE_DEFAULT B=256, GATE_MXU
      B=256 and 512 (the adder's narrow launches) and tail batches B=1, 3,
      100, with the flat carry; mm_recombine_acc_wt (wgmma + TMA on the
-     K-packed key) at GATE_DEFAULT B=8192, 628 and 256; the two kernels
+     K-packed key) at GATE_DEFAULT B=8192, 628 and 256; priv_keyswitch
+     (program C's kernel on the packed privKS table) at CB_ACTIVE and
+     CB_PAPER B=4 and 256, its library yardsticks the old product (four
+     torch._int_mm on the row-major table) and one torch._int_mm on the
+     K-packed table (library_kpacked_ms); the two kernels
      whose reduction is split over blocks (mm_recombine_acc_wt,
      ck_cmux_step32) also with split=1 forced, equal to the chosen
      (tile_rows, S) plan; then the fused step's 64-
@@ -736,6 +740,37 @@ def _kernel_cases(seed: int = 0):
                       bound_ms(_nbytes(a, acc, wm, acc), macs),
                       ("_int_mm", (digits, wcat)) if B * C > 16 else None,
                       B == 8192))
+
+    # priv_keyswitch (program C, one product a (w, z)): CB_ACTIVE (t=10,
+    # base 8) and CB_PAPER (t=32, base 2) at the query's B=4 and the
+    # launches' B=256, on a random packed table of one z made on the card
+    # (1.175 and 0.537 GB); bound by the table's bytes.  Library: the
+    # product program C ran before, four torch._int_mm on a row-major
+    # (4, (n+1) t base, 2048) table; and one torch._int_mm on the K-packed
+    # table (ROADMAP K2's lever 1), "library_kpacked_ms"
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for label, P in (("CB_ACTIVE", CB_ACTIVE), ("CB_PAPER", CB_PAPER)):
+        ks, n1, UN = P.ks21, P.n_lvl2 + 1, 2 * P.n_lvl1
+        kq = K.privks_depth(n1, ks.t, ks.basebit)
+        table = torch.zeros((4, UN, -(-kq // 16) * 16), dtype=torch.int8,
+                            device="cuda")
+        table[..., :kq] = torch.randint(-128, 128, (4, UN, kq),
+                                        dtype=torch.int8, device="cuda",
+                                        generator=g)
+        rowmajor = torch.randint(-128, 128, (4, n1 * ks.t * ks.base, UN),
+                                 dtype=torch.int8, device="cuda", generator=g)
+        for B in (4, 256):
+            x = torch.from_numpy(r.integers(-2**63, 2**63, (B, n1),
+                                            dtype=np.int64))
+            onehot = torch.zeros((max(B, 32), n1 * ks.t * ks.base),
+                                 dtype=torch.int8)
+            cases.append(("priv_keyswitch", f"{label} B={B}",
+                          "csrc/priv_keyswitch.cu", "none (XLA)",
+                          K.priv_keyswitch, K.priv_keyswitch_plain,
+                          (x, table), dict(t=ks.t, basebit=ks.basebit),
+                          bound_ms(_nbytes(x, table[..., :kq]) + B * UN * 4,
+                                   B * kq * UN * 4),
+                          ("privks_int_mm", (onehot, rowmajor)), True))
     return cases
 
 
@@ -759,8 +794,34 @@ def flip_wt(v):
     return torch.flip(h.permute(0, 2, 4, 1, 3), [-1]).reshape(L, U * N, J * N)
 
 
+def privks_int_mm(onehot, w):
+    """The product program C ran before PR 23 (lwe._int8_matmul on each
+    limb of the row-major privKS table)."""
+    return [torch._int_mm(onehot, w[lm]) for lm in range(w.shape[0])]
+
+
+def privks_kpacked_onehot(x, table, *, t, basebit):
+    """The digit-0-free one-hot of x, its rows padded to 32 and its columns
+    to the packed table's stride: the left operand of
+    privks_int_mm_kpacked."""
+    from tfhe_tpu_torch.ops import kernels as K
+    onehot = K.privks_onehot(x, t=t, basebit=basebit)
+    a = torch.zeros((max(x.shape[0], 32), table.shape[-1]), dtype=torch.int8,
+                    device=x.device)
+    a[:x.shape[0], :onehot.shape[1]] = onehot
+    return a
+
+
+def privks_int_mm_kpacked(a, table):
+    """One torch._int_mm of the padded one-hot ``a`` against the packed
+    table's 4 limbs stacked, K-major (ROADMAP K2's lever 1: the layout
+    cuBLAS takes fastest; the port never calls it)."""
+    return torch._int_mm(a, table.reshape(-1, table.shape[-1]).t())
+
+
 # the library yardsticks of phase 2's cases, by name
-LIBRARY = {"_int_mm": torch._int_mm, "flip_w": flip_w, "flip_wt": flip_wt}
+LIBRARY = {"_int_mm": torch._int_mm, "flip_w": flip_w, "flip_wt": flip_wt,
+           "privks_int_mm": privks_int_mm}
 
 
 def _wcat(wmt):
@@ -836,6 +897,18 @@ def phase_kernels(reps: int = 20):
             numbers["plan"] = _k64_plan(name, dev_args, kw)
             split_txt = (f", plan ({K64_PLANS[name]}) = "
                          f"{numbers['plan']}")
+        if name == "priv_keyswitch":           # ROADMAP K2's lever 1
+            x, table = dev_args
+            a = privks_kpacked_onehot(x, table, **kw)
+            numbers["library_kpacked_ms"] = device_ms(
+                lambda: privks_int_mm_kpacked(a, table), reps)
+            kq = K.privks_depth(x.shape[1], kw["t"], kw["basebit"])
+            numbers["plan"] = K.priv_keyswitch_plan(
+                x.shape[0], kq, table.shape[1], K.sm_count(x.device))
+            split_txt = (f", plan (rows, split, blocks) = {numbers['plan']}"
+                         f", one _int_mm on the K-packed table "
+                         f"{numbers['library_kpacked_ms']:.4f} ms")
+            del a
         if name in ("ck_dot64p_acc", "ck_dot64p_sacc"):
             x, wmt, acc = dev_args             # the two-kernel step's dot
             numbers["two_kernel_ms"] = cuda_ms(lambda: acc + K.recombine(
@@ -1112,7 +1185,7 @@ KERNELS = ("materialize_w", "materialize_wt", "rotate_decompose",
            "fused_cmux_step", "fused_cmux_step_v2", "rotate_decompose64",
            "rotate_decompose64_ck", "rotate_decompose64_ck_flat", "ck_dot64p",
            "ck_dot64p_sacc", "ck_dot64p_acc", "ck_cmux_step32",
-           "ck_cmux_step64", "mm_recombine_acc_wt")
+           "ck_cmux_step64", "mm_recombine_acc_wt", "priv_keyswitch")
 
 
 def _kernel_counters() -> dict:
@@ -1425,14 +1498,17 @@ def _cb_launch(cb, ct, ck):
 
 def _keyswitch_ms(P, ck, ct) -> tuple:
     """CUDA-event ms of a circuit bootstrap launch's preKS on ``ct`` and of
-    one privKS product on a random lvl2 extract batch of its rows."""
+    one privKS product (program C's kernel on the packed table) on a random
+    lvl2 extract batch of its rows."""
     from tfhe_tpu_torch import lwe
-    from tfhe_tpu_torch.boot import circuit
+    from tfhe_tpu_torch.ops import kernels as K
     preks = lwe.KeySwitchKey(P.ks10, P.n_lvl1, P.n_lvl0, ck.data["preks"])
     ext = torch.randint(-2**63, 2**63 - 1, (ct.shape[0], P.n_lvl2 + 1),
                         dtype=torch.int64, device=ct.device)
+    table = ck.data["privks_packed"][0]
     return (cuda_ms(lambda: lwe.keyswitch(ct, preks), 5),
-            cuda_ms(lambda: circuit.priv_keyswitch(ext, ck.privks, 0), 5))
+            cuda_ms(lambda: K.priv_keyswitch(ext, table, t=P.ks21.t,
+                                             basebit=P.ks21.basebit), 5))
 
 
 def phase_circuit(smi: str):
@@ -1474,9 +1550,11 @@ def phase_circuit(smi: str):
     cb = circuit.make_circuit_bootstrap_staged(P, backend="chunked")
     gsw, first, wall, counts = _cb_launch(cb, ct, ck)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for name in ("rotate_decompose64_ck", "ck_dot64p"):
-        check(counts[name] == steps, f"CB_MXU: {name} launched "
-              f"{counts[name]} times, want {steps}")
+    for name, want in (("rotate_decompose64_ck", steps),
+                       ("ck_dot64p", steps),
+                       ("priv_keyswitch", ell1 * (k + 1))):
+        check(counts[name] == want, f"CB_MXU: {name} launched "
+              f"{counts[name]} times, want {want}")
     _wmt_only("CB_MXU", ck, counts)
     for name in ("materialize_w", "materialize_wt", "rotate_decompose",
                  "mm_recombine_acc_wt", "fused_cmux_step_v2"):
@@ -1565,6 +1643,7 @@ def phase_circuit(smi: str):
           f"{launch_floor_ms():.4f} ms")
     state = {"ck": ck, "ct": ct, "gsw": gsw, "wall": wall,
              "step_ms": one, "opt_step_ms": opt_step_ms, "steps": steps,
+             "n_priv": n_priv,
              "flat_rot_ms": dev_ms["rotate_decompose64_ck_flat"]}
     return counts, state
 
@@ -1599,7 +1678,8 @@ def phase_circuit_step(smi: str, state: dict, phase: str, step: str,
     _wmt_only(f"CB_MXU {step}", ck, counts)
     check(torch.equal(gsw, state["gsw"]),
           f"CB_MXU {step}: the TRGSWs differ from the default step's")
-    _only(counts, {name: steps for name in kernels}, f"CB_MXU {step}")
+    _only(counts, {**{name: steps for name in kernels},
+                   "priv_keyswitch": state["n_priv"]}, f"CB_MXU {step}")
     one = state["opt_step_ms"][step]
     share = ""
     if "rotate_decompose64_ck_flat" in kernels:
@@ -2049,7 +2129,8 @@ def phase_engine_paths(smi: str, default_out, cb_state: dict):
     torch.cuda.synchronize()
     prep_s = time.perf_counter() - t0
     data = {"preks": cb_state["preks"], "bk": bk,
-            "privks": cb_state["privks"]}
+            "privks": cb_state["privks"],
+            "privks_packed": cb_state["privks_packed"]}
     cb = circuit.make_circuit_bootstrap_staged(P, backend="conv")
     cell_start()
     torch.cuda.reset_peak_memory_stats()
@@ -2064,7 +2145,8 @@ def phase_engine_paths(smi: str, default_out, cb_state: dict):
     counts = _launch_counts(before)
     check(torch.equal(gsw, cb_state["gsw"]), "CB_MXU conv: the TRGSWs "
           "differ from phase 5's chunked ones")
-    _only(counts, {"materialize_wt": steps}, "CB_MXU conv")
+    _only(counts, {"materialize_wt": steps,
+                   "priv_keyswitch": cb_state["n_priv"]}, "CB_MXU conv")
     by_path["circuit_bootstrap_conv"] = counts
     print(f"phase 9 CB_MXU conv B={batch}: {wall * 1e3 / batch:.3f} ms per "
           f"ciphertext, {batch / wall:.2f} ct/s ({wall:.3f} s for one launch, "
@@ -2444,8 +2526,9 @@ def phase_ref_block(smi: str, name: str) -> dict:
     gsw, first, wall, counts = _cb_launch(cb, ct, ck)
     launch_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     _wmt_only(name, ck, counts)
-    _only(counts, {"rotate_decompose64_ck": steps, "ck_dot64p": steps},
-          f"{name} default step")
+    n_priv = ell1 * (k + 1)
+    _only(counts, {"rotate_decompose64_ck": steps, "ck_dot64p": steps,
+                   "priv_keyswitch": n_priv}, f"{name} default step")
     check(tuple(gsw.shape) == (batch, k + 1, ell1, k + 1, P.n_lvl1),
           f"{name}: TRGSW batch of shape {tuple(gsw.shape)}")
     graph_cell(f"{name} chunked default step B={batch}",
@@ -2471,7 +2554,6 @@ def phase_ref_block(smi: str, name: str) -> dict:
         a0, acc, {"wmt": wmt[0]}, l=p2.l, bgbit=p2.bgbit, offset=p2.offset),
         10)
     pre_ms, priv_ms = _keyswitch_ms(P, ck, ct)
-    n_priv = ell1 * (k + 1)
     total = step_ms * steps + pre_ms + priv_ms * n_priv
     print(f"phase 12 {name} breakdown B={batch}: default step {step_ms:.4f} "
           f"ms of device time x {steps} ({step_ms * steps / (wall * 1e3):.1%}"
@@ -2508,7 +2590,8 @@ def phase_ref_block(smi: str, name: str) -> dict:
             del os.environ[var]
         check(torch.equal(got, gsw), f"{name} {step}: the TRGSWs differ "
               f"from the default step's")
-        _only(counts, {n: steps for n in kernels}, f"{name} {step}")
+        _only(counts, {**{n: steps for n in kernels},
+                       "priv_keyswitch": n_priv}, f"{name} {step}")
         by_path[f"{tag}_{step}"] = counts
         print(f"phase 12 {name} chunked {var}={value} B={batch}: "
               f"{wall_s * 1e3 / batch:.3f} ms per ciphertext ({wall_s:.3f}"
@@ -2550,7 +2633,7 @@ def main() -> int:
             smi, state, phase, step, *run)
     ck = state.pop("ck")                # phase 9 keeps the raw bk alone
     state.update(preks=ck.data["preks"], privks=ck.data["privks"],
-                 bk_raw=ck.bk_raw)
+                 privks_packed=ck.data["privks_packed"], bk_raw=ck.bk_raw)
     del ck
     torch.cuda.empty_cache()
     paths, keys = phase_n1024(smi, default_out)

@@ -1633,3 +1633,128 @@ def test_sharded_on_card(cuda, tmp_path):
                        - (1 << (bits - 1)) for t in total]
             got = np.load(tmp_path / f"reduce-{str(dtype)[6:]}-r{rank}.npy")
             assert got.tolist() == wrapped, dtype
+
+
+# ---------------------------------------------------------------------------
+# priv_keyswitch: program C's kernel on the packed privKS table
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _privks_table(name: str):
+    """A seeded random packed table of one z on the card at CB_ACTIVE's or
+    CB_PAPER's shape: (4, 2048, kstride) int8, K' = privks_depth columns,
+    the pad zero."""
+    from tfhe_tpu_torch.params import CB_ACTIVE, CB_PAPER
+    P = {"active": CB_ACTIVE, "paper": CB_PAPER}[name]
+    ks, n1 = P.ks21, P.n_lvl2 + 1
+    kq = K.privks_depth(n1, ks.t, ks.basebit)
+    g = torch.Generator(device="cuda").manual_seed(len(name))
+    table = torch.zeros((4, 2 * P.n_lvl1, -(-kq // 16) * 16),
+                        dtype=torch.int8, device="cuda")
+    table[..., :kq] = torch.randint(-128, 128, (4, 2 * P.n_lvl1, kq),
+                                    dtype=torch.int8, device="cuda",
+                                    generator=g)
+    return ks, n1, table
+
+
+def _lwe64(seed, B, n1, dev):
+    r = np.random.default_rng(seed)
+    return torch.from_numpy(r.integers(-2**63, 2**63, (B, n1),
+                                       dtype=np.int64)).to(dev)
+
+
+@pytest.mark.parametrize("B", [1, 4, 64, 256])
+@pytest.mark.parametrize("name", ["active", "paper"])
+def test_priv_keyswitch(cuda, name, B):
+    """At CB_ACTIVE's (t=10, base 8, K' = 143,430) and CB_PAPER's (t=32,
+    base 2, K' = 65,568) shapes: the kernel equals its plain version (run on
+    the card), eager and as a captured graph's replay."""
+    ks, n1, table = _privks_table(name)
+    x = _lwe64(B, B, n1, cuda)
+    kw = dict(t=ks.t, basebit=ks.basebit)
+    want = K.priv_keyswitch_plain(x, table, **kw)
+    assert torch.equal(K.priv_keyswitch(x, table, **kw), want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K.priv_keyswitch(x, table, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = K.priv_keyswitch(x, table, **kw)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("B, split", [(4, 1), (4, 2), (4, 7), (4, 1121),
+                                      (256, 1), (256, 3), (100, 33)])
+def test_priv_keyswitch_forced_splits(cuda, B, split):
+    """Forced K splits at CB_ACTIVE's shape, from one slice to one stage a
+    slice (1,121), and 128-row blocks of a ragged batch (100)."""
+    ks, n1, table = _privks_table("active")
+    x = _lwe64(split, B, n1, cuda)
+    kw = dict(t=ks.t, basebit=ks.basebit)
+    assert torch.equal(K.priv_keyswitch(x, table, split=split, **kw),
+                       K.priv_keyswitch_plain(x, table, **kw))
+
+
+@pytest.mark.parametrize("name", ["active", "paper"])
+def test_priv_keyswitch_extremes(cuda, name):
+    """Every digit 0 gives 0; every digit base-1 against a table of -128 or
+    127 drives each limb's int32 sum to n1 t (-128 or 127), its bound."""
+    ks, n1, table = _privks_table(name)
+    kw = dict(t=ks.t, basebit=ks.basebit)
+    off = 1 << (63 - ks.basebit * ks.t)
+    zero = torch.full((5, n1), -off, dtype=torch.int64, device=cuda)
+    assert not K.priv_keyswitch(zero, table, **kw).any()
+    top = torch.full((70, n1), -1 - off, dtype=torch.int64, device=cuda)
+    for v in (-128, 127):
+        full = torch.full_like(table, v)
+        assert torch.equal(K.priv_keyswitch(top, full, **kw),
+                           K.priv_keyswitch_plain(top, full, **kw))
+        del full
+
+
+@pytest.mark.parametrize("P", [CB_TOY, CB_PAPER_TOY], ids=["toy", "paper"])
+def test_program_c_runs_the_kernel(cuda, monkeypatch, P):
+    """Program C is the kernel: the packed table built on the card equals
+    the CPU's; a replayed staged launch counts kernel.priv_keyswitch and
+    one plan counter l1 (k+1) times (4 at CB_TOY, 8 at CB_PAPER_TOY) and
+    equals the CPU's TRGSWs; an eager launch calls torch._int_mm for preKS's
+    4 limbs alone."""
+    from tfhe_tpu_torch import graphs
+    ck, ct = _cb_toy(cuda, P)
+    cpu_ck, cpu_ct = _cb_toy("cpu", P)
+    want = circuit.circuit_bootstrap(cpu_ct, cpu_ck.data, P)
+    assert torch.equal(ck.data["privks_packed"].cpu(),
+                       cpu_ck.data["privks_packed"])
+    cb = circuit.make_circuit_bootstrap_staged(P)
+    cb(ct, ck.data)                                  # captures
+    before = dict(obs.report()["counters"])
+    got = cb(ct, ck.data)                            # replays
+    torch.cuda.synchronize()
+    delta = {k: v - before.get(k, 0)
+             for k, v in obs.report()["counters"].items()
+             if k.startswith("priv_keyswitch.plan.")
+             or k == "kernel.priv_keyswitch"}
+    n = P.tgsw_lvl1.l * (P.lvl1.k + 1)
+    plans = {k: v for k, v in delta.items() if v and k.startswith("priv")}
+    assert delta["kernel.priv_keyswitch"] == n
+    assert list(plans.values()) == [n]
+    assert torch.equal(got.cpu(), want)
+    calls = []
+    real = torch._int_mm
+    monkeypatch.setattr(torch, "_int_mm",
+                        lambda *a: calls.append(a) or real(*a))
+    with graphs.disable():
+        assert torch.equal(cb(ct, ck.data).cpu(), want)
+    assert len(calls) == 4
+
+
+def test_program_c_needs_the_packed_table(cuda):
+    ck, ct = _cb_toy(cuda)
+    data = {k: v for k, v in ck.data.items() if k != "privks_packed"}
+    with pytest.raises(ValueError, match="privks_packed"):
+        circuit.circuit_bootstrap(ct, data, CB_TOY)

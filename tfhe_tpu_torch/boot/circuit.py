@@ -20,9 +20,12 @@ On the card the blind rotation runs the chunked engine's 64-bit step
 (``rotate_decompose64_ck`` + ``ck_dot64p``), the port's default backend
 here; ``backend="conv"`` (the JAX package's default) gives the same TRGSWs
 bit for bit through the generic step (``materialize_wt`` + int8 GEMMs, no
-step kernel of its own); the pre-key-switch and the
-private key switch are one-hot int8 products (``torch._int_mm``), as the
-JAX package leaves them to XLA.  Keys are generated with the host's
+step kernel of its own); the pre-key-switch is a one-hot int8 product
+(``torch._int_mm``), as the JAX package leaves it to XLA; the private key
+switch runs the port's own kernel (``kernels.priv_keyswitch``) on the
+packed table (``prepare_privks``: K-major, digit-0 rows left out, the
+negation folded in), which ``CircuitCloudKey.data`` holds beside the
+row-major limbs.  Keys are generated with the host's
 ``TfheRng`` in the JAX package's host order (same seed, same keys); the
 ring products, limb splits and the chunked key preparation run on
 ``device``.
@@ -40,6 +43,7 @@ from tfhe_tpu_torch import device as _device
 from tfhe_tpu_torch import graphs, lwe, noise, tgsw, tlwe
 from tfhe_tpu_torch import torus as T
 from tfhe_tpu_torch.boot import blind_rotate as br
+from tfhe_tpu_torch.ops import kernels
 from tfhe_tpu_torch.ops.engine import make_engine, prepare_stacked
 from tfhe_tpu_torch.params import CircuitParams, KeySwitchParams, LweParams
 from tfhe_tpu_torch.rng import TfheRng
@@ -98,6 +102,15 @@ class PrivKeySwitchKey:
     k: int
     N: int
     w_limbs: torch.Tensor           # (k+1, 4, (n_in+1)*t*base, (k+1)*N) int8
+    _packed: torch.Tensor | None = dataclasses.field(default=None,
+                                                     repr=False)
+
+    @property
+    def packed(self) -> torch.Tensor:
+        """``prepare_privks`` of the limbs, built once on their device."""
+        if self._packed is None:
+            self._packed = prepare_privks(self.w_limbs, self.ks)
+        return self._packed
 
     @staticmethod
     def generate(sk: CircuitSecretKey, rng: TfheRng,
@@ -121,6 +134,38 @@ class PrivKeySwitchKey:
             w[z] = T.balanced_limbs(c.reshape(rows, (k + 1) * N1), 4, 8)
             del c
         return PrivKeySwitchKey(ks, n2, k, N1, w)
+
+
+# K' columns of the limbs prepare_privks converts at a time (a transient of
+# ~0.1 GB of int64 at CB_ACTIVE's 2,048 columns)
+_PACK_ROWS = 4096
+
+
+def prepare_privks(w_limbs, ks: KeySwitchParams) -> torch.Tensor:
+    """The row-major privKS limbs (k+1, 4, (n+1)*t*base, UN) int8 ->
+    the packed table of ``kernels.priv_keyswitch``, (k+1, 4, UN, kstride)
+    int8 on the limbs' device: K-major (row c of limb l holds column c's
+    K' entries contiguously), only the digit-0-free rows (i, j, v-1), K' =
+    (n+1)*t*(base-1) (``kernels.privks_depth``), and the balanced limbs of
+    -c for each key sample c, so the product needs no negation.  The
+    stride kstride rounds K' up to 16 bytes (TMA's row alignment); the pad
+    is zero.  Set-up work, never inside a captured program."""
+    kp1, L, rows, UN = w_limbs.shape
+    span = ks.t * (ks.base - 1)
+    n1 = rows // (ks.t * ks.base)
+    kq = n1 * span
+    out = torch.zeros((kp1, L, UN, -(-kq // 16) * 16), dtype=torch.int8,
+                      device=w_limbs.device)
+    step = max(1, _PACK_ROWS // span)               # coefficients a block
+    for z in range(kp1):
+        w = w_limbs[z].view(L, n1, ks.t, ks.base, UN)
+        for i0 in range(0, n1, step):
+            i1 = min(n1, i0 + step)
+            part = w[:, i0:i1, :, 1:].to(torch.int64)    # (L, ., t, base-1, UN)
+            c = sum(part[lm] << (8 * lm) for lm in range(L))
+            neg = T.balanced_limbs(T.wrap32(-c), L, 8).reshape(L, -1, UN)
+            out[z, :, :, i0 * span:i1 * span] = neg.transpose(1, 2)
+    return out
 
 
 def priv_keyswitch_digits(x64, ks: KeySwitchParams):
@@ -212,8 +257,13 @@ class CircuitCloudKey:
 
     @property
     def data(self):
+        """The key as the circuit bootstrap reads it: the row-major privKS
+        limbs (the JAX package's form, which serialization saves) and,
+        under ``privks_packed``, the packed table program C runs on (built
+        at the first call)."""
         return {"preks": self.preks.w_limbs, "bk": self.bk_prepared,
-                "privks": self.privks.w_limbs}
+                "privks": self.privks.w_limbs,
+                "privks_packed": self.privks.packed}
 
 
 def _eager(site, structure, fn, inputs, keys=(), *, backend=None):
@@ -232,13 +282,23 @@ def _circuit_bootstrap(samples, key_data, p: CircuitParams, backend: str,
                                         input: one program serves every
                                         level)
       C. private functional key switch (one program per z, on its slice of
-                                        the privKS key, read in place)"""
+                                        the packed privKS table,
+                                        ``key_data["privks_packed"]``, read
+                                        in place)"""
     N2 = p.n_lvl2
     k = p.lvl1.k
     ell1, bgbit1 = p.tgsw_lvl1.l, p.tgsw_lvl1.bgbit
     if shared_rotation is None:
         shared_rotation = (noise.shared_rotation_penalty(p)
                            <= noise.SHARED_ROTATION_MAX_PENALTY)
+    # program C's table: a CPU key of the row-major limbs alone is packed
+    # here, outside the programs
+    packed = key_data.get("privks_packed")
+    if packed is None:
+        if key_data["privks"].device.type != "cpu":
+            raise ValueError("key_data lacks 'privks_packed' (CircuitCloudKey"
+                             ".data, or circuit.prepare_privks of 'privks')")
+        packed = prepare_privks(key_data["privks"], p.ks21)
 
     # 1. pre key switch lvl1 -> lvl0 (poc:832); 2. mod switch to Z_{2*N2}
     #    (poc:836 / preModSwitch :472)
@@ -275,13 +335,14 @@ def _circuit_bootstrap(samples, key_data, p: CircuitParams, backend: str,
     else:
         exts = [rotate_for(w) for w in range(ell1)]
 
-    # 4. private functional key switches fill the TRGSW rows (poc:845-855)
-    def stage_c(pk_w_z):
-        pksk = PrivKeySwitchKey(p.ks21, p.n_lvl2, k, p.n_lvl1, pk_w_z[None])
-        return lambda ext: priv_keyswitch(ext, pksk, 0)
+    # 4. private functional key switches fill the TRGSW rows (poc:845-855),
+    #    on the packed table
+    def stage_c(table):
+        return lambda ext: kernels.priv_keyswitch(
+            ext.reshape(-1, ext.shape[-1]), table, t=p.ks21.t,
+            basebit=p.ks21.basebit).reshape(*ext.shape[:-1], k + 1, p.n_lvl1)
 
-    rows = [run("circuit.c", (p,), stage_c(key_data["privks"][z]), (ext,),
-                (key_data["privks"][z],))
+    rows = [run("circuit.c", (p,), stage_c(packed[z]), (ext,), (packed[z],))
             for ext in exts for z in range(k + 1)]
     # rows ordered (w, z); the TRGSW layout is (bloc z, level w, k+1, N)
     out = torch.stack(rows, dim=-3)               # (B, ell1*(k+1), k+1, N)

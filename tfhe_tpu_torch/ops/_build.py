@@ -78,6 +78,7 @@ SIGNATURES = {
                         _I, _I, _I, _P]),
     "ck_cmux_step64_stages": ("tfhe_ck_cmux_step64_stages", [_I, _I],
                               "ck_cmux_step64"),
+    "priv_keyswitch": ("tfhe_priv_keyswitch", [_P, _P, _P] + [_I] * 8 + [_P]),
 }
 
 

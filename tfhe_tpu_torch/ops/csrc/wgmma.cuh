@@ -96,6 +96,18 @@ __device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map,
       : "memory");
 }
 
+// One 2-D TMA reduction, as tma_reduce_add_3d.
+__device__ __forceinline__ void tma_reduce_add_2d(const CUtensorMap* map,
+                                                  const void* src, int c0,
+                                                  int c1) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.tile.bulk_group"
+      " [%0, {%2, %3}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)),
+         "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // Commits the thread's bulk-group operations (TMA reductions) and waits
 // until they have read their shared-memory sources.
 __device__ __forceinline__ void bulk_commit_wait_read() {

@@ -31,6 +31,7 @@ exact) and the mod-2^32 recombination runs in int64.
   ck_dot64p_acc               ck_dot64p_acc                 int8 MACs (reads wmt)
   ck_cmux_step32              ck_cmux_step32                int8 MACs (reads wm)
   ck_cmux_step64              ck_cmux_step64                int8 MACs (reads wmt)
+  priv_keyswitch              none (XLA's one-hot products) bytes read (the table once)
 
 fused_cmux_step (v1) runs on no path of the port, as in the JAX package,
 where only its tests call it; rotate_decompose64, test-only there too,
@@ -41,7 +42,10 @@ contractions (ck_dot64p, ck_dot64p_sacc, ck_dot64p_acc, ck_cmux_step64)
 take the chunked key K-packed, wmt (ck_wmt), the only layout the chunked
 engine prepares at 64 bits; their plain versions contract
 wmt.transpose(-1, -2).  The 32-bit ck_cmux_step32 reads wm, and the 32-bit
-generic contraction transposes it per call (ck_dot64p_wm).
+generic contraction transposes it per call (ck_dot64p_wm).  priv_keyswitch,
+the circuit bootstrap's private key switch (program C), has no Pallas
+counterpart: the JAX package leaves it to XLA; it reads the packed table of
+circuit.prepare_privks.
 """
 
 from __future__ import annotations
@@ -1410,3 +1414,129 @@ def _ck64_plan(B, kp1, N, m, Jm, L, planes, dev):
         overhead=1.0)
     return t, S
 
+
+
+# ---------------------------------------------------------------------------
+# priv_keyswitch (the circuit bootstrap's private functional key switch)
+# ---------------------------------------------------------------------------
+
+# the kernel's unit (csrc/priv_keyswitch.cu): ``rows`` batch rows x PK_COLS
+# output columns of the 4 limbs over one K slice of PK_BK-deep stages
+PK_COLS, PK_BK = 64, 128
+PK_OVERHEAD = 4            # a block's fixed cost (fill, epilogue), in stages
+_PK_CHUNK = 8192           # K' columns of the plain version's float64 blocks
+
+
+def privks_depth(n1: int, t: int, basebit: int) -> int:
+    """K' = n1 * t * (2^basebit - 1): the packed table's depth, the
+    digit-0-free one-hot positions (i, j, v - 1) of n1 coefficients."""
+    return n1 * t * ((1 << basebit) - 1)
+
+
+def privks_onehot(x64, *, t: int, basebit: int):
+    """The digit-0-free one-hot of x64 (B, n1) int64: (B, K') int8 with
+    position (i, j, v - 1) set where digit j of coefficient i is v (the
+    rounding digits of circuit.priv_keyswitch_digits)."""
+    base = 1 << basebit
+    aibar = x64 + (1 << (63 - basebit * t))
+    digs = torch.stack([(aibar >> (64 - (j + 1) * basebit)) & (base - 1)
+                        for j in range(t)], dim=-1)          # (B, n1, t)
+    v = torch.arange(1, base, dtype=digs.dtype, device=x64.device)
+    return (digs[..., None] == v).to(torch.int8).reshape(x64.shape[0], -1)
+
+
+def priv_keyswitch_plain(x64, table, *, t: int, basebit: int):
+    B, n1 = x64.shape
+    kq = privks_depth(n1, t, basebit)
+    onehot = privks_onehot(x64, t=t, basebit=basebit).to(torch.float64)
+    out = torch.zeros((B, table.shape[1]), dtype=torch.int64,
+                      device=x64.device)
+    for lm in range(table.shape[0]):
+        y = torch.zeros((B, table.shape[1]), dtype=torch.float64,
+                        device=x64.device)
+        for k0 in range(0, kq, _PK_CHUNK):
+            k1 = min(kq, k0 + _PK_CHUNK)
+            y += onehot[:, k0:k1] @ table[lm, :, k0:k1].T.to(torch.float64)
+        out += y.to(torch.int64) << (8 * lm)
+    return T.wrap32(out)
+
+
+def priv_keyswitch(x64, table, *, t: int, basebit: int, split: int = 0):
+    """The private functional key switch's product on the packed table of
+    one z: out[b, c] = sum_{i,j} table[., c, (i, j, d_ij - 1)] recombined
+    over the 4 limbs (<< 8 l), mod 2^32, for the rounding digits d_ij != 0
+    of x64's coefficients (circuit.priv_keyswitch_digits: t digits of
+    ``basebit`` bits, top-down).
+
+    x64: (B, n1) int64 (the extracted LWE64 samples, n1 = n + 1); table:
+    (4, UN, kstride) int8, circuit.prepare_privks's table of one z (K' =
+    privks_depth(n1, t, basebit) columns, the limbs of the negated key
+    samples).  Returns (B, UN) int32: circuit.priv_keyswitch's output, bit
+    for bit.
+
+    Kernel: csrc/priv_keyswitch.cu (no Pallas counterpart: the JAX package
+    leaves the key switch to XLA).  Bound by the table's bytes, read once;
+    TMA feeds int8 wgmma with the 4 limbs stacked along N, the block builds
+    the one-hot A tiles in shared memory from x64, and the K' walk is split
+    over the card (priv_keyswitch_plan; ``split`` > 0 forces the slices),
+    each block adding its rows into the zeroed output with a TMA reduction.
+    Each launch counts ``priv_keyswitch.plan.<rows>x64.s<split>``
+    (utils.observability)."""
+    _check(x64, "priv_keyswitch x64", torch.int64, 2)
+    _check(table, "priv_keyswitch table", torch.int8, 3)
+    B, n1 = x64.shape
+    L, UN, kstride = table.shape
+    kq = privks_depth(n1, t, basebit)
+    _require(L == 4 and kstride >= kq,
+             f"priv_keyswitch: table must be (4, UN, >= {kq})")
+    _require(1 <= basebit and basebit * t <= 63,
+             "priv_keyswitch: the t digits must fit below bit 63")
+    _require(n1 * t * 128 < 2**31,
+             "priv_keyswitch: a limb's sum would leave int32")
+    _require(split >= 0, "priv_keyswitch: split must be >= 0 (0 chooses)")
+    if _on_cpu(x64, table):
+        return priv_keyswitch_plain(x64, table, t=t, basebit=basebit)
+    _require(UN % PK_COLS == 0 and kstride % 16 == 0 and kq < 2**20
+             and t * ((1 << basebit) - 1) >= 16 and basebit <= 3
+             and basebit * t <= 32,
+             f"priv_keyswitch: the kernel needs UN % {PK_COLS} == 0, a "
+             f"row stride % 16 == 0, K' < 2^20, t (base - 1) >= 16, "
+             f"basebit <= 3 and basebit * t <= 32")
+    _require(table.data_ptr() % 16 == 0,
+             "priv_keyswitch: the kernel needs a 16-byte aligned table")
+    rows, S, _ = priv_keyswitch_plan(B, kq, UN, sm_count(x64.device), split)
+    out = torch.empty((B, UN), dtype=torch.int32, device=x64.device)
+    obs.count("kernel.priv_keyswitch")
+    obs.count(f"priv_keyswitch.plan.{rows}x{PK_COLS}.s{S}")
+    _launch("priv_keyswitch", x64.device, x64.data_ptr(), table.data_ptr(),
+            out.data_ptr(), B, n1, t, basebit, UN, kstride, rows, S)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def priv_keyswitch_plan(B: int, kq: int, UN: int, sms: int,
+                        split: int = 0) -> tuple:
+    """(rows, split, blocks) of a priv_keyswitch launch on a card of ``sms``
+    SMs (csrc/priv_keyswitch.cu): blocks of ``rows`` batch rows (128, two
+    consumer warpgroups; 64 where B <= 64) x PK_COLS columns of the 4 limbs
+    over one of ``split`` slices of the ceil(K' / PK_BK) stages
+    (split_plan), one block a unit.
+
+    The split, where not forced: among the splits whose units fill the card
+    (at least ``sms``; output tiles alone are UN / 64 = 32 at the CB
+    blocks), the smallest S that minimizes ceil(units / sms) x (stages a
+    slice + PK_OVERHEAD), the waves of blocks times a block's cost; a slice
+    is at least one stage.  Pure and memoized."""
+    rows = 64 if B <= 64 else 128
+    steps = -(-kq // PK_BK)
+    tiles = -(-B // rows) * (UN // PK_COLS)
+
+    def cost(S):
+        n, slices = split_plan(steps, S)
+        return -(-tiles * slices // sms) * (n + PK_OVERHEAD)
+    if not split:
+        fill = [S for S in range(1, steps + 1)
+                if tiles * split_plan(steps, S)[1] >= sms]
+        split = min(fill or [steps], key=lambda S: (cost(S), S))
+    S = split_plan(steps, split)[1]
+    return rows, S, tiles * S

@@ -260,9 +260,12 @@ def local_circuit_bk(bk_raw, p, mesh: Mesh, backend: str = "chunked"):
 
 def _circuit_key_local(key_data, mesh: Mesh, backend: str, p, bk_raw):
     """This rank's slices of a circuit key; where ``key_data["bk"]`` is
-    None, its bk slice built from the raw rows ``bk_raw``."""
+    None, its bk slice built from the raw rows ``bk_raw``.  The packed
+    privKS table (``privks_packed``) is left out: the sharded key switch
+    splits the row-major one-hot rows."""
     raw = key_data.get("bk") is None
-    data = dict(key_data, bk={} if raw else key_data["bk"])
+    data = {k: v for k, v in key_data.items() if k != "privks_packed"}
+    data["bk"] = {} if raw else key_data["bk"]
     key = place_tree(data, circuit_key_shardings(mesh, data, backend), mesh)
     if raw:
         key["bk"] = local_circuit_bk(bk_raw, p, mesh, backend)

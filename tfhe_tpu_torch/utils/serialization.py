@@ -163,7 +163,7 @@ def load_circuit_key(path: str, backend: str | None = None, device=None):
 
     Rebuilds the engine-prepared bk on ``device`` from the stored raw
     TRGSW64; preKS and privKS load as they are (preKS padded to the port's
-    width).  ``backend`` overrides the stored one (the raw bk serves any
+    width), and privKS is packed for program C (``privks_packed``).  ``backend`` overrides the stored one (the raw bk serves any
     engine)."""
     from tfhe_tpu_torch.boot import circuit as _circuit
     dev = _device.resolve(device)
@@ -176,5 +176,7 @@ def load_circuit_key(path: str, backend: str | None = None, device=None):
     preks = lwe.KeySwitchKey.from_limbs(tree["preks"].numpy(), params.ks10,
                                         params.n_lvl1, params.n_lvl0,
                                         device=dev)
-    return {"preks": preks.w_limbs, "bk": prep,
-            "privks": tree["privks"].to(dev)}, params
+    privks = tree["privks"].to(dev)
+    return {"preks": preks.w_limbs, "bk": prep, "privks": privks,
+            "privks_packed": _circuit.prepare_privks(privks, params.ks21)
+            }, params
