@@ -5,7 +5,9 @@ in ``BENCHMARK.json`` are read, each by its own reader.
 
 Everything that belongs to one cell is found by name: the configuration's
 file (``BENCHMARK.json``'s ``configs[].file``), ``traffic/<mix>.json`` and
-``metrics/<metric>.py`` under the benchmark's folder.
+``metrics/<metric>.py`` under the benchmark's folder.  A mix's loop is one
+of ``loops.LOOPS`` or, by its name, ``traffic/<loop>.py``; a sample's judge
+is one of ``reference.judge``'s or ``reference/judges/<judge>.py``.
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ class Context:
     tracer: Tracer
     sample_gen: torch.Generator
     peaks: dict | None
+    folder: Path | None = None  # the benchmark's: a loop file's siblings
     window: loops.Window = None
 
     def sync(self):
@@ -79,16 +82,38 @@ class Context:
 
 
 def load(root: Path, bench: dict, cell_name: str):
-    """(cell, configuration, mix) of a cell, from the files named."""
+    """(cell, configuration, mix, loop) of a cell, from the files named.  The
+    loop is found here, before any key is made."""
     cells = {c["name"]: c for c in bench["workloads"]}
     if cell_name not in cells:
         raise SystemExit(f"no workload {cell_name!r} in BENCHMARK.json")
     cell = cells[cell_name]
     conf = {c["name"]: c for c in bench["configs"]}[cell["config"]]
     cfg = json.loads((root / conf["file"]).read_text())
-    mix = json.loads((root / bench["paths"][0] / "traffic"
-                      / f"{cell['traffic']}.json").read_text())
-    return cell, cfg, mix
+    folder = root / bench["paths"][0]
+    mix = json.loads((folder / "traffic" / f"{cell['traffic']}.json")
+                     .read_text())
+    return cell, cfg, mix, find_loop(folder, cell["traffic"], mix)
+
+
+def _module(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def find_loop(folder: Path, mix_name: str, mix: dict):
+    """The mix's loop: a built-in one of ``loops.LOOPS``, else ``run(ctx) ->
+    loops.Sample`` of ``traffic/<loop>.py`` under the benchmark's folder."""
+    name = mix["loop"]
+    if name in loops.LOOPS:
+        return loops.LOOPS[name]
+    path = folder / "traffic" / f"{name}.py"
+    if not path.is_file():
+        raise SystemExit(f"traffic mix {mix_name!r}: loop {name!r} is not "
+                         f"built in and there is no file {path}")
+    return _module(path, f"loop_{name}").run
 
 
 def metric_entries(bench: dict, cell_name: str, trace: bool) -> list:
@@ -99,10 +124,7 @@ def metric_entries(bench: dict, cell_name: str, trace: bool) -> list:
 
 def read_metric(root: Path, bench: dict, name: str, run: Run):
     path = root / bench["paths"][0] / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"metric_{name}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read(run)
+    return _module(path, f"metric_{name}").read(run)
 
 
 def run_cell(root: Path, bench: dict, cell_name: str, seed: int,
@@ -112,7 +134,8 @@ def run_cell(root: Path, bench: dict, cell_name: str, seed: int,
     the Run the metrics were read from).  ``control`` runs the program on the configuration's lower-precision
     key (``control_key_limbs``), which the judge must find wrong."""
     device = torch.device(device)
-    cell, cfg, mix = load(root, bench, cell_name)
+    folder = root / bench["paths"][0]
+    cell, cfg, mix, loop = load(root, bench, cell_name)
     kind = device.type
     peaks = roofline.PEAKS.get(torch.cuda.get_device_name(device)) \
         if kind == "cuda" else None
@@ -124,9 +147,9 @@ def run_cell(root: Path, bench: dict, cell_name: str, seed: int,
     sample_gen = torch.Generator().manual_seed(int(seed) % (1 << 63) ^ 0x5A5A)
     ctx = Context(cfg, mix, device, seconds, client, secret, server,
                   Tracer(trace, mix["trace_units"], device), sample_gen,
-                  peaks)
+                  peaks, folder)
     ctx.window = loops.Window(ctx)
-    sample = loops.LOOPS[mix["loop"]](ctx)
+    sample = loop(ctx)
     counters = S.counters()
     w = ctx.window
     peak = torch.cuda.max_memory_allocated(device) if kind == "cuda" else 0
@@ -138,7 +161,7 @@ def run_cell(root: Path, bench: dict, cell_name: str, seed: int,
     if kind == "cuda":
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    wrong = judge.wrong_answers(sample, raw, cfg)
+    wrong = judge.wrong_answers(sample, raw, cfg, folder)
     run.reference_s = time.perf_counter() - t_ref
     run.sampled = int(sample.outputs.shape[0])
     metrics = {}

@@ -1,5 +1,7 @@
 """The one traffic generator: a mix file (``traffic/<mix>.json``) names a
 loop and its parameters, and the loop drives the program from the seed.
+The loops below are built in; a mix may name instead a loop file of its
+own, ``traffic/<loop>.py`` with ``run(ctx) -> Sample`` (``harness.find_loop``).
 
 Every loop is a closed loop of one client, who sends the next request when
 the card has taken the previous one:
@@ -35,7 +37,7 @@ from gpu_bench.reference import circuits as RC
 @dataclasses.dataclass
 class Sample:
     """Answers drawn for the reference: what went in, what came out."""
-    reference: str             # a key of gpu_bench.reference.judge.JUDGES
+    reference: str             # a judge: reference.judge.find_judge's name
     inputs: torch.Tensor       # int64 torus32, one answer's inputs a row
     outputs: torch.Tensor      # the program's answers, one a row
     extra: dict = dataclasses.field(default_factory=dict)

@@ -50,6 +50,10 @@ def toy_bench(tmp_path_factory, bench_json):
             bench["workloads"].append({
                 "name": f"{cfg['name']}.{mix}", "config": cfg["name"],
                 "traffic": mix, "chips": 1, "why": "toy size"})
+    # key_prep_s lists the cells it is read in: the toy cells join them
+    keys = next(m for m in bench["per_layer"] if m["name"] == "key_prep_s")
+    keys["workloads"] += [w["name"] for w in bench["workloads"]
+                          if w["config"] in MIXES]
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     return root, bench
 
