@@ -43,7 +43,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      (program C's kernel on the packed privKS table) at CB_ACTIVE and
      CB_PAPER B=4 and 256, its library yardsticks the old product (four
      torch._int_mm on the row-major table) and one torch._int_mm on the
-     K-packed table (library_kpacked_ms); the two kernels
+     K-packed table (library_kpacked_ms); lut_cmux (a level of the LUT's
+     CMux tree, a selector per group) at CB_ACTIVE's lvl1 with 64 groups
+     of 8 and 1 rows and one of 8, its library yardstick one
+     torch._int_mm of the same MACs on one materialized key; the two kernels
      whose reduction is split over blocks (mm_recombine_acc_wt,
      ck_cmux_step32) also with split=1 forced, equal to the chosen
      (tile_rows, S) plan; then the fused step's 64-
@@ -161,7 +164,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      within 2^-8 of the torus of its expected phase (the JAX package's
      probe rule, boot.probe), the (z=1) rows within h_w/4 at the levels
      where that clears 6 sigma of the noise worksheet (cleared_levels), a
-     CMux with its digit on the last of those levels, all 64 LUTs decoded;
+     CMux with its digit on the last of those levels, all 64 LUTs decoded
+     through models.lut.make_lut_staged (the launch's programs and the
+     tree's: k lut_cmux launches more, the answers equal to the tree on
+     the launch's TRGSWs; the tree's device time alone beside its bound);
      then the acc, sacc and FUSED steps on the same keys and inputs, each
      TRGSW-identical to the default and launching exactly its kernels;
      ms per ciphertext, the keygen and launch peaks, the programs' pools.
@@ -771,6 +777,30 @@ def _kernel_cases(seed: int = 0):
                           bound_ms(_nbytes(x, table[..., :kq]) + B * UN * 4,
                                    B * kq * UN * 4),
                           ("privks_int_mm", (onehot, rowmajor)), True))
+
+    # lut_cmux (a level of the LUT's CMux tree, a selector per group):
+    # CB_ACTIVE's lvl1 (k=1, l=2, Bg=2^8, N=1024) at the cell's 64 four-bit
+    # LUTs, level 0 (8 rows a group, the 16 leaves shared) and level 3 (one
+    # row), then one LUT.  Library: one torch._int_mm of every row's digits
+    # against one selector's materialized 4-limb key (the same MACs, with
+    # one key for all groups: no key a group)
+    p1 = CB_ACTIVE.tgsw_lvl1
+    N, J = p1.tlwe.N, 2 * p1.l
+    for G, S in ((64, 8), (64, 1), (1, 8)):
+        acc = i32((2 * S, 2, N)).expand(G, 2 * S, 2, N) if S == 8 \
+            else i32((G, 2 * S, 2, N))
+        sel = i32((G, 2, p1.l, 2, N))
+        wcat = torch.from_numpy(r.integers(-128, 128, (J * N, 4 * 2 * N))
+                                .astype(np.int8))
+        cases.append(("lut_cmux", f"CB_ACTIVE lvl1 G={G} S={S}",
+                      "csrc/lut_cmux.cu", "none (vmapped tgsw.cmux)",
+                      K.lut_cmux, K.lut_cmux_plain, (acc, sel),
+                      dict(l=p1.l, bgbit=p1.bgbit, offset=p1.offset),
+                      bound_ms(_nbytes(acc[0] if S == 8 else acc, sel)
+                               + G * S * 2 * N * 4,
+                               G * S * J * N * 2 * N * 4),
+                      ("_int_mm", (i8((max(G * S, 32), J * N)), wcat)),
+                      True))
     return cases
 
 
@@ -1185,7 +1215,8 @@ KERNELS = ("materialize_w", "materialize_wt", "rotate_decompose",
            "fused_cmux_step", "fused_cmux_step_v2", "rotate_decompose64",
            "rotate_decompose64_ck", "rotate_decompose64_ck_flat", "ck_dot64p",
            "ck_dot64p_sacc", "ck_dot64p_acc", "ck_cmux_step32",
-           "ck_cmux_step64", "mm_recombine_acc_wt", "priv_keyswitch")
+           "ck_cmux_step64", "mm_recombine_acc_wt", "priv_keyswitch",
+           "lut_cmux")
 
 
 def _kernel_counters() -> dict:
@@ -1461,18 +1492,21 @@ def _lut_inputs(sk, rng, instances: int = 64, lut_bits: int = 4):
     return r, idx, bits, lwe.encrypt(sk.lwe_lvl1, msgs, rng, 2.0**-20)
 
 
-def check_luts(gsw, idx, perm, sk, P, what: str):
-    """A lut_bits-bit LUT per instance, table[v] = perm[v] / 2^lut_bits,
-    selected by the instance's TRGSWs (lut.eval_lut_batch on the lvl1
-    onthefly engine): every output decodes table[idx] exactly."""
+def lut_table(perm):
+    """The table of check_luts: table[v] = perm[v] / 2^lut_bits, torus32."""
+    from tfhe_tpu_torch import torus as T
+    lut_bits = len(perm).bit_length() - 1
+    return T.wrap32(torch.from_numpy(perm.astype(np.int64)
+                                     << (32 - lut_bits)))
+
+
+def check_luts(out, idx, perm, sk, what: str):
+    """The outputs (instances, k+1, N1) of a lut_bits-bit LUT per instance,
+    table = lut_table(perm), selected by the instance's TRGSWs: every
+    output decodes table[idx] exactly."""
     from tfhe_tpu_torch import tlwe
     from tfhe_tpu_torch import torus as T
-    from tfhe_tpu_torch.models import lut
     instances, lut_bits = len(idx), len(perm).bit_length() - 1
-    table = T.wrap32(torch.from_numpy(perm.astype(np.int64)
-                                      << (32 - lut_bits)))
-    sel = gsw.reshape(instances, lut_bits, *gsw.shape[1:])
-    out = lut.eval_lut_batch(sel, table, P.tgsw_lvl1, backend="onthefly")
     dec = T.mod_switch_from_torus32(
         tlwe.tlwe_phase(out, sk.ring_lvl1)[:, 0], 1 << lut_bits)
     ok = dec.cpu().numpy() == perm[idx]
@@ -1517,6 +1551,7 @@ def phase_circuit(smi: str):
     timed launch and its numbers."""
     from tfhe_tpu_torch import device, noise, tgsw
     from tfhe_tpu_torch.boot import circuit
+    from tfhe_tpu_torch.models import lut
     from tfhe_tpu_torch.ops import kernels as K
     from tfhe_tpu_torch.ops.engine import make_engine
     from tfhe_tpu_torch.params import CB_MXU
@@ -1576,7 +1611,10 @@ def phase_circuit(smi: str):
     print(f"phase 5 CMux: all {batch} TRGSWs select the right message "
           f"(worst phase error {worst} < {limit})")
 
-    check_luts(gsw, idx, r.permutation(1 << lut_bits), sk, P, "CB_MXU")
+    perm = r.permutation(1 << lut_bits)
+    check_luts(lut.eval_lut_batch(
+        gsw.reshape(instances, lut_bits, *gsw.shape[1:]), lut_table(perm),
+        P.tgsw_lvl1), idx, perm, sk, "CB_MXU")
     print(f"phase 5 LUT: all {instances} {lut_bits}-bit LUTs decode "
           f"table[index]")
 
@@ -2577,9 +2615,12 @@ def phase_ref_block(smi: str, name: str) -> dict:
     print(f"phase 12 {name} CMux: all {batch} TRGSWs select the right "
           f"message with the digit on level {levels[-1]} (worst phase error "
           f"{worst} < {limit})")
-    check_luts(gsw, idx, r.permutation(16), sk, P, name)
-    print(f"phase 12 {name} LUT: all {len(idx)} 4-bit LUTs decode "
-          f"table[index]")
+    lut_counts, lut_txt = phase_lut_staged(P, ck, ct, gsw, idx,
+                                           r.permutation(16), sk, name,
+                                           steps, n_priv)
+    by_path[f"{tag}_lut"] = lut_counts
+    print(f"phase 12 {name} LUT through models.lut.make_lut_staged: all "
+          f"{len(idx)} 4-bit LUTs decode table[index]; {lut_txt} [{smi}]")
 
     for _, step, var, value, kernels in CK64_STEPS:
         os.environ[var] = value
@@ -2602,6 +2643,42 @@ def phase_ref_block(smi: str, name: str) -> dict:
     del ck, cb, gsw
     cell_start()
     return by_path
+
+
+def phase_lut_staged(P, ck, ct, gsw, idx, perm, sk, name, steps, n_priv):
+    """The 4-bit LUTs of phase 12's launch through the staged LUT entry
+    (programs A, B, C and the tree's): its answers decode (check_luts) and
+    equal the tree folded over the launch's TRGSWs; one timed launch, its
+    kernel launches, and the tree's device time alone (its four lut_cmux
+    launches) beside its bound.  Returns (the launch counts, a summary)."""
+    from tfhe_tpu_torch.models import lut
+    k, N = len(perm).bit_length() - 1, P.n_lvl1
+    inst = len(idx)
+    leaves = lut.pack_table(lut_table(perm), N, device=ct.device)
+    fn = lut.make_lut_staged(P, "chunked", k)
+    fn(ct, ck.data, leaves)                 # captures the tree's program
+    torch.cuda.synchronize()
+    before = _kernel_counters()
+    t0 = time.perf_counter()
+    out = fn(ct, ck.data, leaves)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts(before)
+    _only(counts, {"rotate_decompose64_ck": steps, "ck_dot64p": steps,
+                   "priv_keyswitch": n_priv, "lut_cmux": k},
+          f"{name} LUT launch")
+    check_luts(out, idx, perm, sk, name)
+    sel = gsw.reshape(inst, k, *gsw.shape[1:])
+    check(torch.equal(out, lut.lut_tree(sel, leaves, P.tgsw_lvl1)),
+          f"{name}: the staged LUT differs from the tree on its TRGSWs")
+    tree_ms = device_ms(lambda: lut.lut_tree(sel, leaves, P.tgsw_lvl1), 10)
+    kp1, l = P.lvl1.k + 1, P.tgsw_lvl1.l
+    rows = inst * ((1 << k) - 1)
+    bnd, by = bound_ms(_nbytes(sel, leaves) + (2 * rows - inst) * kp1 * N * 4,
+                       rows * kp1 * l * N * kp1 * N * 4)
+    return counts, (f"launch {wall:.3f} s; the tree alone {tree_ms:.4f} ms "
+                    f"of device time ({k} lut_cmux launches; bound "
+                    f"{bnd:.4f} ms by {by}, {bnd / tree_ms:.1%} of it)")
 
 
 def phase_ref_blocks(smi: str) -> dict:

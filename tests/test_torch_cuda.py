@@ -1758,3 +1758,92 @@ def test_program_c_needs_the_packed_table(cuda):
     data = {k: v for k, v in ck.data.items() if k != "privks_packed"}
     with pytest.raises(ValueError, match="privks_packed"):
         circuit.circuit_bootstrap(ct, data, CB_TOY)
+
+
+# --- lut_cmux: a level of the batched LUT tree (models/lut.py) ---
+
+def _lut_level(seed, G, S, shared, extreme=False, l=2):
+    """A tree level at the CB blocks' lvl1 shapes: acc (G, 2S, 2, 1024) (an
+    expand of one group's rows where ``shared``: the leaves) and G
+    selectors (G, 2, l, 2, 1024), on the card."""
+    r = np.random.default_rng(seed)
+    N = 1024
+    if extreme:                      # every value at the torus' ends
+        pick = lambda shape: torch.from_numpy(r.choice(  # noqa: E731
+            np.array([-2**31, 2**31 - 1, -1, 0, 1], np.int32), shape))
+    else:
+        pick = lambda shape: _i32(r, shape)  # noqa: E731
+    acc = pick((2 * S, 2, N)).expand(G, 2 * S, 2, N) if shared \
+        else pick((G, 2 * S, 2, N))
+    return acc.cuda(), pick((G, 2, l, 2, N)).cuda()
+
+
+@pytest.mark.parametrize("block,G,S,shared", [
+    ("CB_ACTIVE", 1, 8, True), ("CB_ACTIVE", 4, 8, True),
+    ("CB_ACTIVE", 64, 8, True), ("CB_ACTIVE", 64, 4, False),
+    ("CB_ACTIVE", 64, 1, False), ("CB_ACTIVE", 256, 8, True),
+    ("CB_ACTIVE", 3, 12, False), ("CB_PAPER", 64, 8, True),
+    ("CB_PAPER", 5, 3, False)])
+def test_lut_cmux(cuda, block, G, S, shared):
+    """The kernel against its plain version (run on the card: its float64
+    sums are exact there too) at the CB blocks' lvl1 shapes (CB_ACTIVE l =
+    2; CB_PAPER l = 4: 8 digit polynomials), 1 to 256 groups; the chosen
+    plan is counted."""
+    from tfhe_tpu_torch import params
+    p = getattr(params, block).tgsw_lvl1
+    acc, sel = _lut_level(G * 10 + S, G, S, shared, l=p.l)
+    kw = dict(l=p.l, bgbit=p.bgbit, offset=p.offset)
+    before = dict(obs.report()["counters"])
+    got = K.lut_cmux(acc, sel, **kw)
+    torch.cuda.synchronize()
+    plan = f"lut_cmux.plan.r8.t{K.lut_cmux_plan(1024)}"
+    assert obs.report()["counters"][plan] - before.get(plan, 0) == 1
+    assert torch.equal(got, K.lut_cmux_plain(acc, sel, **kw))
+
+
+@pytest.mark.parametrize("tiles", [1, 4])
+@pytest.mark.parametrize("extreme", [False, True])
+def test_lut_cmux_forced_plans(cuda, tiles, extreme):
+    """Every plan through the raw entry, on random and extreme values."""
+    from tfhe_tpu_torch.params import CB_ACTIVE
+    p = CB_ACTIVE.tgsw_lvl1
+    G, S = 5, 6
+    acc, sel = _lut_level(tiles, G, S, False, extreme)
+    out = torch.empty((G, S, 2, 1024), dtype=torch.int32, device=cuda)
+    K._launch("lut_cmux", acc.device, acc.data_ptr(), acc.stride(0),
+              sel.data_ptr(), sel.stride(0), out.data_ptr(), G, S, 2, p.l,
+              1024, p.bgbit, p.offset, tiles)
+    torch.cuda.synchronize()
+    assert torch.equal(out, K.lut_cmux_plain(acc, sel, l=p.l, bgbit=p.bgbit,
+                                             offset=p.offset))
+
+
+def test_graphed_lut_tree(cuda):
+    """make_lut_staged on the card at CB_TOY: programs A, B, C and the tree
+    (one graph, k lut_cmux launches a replay), equal to the eager run and
+    to the CPU's answers."""
+    from tfhe_tpu_torch.models import lut
+    answers = {}
+    for dev in ("cpu", cuda):
+        rng = TfheRng(9)
+        sk = circuit.CircuitSecretKey.generate(CB_TOY, rng)
+        ck = circuit.CircuitCloudKey.generate(sk, rng, device=dev)
+        bits = np.random.default_rng(2).integers(0, 2, 12)
+        msgs = np.where(bits.astype(bool), -(1 << 31), 0).astype(np.int32)
+        ct = lwe.encrypt(sk.lwe_lvl1, msgs, rng, 2.0**-20, device=dev)
+        table = torch.from_numpy(np.random.default_rng(3).integers(
+            -2**31, 2**31, (16, 64)).astype(np.int32)).to(dev)
+        leaves = lut.pack_table(table, 64)
+        fn = lut.make_lut_staged(CB_TOY, "chunked", 4)
+        if dev == "cpu":
+            answers[dev] = fn(ct, ck.data, leaves)
+            continue
+        other = torch.flip(ct, dims=(0,)).contiguous()
+        captures, replays, stats = _graphed_against_eager(
+            lambda x: fn(x, ck.data, leaves), [(ct,), (other,), (ct,)])
+        assert "lut.tree" in {s["site"] for s in stats}
+        before = _launches()
+        answers[dev] = fn(ct, ck.data, leaves).cpu()
+        torch.cuda.synchronize()
+        assert _launched(before)["lut_cmux"] == 4
+    assert torch.equal(answers["cpu"], answers[cuda])

@@ -35,6 +35,7 @@ FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _U64 = ctypes.c_uint64
+_LL = ctypes.c_longlong
 # Every C entry point: name -> (symbol, argtypes[, source]); the source is
 # csrc/<name>.cu unless named.  Each returns the cudaError_t of its launch,
 # but the *_occupancy queries, which return blocks per SM (or -cudaError),
@@ -79,6 +80,8 @@ SIGNATURES = {
     "ck_cmux_step64_stages": ("tfhe_ck_cmux_step64_stages", [_I, _I],
                               "ck_cmux_step64"),
     "priv_keyswitch": ("tfhe_priv_keyswitch", [_P, _P, _P] + [_I] * 8 + [_P]),
+    "lut_cmux": ("tfhe_lut_cmux", [_P, _LL, _P, _LL, _P] + [_I] * 6
+                 + [_U, _I, _P]),
 }
 
 

@@ -32,6 +32,7 @@ exact) and the mod-2^32 recombination runs in int64.
   ck_cmux_step32              ck_cmux_step32                int8 MACs (reads wm)
   ck_cmux_step64              ck_cmux_step64                int8 MACs (reads wmt)
   priv_keyswitch              none (XLA's one-hot products) bytes read (the table once)
+  lut_cmux                    none (vmapped tgsw.cmux)      int8 MACs (a key per row group)
 
 fused_cmux_step (v1) runs on no path of the port, as in the JAX package,
 where only its tests call it; rotate_decompose64, test-only there too,
@@ -45,7 +46,9 @@ wmt.transpose(-1, -2).  The 32-bit ck_cmux_step32 reads wm, and the 32-bit
 generic contraction transposes it per call (ck_dot64p_wm).  priv_keyswitch,
 the circuit bootstrap's private key switch (program C), has no Pallas
 counterpart: the JAX package leaves it to XLA; it reads the packed table of
-circuit.prepare_privks.
+circuit.prepare_privks.  lut_cmux, a level of the LUT's CMux tree
+(models/lut.py), contracts each group of rows against its own selector,
+built in shared memory from the selector's rows.
 """
 
 from __future__ import annotations
@@ -1540,3 +1543,105 @@ def priv_keyswitch_plan(B: int, kq: int, UN: int, sms: int,
         split = min(fill or [steps], key=lambda S: (cost(S), S))
     S = split_plan(steps, split)[1]
     return rows, S, tiles * S
+
+
+# ---------------------------------------------------------------------------
+# lut_cmux (a level of the batched CMux tree, models/lut.py)
+# ---------------------------------------------------------------------------
+
+# the kernel's block (csrc/lut_cmux.cu): LUT_ROWS rows of one group (the
+# wgmma's N) x 64 T output coefficients of one polynomial, every limb
+LUT_ROWS = 8
+_LUT_PAD = 16              # bytes after each staged key vector
+
+
+def lut_cmux_smem(J: int, N: int) -> int:
+    """Dynamic shared memory of a lut_cmux block: 1 KB of alignment slack,
+    the digits of LUT_ROWS rows (J * N bytes each) and the 4 limbs' doubled
+    key vectors of the J digit polynomials (2N + 16 bytes each)."""
+    return 1024 + LUT_ROWS * J * N + 4 * J * (2 * N + _LUT_PAD)
+
+
+def lut_cmux_plain(acc, sel, *, l: int, bgbit: int, offset: int):
+    """The l balanced digits of d1 - d0 (decomp.decompose_tlwe's formula),
+    then group by group the selector's doubled limbs, its dense negacyclic
+    limb matrices (materialize_w_plain) and mm_recombine_acc_plain on d0:
+    the matmul engine's CMux."""
+    G, S2, kp1, N = acc.shape
+    buf = (T.u32(acc[:, 1::2]) - T.u32(acc[:, 0::2]) + offset) & T.MASK32
+    half = 1 << (bgbit - 1)
+    digits = torch.stack([((buf >> (32 - (w + 1) * bgbit)) & (2 * half - 1))
+                          - half for w in range(l)], dim=-2)
+    digits = digits.to(torch.int8).reshape(G, S2 // 2, kp1 * l * N)
+    out = torch.empty((G, S2 // 2, kp1, N), dtype=torch.int32,
+                      device=acc.device)
+    for g in range(G):
+        rows = sel[g].reshape(kp1 * l, kp1, N)
+        v = T.balanced_limbs(torch.cat([rows, -rows], dim=-1), 4, 8)
+        out[g] = mm_recombine_acc_plain(digits[g], materialize_w_plain(v),
+                                        acc[g, 0::2].contiguous())
+    return out
+
+
+def lut_cmux(acc, sel, *, l: int, bgbit: int, offset: int):
+    """One level of a batched CMux tree whose groups each contract against
+    their own TRGSW selector: out[g, s] = d0 + sel[g] (x) (d1 - d0) mod 2^32
+    with d0 = acc[g, 2s], d1 = acc[g, 2s + 1] (tgsw.cmux of group g's rows
+    on its selector, bit for bit, on any engine: the product is exact).
+
+    acc: (G, 2S, k+1, N) int32, each group's rows contiguous (the groups
+    any stride apart: an ``expand`` of shared leaves reads them in place);
+    sel: (G, k+1, l, k+1, N) int32, group g's selector (rows contiguous,
+    the groups any stride apart: ``gsw[:, j]`` of a (G, k, ...) batch);
+    ``l``, ``bgbit``, ``offset``: the selectors' gadget (TGswParams).
+    Returns (G, S, k+1, N) int32.  The key is the selectors' exact 4-limb
+    torus32 (TGswParams.key_limbs 0); digits of at most 8 bits.
+
+    Kernel: csrc/lut_cmux.cu (no Pallas counterpart: the JAX package vmaps
+    tgsw.cmux).  Bound by its int8 MACs; no per-selector key in device
+    memory: a block stages its selector's doubled limb vectors and the
+    digits of up to LUT_ROWS rows in shared memory, and int8 wgmma takes
+    the negacyclic key as its A operand from registers, 64 output
+    coefficients a tile (lut_cmux_plan: T tiles a block).  Each launch
+    counts ``kernel.lut_cmux`` and ``lut_cmux.plan.r8.t<T>``
+    (utils.observability).  On a card the domain is N a multiple of 64 and
+    the block's shared memory (lut_cmux_smem) within MAX_SMEM."""
+    _require(acc.dtype == torch.int32 and acc.ndim == 4
+             and acc.shape[1] % 2 == 0 and acc[0].is_contiguous(),
+             "lut_cmux acc: (G, 2S, k+1, N) int32, each group contiguous")
+    G, S2, kp1, N = acc.shape
+    _require(sel.dtype == torch.int32 and sel.ndim == 5
+             and tuple(sel.shape) == (G, kp1, l, kp1, N)
+             and sel[0].is_contiguous(),
+             f"lut_cmux sel: ({G}, {kp1}, {l}, {kp1}, {N}) int32, each "
+             f"selector contiguous")
+    _require(1 <= bgbit <= 8 and l * bgbit <= 32,
+             "lut_cmux: digits of 1 to 8 bits, l * bgbit <= 32")
+    _require(kp1 * l * N * (1 << (bgbit - 1)) * 128 < 2**31,
+             "lut_cmux: a limb's sum would leave int32")
+    if _on_cpu(acc, sel):
+        return lut_cmux_plain(acc, sel, l=l, bgbit=bgbit, offset=offset)
+    _require(N % 64 == 0 and lut_cmux_smem(kp1 * l, N) <= MAX_SMEM,
+             f"lut_cmux: the kernel needs N % 64 == 0 and "
+             f"{lut_cmux_smem(kp1 * l, N)} bytes of shared memory within "
+             f"{MAX_SMEM}")
+    _require(acc.data_ptr() % 16 == 0 and sel.data_ptr() % 16 == 0
+             and acc.stride(0) % 4 == 0 and sel.stride(0) % 4 == 0,
+             "lut_cmux: the kernel needs 16-byte aligned groups")
+    S = S2 // 2
+    tiles = lut_cmux_plan(N)
+    out = torch.empty((G, S, kp1, N), dtype=torch.int32, device=acc.device)
+    obs.count("kernel.lut_cmux")
+    obs.count(f"lut_cmux.plan.r{LUT_ROWS}.t{tiles}")
+    _launch("lut_cmux", acc.device, acc.data_ptr(), acc.stride(0),
+            sel.data_ptr(), sel.stride(0), out.data_ptr(), G, S, kp1, l, N,
+            bgbit, offset & T.MASK32, tiles)
+    return out
+
+
+def lut_cmux_plan(N: int) -> int:
+    """T, the tiles of 64 output coefficients a lut_cmux block computes: 4
+    (a block loads one new key run a limb a step for its four tiles; the
+    fastest of 1, 2 and 4 at every level of the cell's tree, PERF.md's
+    kernel table), or 1 where N is not a multiple of 256."""
+    return 4 if N % 256 == 0 else 1
