@@ -30,8 +30,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      digits, which re-laid out must equal the chunk-layout kernel's) at
      CB_MXU, CB_ACTIVE and CB_PAPER B=256, the four 64-bit contractions on the
      K-packed key wmt with their chosen plans, ck_dot64p and ck_dot64p_sacc
-     also at CB_MXU tails B=1, 3, 100, ck_dot64p also at a 4-bit query's
-     B=4 at CB_ACTIVE and CB_PAPER (the key-stationary plan),
+     also at CB_MXU tails B=1, 3, 100 and at a 4-bit query's B=4 at
+     CB_ACTIVE and CB_PAPER (their key-stationary plans; ck_dot64p_sacc
+     beside ck_dot64p + the torch epilogue it replaces),
      rotate_decompose64_ck also at CB_MXU B=1, 3, 100,
      the one-kernel 64-bit step there (CB_PAPER's J*m = 768 on the
      64-row plan) and at CB_MXU tails B=1, 3, 100
@@ -69,8 +70,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      Bg=2^8/l=5, 6-limb bk) at B=256 on the chunked engine through
      CircuitCloudKey.generate (seconds per keygen.circuit.* span) /
      make_circuit_bootstrap_staged, one untimed launch, then a timed one;
-     every step must go through rotate_decompose64_ck + ck_dot64p (1,000 of
-     each per launch: two 500-step rotations) on the prepared K-packed key
+     every step must go through rotate_decompose64_ck + ck_dot64p_sacc
+     (1,000 of each per launch: two 500-step rotations) on the prepared K-packed key
      wmt (the key holds no wm, and no call transposes one) and no 32-bit
      kernel; every
      TRGSW row phase, a CMux driven by each TRGSW and a 4-bit LUT over 64
@@ -159,7 +160,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      each with its whole 8-limb lvl2 key (two digit planes), after the
      CB_MXU state is freed: keys generated on the card (seconds, peak),
      the default step's graphed launch at B=256 (64 four-bit LUT instances;
-     one untimed, one timed; 2,000 rotate_decompose64_ck + ck_dot64p at
+     one untimed, one timed; 2,000 rotate_decompose64_ck + ck_dot64p_sacc at
      CB_PAPER, 1,000 at CB_ACTIVE, and no other CMux kernel), every row
      within 2^-8 of the torus of its expected phase (the JAX package's
      probe rule, boot.probe), the (z=1) rows within h_w/4 at the levels
@@ -675,22 +676,32 @@ def _kernel_cases(seed: int = 0):
                       bound_ms(_nbytes(x, wmt, acc_flat, acc_flat), macs),
                       lib, True))
 
-    # ck_dot64p at a 4-bit query's B=4 (C*B = 128 stacked rows: the
-    # key-stationary plan) at CB_ACTIVE (two planes, J*m = 512, 16 limb rows)
-    # and CB_PAPER (J*m = 768)
+    # ck_dot64p and ck_dot64p_sacc (the default step's contraction) at a
+    # 4-bit query's B=4 (C*B = 128 stacked rows: the key-stationary plans) at
+    # CB_ACTIVE (two planes, J*m = 512, 16 limb rows) and CB_PAPER (J*m =
+    # 768)
     B = 4
     for label, p, L in (("CB_ACTIVE", CB_ACTIVE.tgsw_lvl2, 8),
                         ("CB_PAPER", CB_PAPER.tgsw_lvl2, 8)):
         Jm, UL = kp1 * p.l * m, kp1 * L
         x = i8((B, C * 2 * K.ck_width(Jm)), -64, 65)
         wmt = i8((UL, N + m, Jm))
+        macs = 2 * B * UL * N * (Jm // m) * N
+        lib = ("_int_mm", (x.reshape(B * C * 2, Jm), _wcat(wmt)))
         cases.append(("ck_dot64p", f"{label} B={B}", "csrc/ck_dot64p.cu",
                       f"{PALLAS}:835", K.ck_dot64p, K.ck_dot64p_plain,
                       (x, wmt), dict(N=N, m=m, planes=2),
-                      bound_ms(_nbytes(x, wmt) + UL * B * N * 4,
-                               2 * B * UL * N * (Jm // m) * N),
-                      ("_int_mm", (x.reshape(B * C * 2, Jm), _wcat(wmt))),
+                      bound_ms(_nbytes(x, wmt) + UL * B * N * 4, macs), lib,
                       True))
+        acc_flat = torch.from_numpy(r.integers(-2**63, 2**63, (B, kp1 * N),
+                                               dtype=np.int64))
+        cases.append(("ck_dot64p_sacc", f"{label} B={B}",
+                      "csrc/ck_dot64p_sacc.cu", f"{PALLAS}:966",
+                      K.ck_dot64p_sacc, K.ck_dot64p_acc_plain,
+                      (x, wmt, acc_flat),
+                      dict(N=N, m=m, planes=2, kp1=kp1, key_shift=64 - 8 * L),
+                      bound_ms(_nbytes(x, wmt, acc_flat, acc_flat), macs),
+                      lib, True))
 
     # ck_cmux_step64: the whole 64-bit step on the flat accumulator at
     # CB_MXU, CB_ACTIVE and CB_PAPER B=256, then CB_MXU tail batches
@@ -962,7 +973,7 @@ def phase_kernels(reps: int = 20):
         two_txt = "" if two is None else \
             f", ck_dot64p + torch epilogue {two:.4f} ms"
         if "default_step_ms" in numbers:
-            two_txt = (f", default two-kernel step "
+            two_txt = (f", default step "
                        f"{numbers['default_step_ms']:.4f} ms, acc step "
                        f"{numbers['acc_step_ms']:.4f} ms")
         prof = numbers.get("profiler_ms", "")
@@ -985,14 +996,13 @@ EMITTERS = {"rotate_decompose": "rotate_decompose_kernel",
 # the kernels whose reduction is split over blocks (K slices, chunk windows)
 SPLIT_KERNELS = ("mm_recombine_acc_wt", "ck_cmux_step32")
 # the 64-bit contractions on the K-packed key wmt, and what their plans hold
-K64_PLANS = {"ck_dot64p": "rows, kst", "ck_dot64p_sacc": "rows",
+K64_PLANS = {"ck_dot64p": "rows, kst", "ck_dot64p_sacc": "rows, kst",
              "ck_dot64p_acc": "rows, limbs", "ck_cmux_step64": "rows, split"}
 
 
 def _k64_plan(name, dev_args, kw):
     """The plan the wrapper of ``name`` chooses for these inputs: (rows,
-    key-stationary) of a ck_dot64p block, the rows of a ck_dot64p_sacc
-    block, (rows, limbs) of a ck_dot64p_acc block, (rows, split) of a
+    key-stationary) of a ck_dot64p or ck_dot64p_sacc block, (rows, limbs) of a ck_dot64p_acc block, (rows, split) of a
     ck_cmux_step64 launch."""
     from tfhe_tpu_torch.ops import kernels as K
     if name == "ck_cmux_step64":
@@ -1004,9 +1014,8 @@ def _k64_plan(name, dev_args, kw):
     x, wmt = dev_args[:2]
     UL, _, Jm = wmt.shape
     if name in ("ck_dot64p", "ck_dot64p_sacc"):
-        plan = K.ck_dot64p_plan if name == "ck_dot64p" else \
-            K.ck_dot64p_sacc_plan
-        return plan(x.shape[0], kw["N"], kw["m"], Jm, kw["planes"])
+        return K.ck_dot64p_plan(x.shape[0], kw["N"], kw["m"], Jm,
+                                kw["planes"], entry=name)
     return K.ck_dot64p_acc_plan(x.shape[0], kw["N"], kw["m"], Jm,
                                 UL // kw["kp1"], kw["planes"])
 
@@ -1095,14 +1104,14 @@ def phase_splits(results, reps: int = 10):
 
 def _default_step64(a, acc, wmt, *, l, bgbit, offset, m, planes, kp1,
                     key_shift):
-    """The default 64-bit step (rotate_decompose64_ck + ck_dot64p + the
-    int64 epilogue) on the flat accumulator: what ck_cmux_step64 replaces."""
+    """The default 64-bit step (rotate_decompose64_ck + ck_dot64p_sacc) on
+    the flat accumulator: what ck_cmux_step64 replaces."""
     from tfhe_tpu_torch.ops import kernels as K
     B, N = acc.shape[0], acc.shape[1] // kp1
     x = K.rotate_decompose64_ck(a, acc.view(B, kp1, N), l=l, bgbit=bgbit,
                                 offset=offset, m=m, planes=planes)
-    y = K.ck_dot64p(x, wmt, N=N, m=m, planes=planes)
-    return acc + K.recombine(y, kp1, key_shift).reshape(acc.shape)
+    return K.ck_dot64p_sacc(x, wmt, acc, N=N, m=m, key_shift=key_shift,
+                            planes=planes, kp1=kp1)
 
 
 def _acc_step64(a, acc, wmt, *, l, bgbit, offset, m, planes, kp1,
@@ -1586,7 +1595,7 @@ def phase_circuit(smi: str):
     gsw, first, wall, counts = _cb_launch(cb, ct, ck)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for name, want in (("rotate_decompose64_ck", steps),
-                       ("ck_dot64p", steps),
+                       ("ck_dot64p_sacc", steps), ("ck_dot64p", 0),
                        ("priv_keyswitch", ell1 * (k + 1))):
         check(counts[name] == want, f"CB_MXU: {name} launched "
               f"{counts[name]} times, want {want}")
@@ -1630,23 +1639,27 @@ def phase_circuit(smi: str):
     kw = dict(l=p2.l, bgbit=p2.bgbit, offset=p2.offset, m=eng.m,
               planes=eng.cfg.plane_split[1])
     x = K.rotate_decompose64_ck(a0, acc, **kw)
-    y = K.ck_dot64p(x, wmt0, N=P.n_lvl2, m=eng.m, planes=kw["planes"])
-    rot_ms = cuda_ms(lambda: K.rotate_decompose64_ck(a0, acc, **kw), 20)
-    dot_ms = cuda_ms(lambda: K.ck_dot64p(x, wmt0, N=P.n_lvl2, m=eng.m,
-                                         planes=kw["planes"]), 10)
     accf = acc.reshape(batch, -1)
+    sacc_kw = dict(N=P.n_lvl2, m=eng.m, planes=kw["planes"], kp1=k + 1,
+                   key_shift=eng.cfg.key_shift)
+    rot_ms = cuda_ms(lambda: K.rotate_decompose64_ck(a0, acc, **kw), 20)
+    dot_ms = cuda_ms(lambda: K.ck_dot64p_sacc(x, wmt0, accf, **sacc_kw), 10)
     dev_ms = {"rotate_decompose64_ck": device_ms(
                   lambda: K.rotate_decompose64_ck(a0, acc, **kw)),
               "rotate_decompose64_ck_flat": device_ms(
                   lambda: K.rotate_decompose64_ck_flat(a0, accf, N=P.n_lvl2,
                                                        **kw)),
-              "ck_dot64p": device_ms(lambda: K.ck_dot64p(
-                  x, wmt0, N=P.n_lvl2, m=eng.m, planes=kw["planes"]), 10),
+              "ck_dot64p_sacc": device_ms(
+                  lambda: K.ck_dot64p_sacc(x, wmt0, accf, **sacc_kw), 10),
+              # the pair the default step ran before: ck_dot64p and the
+              # int64 epilogue in torch
+              "ck_dot64p + epilogue": device_ms(lambda: acc + K.recombine(
+                  K.ck_dot64p(x, wmt0, N=P.n_lvl2, m=eng.m,
+                              planes=kw["planes"]), k + 1,
+                  eng.cfg.key_shift), 10),
               "step": device_ms(lambda: eng.cmux_step(
                   a0, acc, prep0, l=p2.l, bgbit=p2.bgbit, offset=p2.offset),
                   10)}
-    epi_ms = cuda_ms(lambda: acc + K.recombine(y, k + 1,
-                                               eng.cfg.key_shift), 20)
     step_ms = cuda_ms(lambda: eng.cmux_step(a0, acc, prep0, l=p2.l,
                                             bgbit=p2.bgbit,
                                             offset=p2.offset), 10)
@@ -1657,14 +1670,13 @@ def phase_circuit(smi: str):
                              ("sacc", "cmux_step_sacc"),
                              ("fused", "cmux_step_flat"))}
     dot_plan = K.ck_dot64p_plan(batch, P.n_lvl2, eng.m, wmt0.shape[-1],
-                                kw["planes"])
+                                kw["planes"], entry="ck_dot64p_sacc")
     pre_ms, priv_ms = _keyswitch_ms(P, ck, ct)
     n_priv = ell1 * (k + 1)
-    total = (rot_ms + dot_ms + epi_ms) * steps + pre_ms + priv_ms * n_priv
+    total = (rot_ms + dot_ms) * steps + pre_ms + priv_ms * n_priv
     print(f"phase 5 breakdown B={batch}: rotate_decompose64_ck "
-          f"{rot_ms:.4f} ms x {steps}, ck_dot64p {dot_ms:.4f} ms x {steps} "
-          f"(plan (rows, kst) {dot_plan}), "
-          f"int64 epilogue {epi_ms:.4f} ms x {steps} (whole step "
+          f"{rot_ms:.4f} ms x {steps}, ck_dot64p_sacc {dot_ms:.4f} ms x "
+          f"{steps} (plan (rows, kst) {dot_plan}; whole step "
           f"{step_ms:.4f} ms), preKS {pre_ms:.3f} ms x 1, privKS "
           f"{priv_ms:.3f} ms x {n_priv}; sum {total:.1f} ms vs "
           f"{wall * 1e3:.1f} ms per launch; peak device memory from before "
@@ -1675,8 +1687,11 @@ def phase_circuit(smi: str):
     rot, one = dev_ms["rotate_decompose64_ck"], dev_ms["step"]
     print(f"phase 5 device time B={batch}: rotate_decompose64_ck {rot:.4f} "
           f"ms x {steps} ({rot / one:.1%} of a default step of {one:.4f} "
-          f"ms, {rot * steps / (wall * 1e3):.1%} of the launch), ck_dot64p "
-          f"{dev_ms['ck_dot64p']:.4f} ms, rotate_decompose64_ck_flat "
+          f"ms, {rot * steps / (wall * 1e3):.1%} of the launch), "
+          f"ck_dot64p_sacc {dev_ms['ck_dot64p_sacc']:.4f} ms (ck_dot64p + "
+          f"the torch epilogue it replaces "
+          f"{dev_ms['ck_dot64p + epilogue']:.4f} ms), "
+          f"rotate_decompose64_ck_flat "
           f"{dev_ms['rotate_decompose64_ck_flat']:.4f} ms; launch floor "
           f"{launch_floor_ms():.4f} ms")
     state = {"ck": ck, "ct": ct, "gsw": gsw, "wall": wall,
@@ -2565,7 +2580,7 @@ def phase_ref_block(smi: str, name: str) -> dict:
     launch_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     _wmt_only(name, ck, counts)
     n_priv = ell1 * (k + 1)
-    _only(counts, {"rotate_decompose64_ck": steps, "ck_dot64p": steps,
+    _only(counts, {"rotate_decompose64_ck": steps, "ck_dot64p_sacc": steps,
                    "priv_keyswitch": n_priv}, f"{name} default step")
     check(tuple(gsw.shape) == (batch, k + 1, ell1, k + 1, P.n_lvl1),
           f"{name}: TRGSW batch of shape {tuple(gsw.shape)}")
@@ -2664,7 +2679,7 @@ def phase_lut_staged(P, ck, ct, gsw, idx, perm, sk, name, steps, n_priv):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _launch_counts(before)
-    _only(counts, {"rotate_decompose64_ck": steps, "ck_dot64p": steps,
+    _only(counts, {"rotate_decompose64_ck": steps, "ck_dot64p_sacc": steps,
                    "priv_keyswitch": n_priv, "lut_cmux": k},
           f"{name} LUT launch")
     check_luts(out, idx, perm, sk, name)

@@ -376,17 +376,18 @@ def test_ck64_kernel_domain_and_plans(N, m, Jm, P, ok):
     """The 64-bit contractions' domain is one predicate (ck_cmux_step64's
     adds m % 4 == 0 for its four-coefficient digit builds): the plan
     functions raise outside it, and inside it choose the rows from B (two
-    warpgroups above 64 rows), ck_dot64p's key-stationary plan where C*B
-    is at most KST_ROWS (m a multiple of 64, J*m at most 768), and
-    ck_dot64p_acc's limbs a pass from L's parity."""
+    warpgroups above 64 rows), ck_dot64p's and ck_dot64p_sacc's
+    key-stationary plan where C*B is at most KST_ROWS (m a multiple of 64,
+    J*m at most 768), and ck_dot64p_acc's limbs a pass from L's parity."""
     assert K.ck64_kernel_ok(N, m, Jm, P) == ok
     assert K.ck_cmux_step64_ok(N, m, Jm, P) == (ok and m % 4 == 0)
     for B in (1, 64, 65, 256):
         rows = 128 if B > 64 else 64
         if not ok:
-            for plan in (K.ck_dot64p_plan, K.ck_dot64p_sacc_plan):
-                with pytest.raises(ValueError, match="kernel needs"):
-                    plan(B, N, m, Jm, P)
+            for entry in ("ck_dot64p", "ck_dot64p_sacc"):
+                with pytest.raises(ValueError,
+                                   match=f"^{entry}: the kernel needs"):
+                    K.ck_dot64p_plan(B, N, m, Jm, P, entry=entry)
             with pytest.raises(ValueError, match="kernel needs"):
                 K.ck_dot64p_acc_plan(B, N, m, Jm, 6, P)
             continue
@@ -394,7 +395,6 @@ def test_ck64_kernel_domain_and_plans(N, m, Jm, P, ok):
         kst = stacked <= 1280 and m % 64 == 0 and Jm <= 768
         assert K.ck_dot64p_plan(B, N, m, Jm, P) == (
             (128, True) if kst else (rows, False))
-        assert K.ck_dot64p_sacc_plan(B, N, m, Jm, P) == rows
         assert K.ck_dot64p_acc_plan(B, N, m, Jm, 6, P) == (rows, 2)
         assert K.ck_dot64p_acc_plan(B, N, m, Jm, 5, P) == (rows, 1)
 
@@ -418,17 +418,20 @@ def test_ck_dot64p_plan_kst(B, N, m, Jm, P, plan):
     stacked rows a block at every B), m is a multiple of the 64-row key
     tile and the key's 64 rows of 4 limb groups fit in 6 K tiles (J*m <=
     768): a CB_ACTIVE or CB_PAPER query's B = 4, CB_MXU's B = 3; every
-    wider batch keeps the output-stationary rows (B = 256: 128)."""
+    wider batch keeps the output-stationary rows (B = 256: 128).
+    ck_dot64p_sacc, the default 64-bit step's contraction, takes the same
+    plan by the same rule and constant."""
     assert K.KST_ROWS == 1280
     assert K.ck_dot64p_plan(B, N, m, Jm, P) == plan
+    assert K.ck_dot64p_plan(B, N, m, Jm, P, entry="ck_dot64p_sacc") == plan
 
 
 def test_kst_ktiles_mirrors_the_kernel():
-    """The key-stationary kernel owns the limit on its resident key
+    """The key-stationary mainloop owns the limit on its resident key
     (KST_MAX_KTILES, held against its shared memory by a static_assert);
-    the plan's KST_KTILES is that number, so the wrapper never picks a
-    launch the kernel refuses."""
-    src = (pathlib.Path(K.__file__).parent / "csrc" / "ck_dot64p.cu"
+    the plan's KST_KTILES is that number, so neither wrapper ever picks a
+    launch its kernel refuses."""
+    src = (pathlib.Path(K.__file__).parent / "csrc" / "ck_kst.cuh"
            ).read_text()
     found = re.findall(r"constexpr int KST_MAX_KTILES = (\d+);", src)
     assert found == [str(K.KST_KTILES)]
@@ -513,6 +516,146 @@ def test_ck_dot64p_kst_model(N, m, P, B):
     assert one_sign == (m % 64 == 0)
 
 
+def _kst_sacc_model(x, wmt, acc, *, N, m, planes, kp1, key_shift,
+                    rows=128):
+    """ck_dot64p_sacc's key-stationary plan in torch, in the kernel's
+    layout: block (z, gz, t) folds key rows [64t, 64t + 64) of limb groups
+    [4gz, 4gz + 4) (zero past N+m and UL) against stacked rows rr = b*C + c
+    in [rows*z, rows*(z + 1)) into int32, planes highest first; for each
+    polynomial u the block's limb rows g belong to, it sums each row's
+    limbs, widened and shifted by 8 (g - u*L) + key_shift (64 or more:
+    gone), negates the sum where c*m + 64t lies at or above N and adds the
+    staged 64 int64 into out[b, u*N + (c*m + 64t) mod N ..] (a TMA
+    reduction), rows past C*B dropped; out starts as acc.  Returns out and
+    how many staged rows each block sent per stacked row, at most."""
+    UL, Npm, Jm = wmt.shape
+    L, B, C = UL // kp1, x.shape[0], N // m
+    NT, GZ, S = -(-Npm // 64), -(-UL // 4), -(-B * C // rows)
+    ckp = K.ck_width(Jm)
+    a = torch.zeros((S * rows, planes, Jm), dtype=torch.float64)
+    a[:B * C] = x.reshape(B * C, planes, ckp)[..., :Jm].double()
+    key = torch.zeros((GZ * 4, NT * 64, Jm), dtype=torch.float64)
+    key[:UL, :Npm] = wmt.double()
+    out = acc.clone().reshape(-1)
+    most = 0
+    for z in range(S):
+        rr = torch.arange(rows * z, rows * (z + 1))
+        live = rr < B * C
+        b, c = rr // C, rr % C
+        for gz in range(GZ):
+            last = min(4 * gz + 4, UL) - 1
+            for t in range(NT):
+                w = key[4 * gz:4 * gz + 4, 64 * t:64 * t + 64]
+                fold = torch.zeros((rows, 4, 64), dtype=torch.int64)
+                for p in reversed(range(planes)):
+                    fold = T.wrap32((fold << 7) + torch.einsum(
+                        "rk,gqk->rgq", a[rr, p], w).long()).long()
+                r = c * m + 64 * t
+                upper = r >= N
+                col = torch.where(upper, r - N, r)
+                us = range(4 * gz // L, last // L + 1)
+                most = max(most, len(us))
+                for u in us:
+                    staged = torch.zeros((rows, 64), dtype=torch.int64)
+                    for lg in range(4):
+                        gi = 4 * gz + lg
+                        s = 8 * (gi - u * L) + key_shift
+                        if gi <= last and gi // L == u and s < 64:
+                            staged += fold[:, lg] << s
+                    staged = torch.where(upper[:, None], -staged, staged)
+                    idx = ((b * kp1 * N + u * N + col)[:, None]
+                           + torch.arange(64)[None])
+                    out.index_add_(0, idx[live].reshape(-1),
+                                   staged[live].reshape(-1))
+    return out.reshape(acc.shape), most
+
+
+@pytest.mark.parametrize("N,m,kp1,L,l,P,B,key_shift,extreme,most", [
+    (256, 64, 2, 8, 2, 2, 4, 0, False, 1),   # CB_ACTIVE's limbs and planes
+    (256, 64, 2, 8, 2, 2, 3, 16, True, 1),   # limbs 6, 7 shifted out
+    (256, 64, 2, 6, 3, 1, 33, 24, False, 2),  # straddling groups, 2 slices
+    (512, 64, 2, 6, 2, 1, 5, 24, True, 2),
+    (512, 128, 3, 3, 1, 1, 2, 40, False, 2),  # k = 2, a ragged limb group
+    (256, 64, 4, 1, 1, 2, 3, 56, True, 4)])  # one-limb keys: two passes
+def test_ck_dot64p_sacc_kst_model(N, m, kp1, L, l, P, B, key_shift,
+                                   extreme, most):
+    """The key-stationary epilogue of ck_dot64p_sacc (limbs widened,
+    shifted and summed per polynomial, one staged int64 row per polynomial
+    and stacked row, negated above N, reduced into an acc-filled output)
+    equals ck_dot64p_acc_plain bit for bit: L = 8 (one polynomial a limb
+    group), L = 6 and 3 (a group straddling two) and L = 1 (four, which
+    the kernel stages two a pass), shifts of 64 or more vanishing, stacked
+    rows past C*B, and the contract's extreme digits (P = 1: -128 and 127;
+    P = 2: -256 and 255 as (high, low) planes (-2, 0) and (2, -1)) against
+    key limbs of -128."""
+    r = np.random.default_rng(41 + N + L + B)
+    C, Jm = N // m, kp1 * l * m
+    UL = kp1 * L
+    width = C * P * K.ck_width(Jm)
+    if extreme:
+        x = np.zeros((B, C, P, width // (C * P)), np.int8)
+        # each plane's value in the even and in the odd batch rows
+        even, odd = ((-128,), (127,)) if P == 1 else ((0, -2), (-1, 2))
+        for p in range(P):
+            x[0::2, :, p], x[1::2, :, p] = even[p], odd[p]
+        x = x.reshape(B, width)
+        wmt = np.full((UL, N + m, Jm), -128, np.int8)
+    else:
+        lo, hi = (-128, 128) if P == 1 else (-64, 65)
+        x = r.integers(lo, hi, (B, width)).astype(np.int8)
+        wmt = r.integers(-128, 128, (UL, N + m, Jm)).astype(np.int8)
+    x, wmt = torch.from_numpy(x), torch.from_numpy(wmt)
+    acc = torch.from_numpy(_i64(r, (B, kp1 * N)))
+    kw = dict(N=N, m=m, planes=P, kp1=kp1, key_shift=key_shift)
+    assert K.ck_dot64p_exact(Jm // m, N, m, 8 if P == 1 else 9)
+    got, polys = _kst_sacc_model(x, wmt, acc, **kw)
+    assert torch.equal(got, K.ck_dot64p_acc_plain(x, wmt, acc, **kw))
+    assert polys == most
+
+
+@pytest.mark.parametrize("gadget", ["cb_toy", "mxu"])
+def test_chunked_cmux_step64_ends_in_its_contraction(monkeypatch, gadget):
+    """The chunked engine's default 64-bit step is rotate_decompose64_ck
+    then ck_dot64p_sacc on acc's flat view, and nothing after it: its
+    result equals acc + recombine(ck_dot64p_plain(digits)), ck_dot64p is
+    not called, and the (B, k+1, N) result views the contraction's output
+    (no epilogue of torch ops follows; on the CPU the contraction's plain
+    version recombines inside)."""
+    p = T_TOY.tgsw_lvl2
+    if gadget == "mxu":                       # one plane, six key limbs
+        _, p = _tgsw_pair(5, 8, 128, 1, 6)
+    r = np.random.default_rng(15)
+    B, N, k = 5, p.tlwe.N, p.tlwe.k
+    te = engine.make_engine(tgsw.engine_config(p), "chunked")
+    P = te.cfg.plane_split[1]
+    prep = te.prepare(torch.from_numpy(
+        r.integers(-2**50, 2**50, (p.kpl, k + 1, N)).astype(np.int64)))
+    acc = torch.from_numpy(_i64(r, (B, k + 1, N)))
+    a = torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
+    kw = dict(l=p.l, bgbit=p.bgbit, offset=p.offset)
+    x = K.rotate_decompose64_ck(a, acc, m=te.m, planes=P, **kw)
+    want = acc + K.recombine(K.ck_dot64p_plain(x, prep["wmt"], N=N, m=te.m,
+                                               planes=P), k + 1,
+                             te.cfg.key_shift)
+    seen, outs = [], []
+
+    def spy(name, real):
+        def call(*args, **kwargs):
+            seen.append(name)
+            out = real(*args, **kwargs)
+            outs.append(out)
+            return out
+        return call
+
+    for name in ("ck_dot64p_sacc", "ck_dot64p"):
+        monkeypatch.setattr(K, name, spy(name, getattr(K, name)))
+    got = te.cmux_step(a, acc, prep, **kw)
+    assert seen == ["ck_dot64p_sacc"]
+    assert got.shape == (B, k + 1, N)
+    assert got.data_ptr() == outs[0].data_ptr()
+    _same(got, want.numpy())
+
+
 def test_ck_dot64p_asserts_the_int32_bound():
     x = torch.zeros((2, 2 * 4 * 128), dtype=torch.int8)
     wmt = torch.zeros((2, 128 + 64, 4 * 64), dtype=torch.int8)
@@ -556,7 +699,8 @@ def test_converted_circuit_key_carries_wmt():
 
 
 @pytest.mark.parametrize("var,value,name,arg", [
-    ("", "", "ck_dot64p", 1), ("TFHE_CK64_PATH", "acc", "ck_dot64p_acc", 1),
+    ("", "", "ck_dot64p_sacc", 1),
+    ("TFHE_CK64_PATH", "acc", "ck_dot64p_acc", 1),
     ("TFHE_CK64_PATH", "sacc", "ck_dot64p_sacc", 1),
     ("TFHE_CK64_FUSED", "1", "ck_cmux_step64", 2)])
 def test_64_bit_steps_read_the_prepared_k_packed_key(monkeypatch, var,

@@ -861,7 +861,7 @@ def test_cb_toy_same_on_card_and_cpu(cuda):
 
 
 @pytest.mark.parametrize("env,kernels", [
-    ({}, ("rotate_decompose64_ck", "ck_dot64p")),
+    ({}, ("rotate_decompose64_ck", "ck_dot64p_sacc")),
     ({"TFHE_CK64_PATH": "acc"}, ("rotate_decompose64_ck_flat",
                                  "ck_dot64p_acc")),
     ({"TFHE_CK64_PATH": "sacc"}, ("rotate_decompose64_ck_flat",
@@ -985,15 +985,16 @@ def test_rotate_decompose64(cuda, B, k, N, l, bgbit):
 
 
 def _ck_dot64p_sacc_rows(x, wmt, acc, *, N, m, planes, kp1, key_shift,
-                         rows):
-    """ck_dot64p_sacc's kernel at a forced row tile, through its raw
-    entry."""
+                         rows, kst=False):
+    """ck_dot64p_sacc's kernel at a forced plan, through its raw entry: the
+    output-stationary plan's row tile, or the key-stationary plan's
+    (``kst``)."""
     UL, _, Jm = wmt.shape
     out = torch.empty_like(acc)
     K._launch("ck_dot64p_sacc", x.device,
               x.data_ptr(), wmt.data_ptr(), acc.data_ptr(),
               out.data_ptr(), x.shape[0], N, m, Jm, kp1, UL // kp1, planes,
-              K.ck_width(Jm), key_shift, rows)
+              K.ck_width(Jm), key_shift, rows, int(kst))
     return out
 
 
@@ -1011,20 +1012,151 @@ CK64_ATOMIC_CASES = [(B, 2048, 5, 2, 6, 64, 1) for B in (1, 3, 37, 100, 256)
                           (130, 256, 11, 2, 3, 16, 1)]
 
 
+# ck_dot64p_sacc's key-stationary plan at a query's batches and around
+# KST_ROWS (B = 40: 1,280 stacked rows, ten 128-row slices): CB_ACTIVE's
+# lvl2 shape (J*m = 512, 8 limbs, two planes), CB_PAPER's (768) and CB_MXU's
+# (640, 6 limbs: limb groups straddling the two polynomials, one plane);
+# one-limb keys (four polynomials a limb group: two passes, the second of
+# one or two polynomials)
+KST_SACC_CASES = [(B, 2048, l, 2, L, 64, P) for B in (1, 3, 4, 40)
+                  for l, L, P in ((4, 8, 2), (6, 8, 2), (5, 6, 1))] + [
+    (4, 1024, 2, 4, 1, 64, 1), (3, 1024, 2, 3, 1, 64, 2)]
+
+
+def _contract_extremes(x, P, ckp):
+    """x with every digit at the wrappers' contract's extremes, rows
+    alternating (P = 1: -128 and 127, as _ck64_inputs gives them; P = 2,
+    9-bit digits: -256 = (-2, 0) and 255 = (2, -1) as (high, low) planes):
+    the largest folds a key-stationary block's int32 partials must hold
+    exactly, since its epilogue widens each before the blocks' sums
+    meet."""
+    if P == 1:
+        return x
+    x = x.clone()
+    v = x.view(x.shape[0], -1, 2, ckp)
+    v[0::2, :, 0], v[0::2, :, 1] = 0, -2
+    v[1::2, :, 0], v[1::2, :, 1] = -1, 2
+    return x
+
+
 @pytest.mark.parametrize("extreme", [False, True])
-@pytest.mark.parametrize("B,N,l,kp1,L,m,P", CK64_ATOMIC_CASES)
+@pytest.mark.parametrize("B,N,l,kp1,L,m,P",
+                         CK64_ATOMIC_CASES + KST_SACC_CASES)
 def test_ck_dot64p_sacc(cuda, B, N, l, kp1, L, m, P, extreme):
-    """The chosen plan and both row tiles forced, on wmt, with random and
-    extreme digits (test_ck_dot64p_extreme_digits's)."""
+    """The chosen plan, both row tiles forced and the key-stationary plan
+    forced where its domain takes the shape (ck_kst_ok), on wmt, with
+    random and extreme digits: for the output-stationary plans, chosen or
+    forced, test_ck_dot64p_extreme_digits's (at P = 2 both planes at +-64,
+    past the 9-bit digits' contract: the int32 folds wrap, as plain's
+    wrap32 does), for the key-stationary plan, chosen or forced, the
+    contract's (_contract_extremes: a key-stationary block widens its
+    tile's partial fold, which equals plain's only where the fold is
+    exact)."""
     r = np.random.default_rng(12)
     x, wmt = _ck64_inputs(r, B, N, kp1 * l, kp1 * L, m, P, extreme)
     acc = _i64(r, (B, kp1 * N))
     kw = dict(N=N, m=m, planes=P, kp1=kp1, key_shift=max(0, 64 - 8 * L))
-    _on_card_vs_plain(K.ck_dot64p_sacc, K.ck_dot64p_acc_plain, (x, wmt, acc),
-                      kw, cuda)
+    Jm = kp1 * l * m
+    xk = _contract_extremes(x, P, K.ck_width(Jm)) if extreme else x
     for rows in (64, 128):
         _on_card_vs_plain(_ck_dot64p_sacc_rows, K.ck_dot64p_acc_plain,
                           (x, wmt, acc), kw, cuda, rows=rows)
+    _, kst = K.ck_dot64p_plan(B, N, m, Jm, P)
+    _on_card_vs_plain(K.ck_dot64p_sacc, K.ck_dot64p_acc_plain,
+                      (xk if kst else x, wmt, acc), kw, cuda)
+    if K.ck_kst_ok(N, m, Jm):
+        _on_card_vs_plain(_ck_dot64p_sacc_rows, K.ck_dot64p_acc_plain,
+                          (xk, wmt, acc), kw, cuda, rows=128, kst=True)
+
+
+@pytest.mark.parametrize("B,l,name", [
+    (4, 4, "ck_dot64p_sacc.plan.kst128x64.jm512.p2"),
+    (256, 4, "ck_dot64p_sacc.plan.128x64.jm512.p2"),
+    (256, 6, "ck_dot64p_sacc.plan.128x64.jm768.p2")])
+def test_ck_dot64p_sacc_plan_counter(cuda, B, l, name):
+    """ck_dot64p_sacc at a CB_ACTIVE query's B=4 (the key-stationary plan)
+    and at CB_ACTIVE's and CB_PAPER's B=256 counts its own plan once,
+    eagerly and under each of two graph replays, with the plain version's
+    bits every time (the blocks' reductions land in a different order each
+    launch)."""
+    from tfhe_tpu_torch import graphs
+    r = np.random.default_rng(19)
+    x, wmt = _ck64_inputs(r, B, 2048, 2 * l, 16, 64, 2)
+    x, wmt = x.to(cuda), wmt.to(cuda)
+    acc = _i64(r, (B, 2 * 2048)).to(cuda)
+    kw = dict(N=2048, m=64, planes=2, kp1=2, key_shift=0)
+    want = K.ck_dot64p_acc_plain(x, wmt, acc, **kw)
+
+    def plans(call):
+        before = obs.report()["counters"]
+        out = call()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        after = obs.report()["counters"]
+        return {k: v - before.get(k, 0) for k, v in after.items()
+                if k.startswith("ck_dot64p") and v != before.get(k, 0)}
+
+    assert plans(lambda: K.ck_dot64p_sacc(x, wmt, acc, **kw)) == {name: 1}
+    graphs.clear()
+
+    def fn(x, acc):
+        return K.ck_dot64p_sacc(x, wmt, acc, **kw)
+
+    def graphed():
+        return graphs.run("test.ck_dot64p_sacc", ("ck_dot64p_sacc", B, l),
+                          fn, (x, acc), (wmt,)).clone()
+
+    assert plans(graphed) == {name: 1}         # the capture's warm-up call
+    assert plans(graphed) == {name: 1}         # a replay
+    assert plans(graphed) == {name: 1}         # and another
+    assert graphs.stats()[0]["replays"] == 2
+    graphs.clear()
+
+
+@pytest.mark.parametrize("B", [4, 256])
+def test_graphed_default_step64(cuda, B):
+    """The chunked engine's default 64-bit step at CB_ACTIVE's lvl2 shape
+    (rotate_decompose64_ck + ck_dot64p_sacc, the epilogue in the
+    contraction), graphed against eager on three inputs, equal to the
+    former step's bits (ck_dot64p + the torch epilogue); its counters
+    show ck_dot64p_sacc's plan (the key-stationary one at B=4) and no
+    ck_dot64p launch."""
+    from tfhe_tpu_torch import graphs, tgsw
+    from tfhe_tpu_torch.ops.engine import make_engine
+    from tfhe_tpu_torch.params import CB_ACTIVE
+    p = CB_ACTIVE.tgsw_lvl2
+    eng = make_engine(tgsw.engine_config(p), "chunked")
+    r = np.random.default_rng(20)
+    N, kp1 = p.tlwe.N, p.tlwe.k + 1
+    UL, Jm = kp1 * eng.cfg.num_limbs, p.kpl * eng.m
+    prep = {"wmt": _i8(r, (UL, N + eng.m, Jm)).to(cuda)}
+    kw = dict(l=p.l, bgbit=p.bgbit, offset=p.offset)
+    inputs = [(torch.from_numpy(r.integers(0, 2 * N, (B,)).astype(np.int32))
+               .to(cuda), _i64(r, (B, kp1, N)).to(cuda)) for _ in range(3)]
+
+    def step(a, acc):
+        return graphs.run("test.default_step64", ("step64", B),
+                          lambda a_, acc_: eng.cmux_step(a_, acc_, prep,
+                                                         **kw),
+                          (a, acc), (prep["wmt"],))
+
+    before = obs.report()["counters"]
+    captures, replays, _ = _graphed_against_eager(step, inputs)
+    after = obs.report()["counters"]
+    assert (captures, replays) == (1, 2)
+    counted = {k for k, v in after.items() if v != before.get(k, 0)}
+    plan = "kst128x64" if B == 4 else "128x64"
+    assert f"ck_dot64p_sacc.plan.{plan}.jm{Jm}.p{eng.cfg.plane_split[1]}" \
+        in counted
+    assert not any(k.startswith("ck_dot64p.plan.") for k in counted)
+    assert "kernel.ck_dot64p" not in counted
+    P = eng.cfg.plane_split[1]
+    for a, acc in inputs:
+        x = K.rotate_decompose64_ck(a, acc, m=eng.m, planes=P, **kw)
+        y = K.ck_dot64p(x, prep["wmt"], N=N, m=eng.m, planes=P)
+        want = acc + K.recombine(y, kp1, eng.cfg.key_shift)
+        assert torch.equal(eng.cmux_step(a, acc, prep, **kw), want)
+    graphs.clear()
 
 
 def _ck_cmux_step64_plan(a, acc, wmt, *, l, bgbit, offset, m, kp1,

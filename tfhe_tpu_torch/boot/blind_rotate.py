@@ -11,8 +11,11 @@ tensor-core contraction.  Each step takes, in order:
     kernel: one digit plane, bgbit <= 8, at most 3 key limbs); on the
     chunked engine at 32 bits one ``ck_cmux_step32`` kernel (one digit
     plane, bgbit <= 8); on the chunked engine at 64 bits
-    ``rotate_decompose64_ck`` + ``ck_dot64p`` + an int64 epilogue, with the
-    Torus64 accumulator carried natively as (B, k+1, N) int64;
+    ``rotate_decompose64_ck`` + ``ck_dot64p_sacc``, whose epilogue
+    recombines the limbs and adds them into the accumulator (the JAX
+    package's default is ``ck_dot64p`` + an XLA epilogue, the same bits
+    within the digit contract),
+    with the Torus64 accumulator carried natively as (B, k+1, N) int64;
   * else the generic step: ``rotate_decompose`` (32 bits, bgbit <= 8) or the
     plain rotate + decompose, then ``engine.accumulate_into``
     (the K-packed key, ``materialize_wt`` or the matmul engine's dense key
@@ -27,7 +30,8 @@ At 64 bits two environment variables select the JAX package's opt-in
 steps, with its precedence: ``TFHE_CK64_PATH`` first (``acc``: the chunked
 engine's fused-epilogue step, ``rotate_decompose64_ck_flat`` +
 ``ck_dot64p_acc``; ``sacc``: the same with the limb axis in the grid,
-``rotate_decompose64_ck_flat`` + ``ck_dot64p_sacc``), then
+``rotate_decompose64_ck_flat`` + ``ck_dot64p_sacc``, the default step's
+contraction after the flat-layout emitter), then
 ``TFHE_CK64_FUSED`` when set and not ``"0"`` (the whole step in one
 ``ck_cmux_step64`` kernel), then the default step.  The loop carries the
 accumulator as (B, k+1, N) on every step; the opt-in steps take its flat

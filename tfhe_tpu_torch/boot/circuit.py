@@ -17,7 +17,7 @@ then +abar steps.  One blind rotation may serve all ell1 output levels
 shares, CB_MXU and CB_ACTIVE rotate once per level).
 
 On the card the blind rotation runs the chunked engine's 64-bit step
-(``rotate_decompose64_ck`` + ``ck_dot64p``), the port's default backend
+(``rotate_decompose64_ck`` + ``ck_dot64p_sacc``), the port's default backend
 here; ``backend="conv"`` (the JAX package's default) gives the same TRGSWs
 bit for bit through the generic step (``materialize_wt`` + int8 GEMMs, no
 step kernel of its own); the pre-key-switch is a one-hot int8 product

@@ -71,9 +71,8 @@ SIGNATURES = {
                            [_P, _P, _P, _I, _I, _I, _I, _I, _U64, _I, _I,
                             _I, _I, _P],
                            "rotate_decompose64_ck"),
-    "ck_dot64p_sacc": ("tfhe_ck_dot64p_sacc", [_P, _P, _P, _P, _I, _I, _I,
-                                               _I, _I, _I, _I, _I, _I, _I,
-                                               _P]),
+    "ck_dot64p_sacc": ("tfhe_ck_dot64p_sacc", [_P, _P, _P, _P] + [_I] * 11
+                       + [_P]),
     "ck_cmux_step64": ("tfhe_ck_cmux_step64",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _U64,
                         _I, _I, _I, _P]),

@@ -364,19 +364,35 @@ inline bool encode_i8_map(CUtensorMap* map, const void* base, int rank,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// An int32 tensor map of rank ``rank``, unswizzled (boxes land row after
-// row, as a plain array), for TMA reductions.
-inline bool encode_i32_map(CUtensorMap* map, const void* base, int rank,
-                           const cuuint64_t* dims, const cuuint64_t* strides,
-                           const cuuint32_t* box) {
+// A tensor map of rank ``rank`` over elements of ``type``, unswizzled
+// (boxes land row after row, as a plain array), for TMA reductions.
+inline bool encode_flat_map(CUtensorMap* map, CUtensorMapDataType type,
+                            const void* base, int rank,
+                            const cuuint64_t* dims, const cuuint64_t* strides,
+                            const cuuint32_t* box) {
   const EncodeTiled enc = tensor_map_encoder();
   const cuuint32_t unit[3] = {1, 1, 1};
   return enc != nullptr
-         && enc(map, CU_TENSOR_MAP_DATA_TYPE_INT32, rank,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_NONE,
+         && enc(map, type, rank, const_cast<void*>(base), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// An int32 flat map: TMA reductions add mod 2^32.
+inline bool encode_i32_map(CUtensorMap* map, const void* base, int rank,
+                           const cuuint64_t* dims, const cuuint64_t* strides,
+                           const cuuint32_t* box) {
+  return encode_flat_map(map, CU_TENSOR_MAP_DATA_TYPE_INT32, base, rank, dims,
+                         strides, box);
+}
+
+// A uint64 flat map: TMA reductions add mod 2^64, the Torus64's addition.
+inline bool encode_u64_map(CUtensorMap* map, const void* base, int rank,
+                           const cuuint64_t* dims, const cuuint64_t* strides,
+                           const cuuint32_t* box) {
+  return encode_flat_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT64, base, rank, dims,
+                         strides, box);
 }
 
 }  // namespace tfhe

@@ -431,9 +431,12 @@ class ChunkedEngine(_EngineBase):
 
         32 bits: one ck_cmux_step32 kernel.  64 bits, on the native int64
         accumulator: rotate_decompose64_ck (digits straight into the chunk
-        layout) -> ck_dot64p on prepared["wmt"] -> limb recombination +
-        accumulator add in int64 torch ops (the JAX package's XLA
-        epilogue); None on a card outside its kernel's domain."""
+        layout) -> ck_dot64p_sacc on prepared["wmt"] and acc's flat view,
+        the limb recombination and the accumulator add in the contraction's
+        epilogue (the JAX package runs ck_dot64p and an XLA epilogue here:
+        the same bits within the digit contract, which the digits
+        rotate_decompose64_ck makes keep); None on a card outside its
+        kernels' domain."""
         cfg = self.cfg
         if acc.ndim != 3:
             return None
@@ -450,9 +453,11 @@ class ChunkedEngine(_EngineBase):
         B, kp1, N = acc.shape
         x = kernels.rotate_decompose64_ck(a, acc, l=l, bgbit=bgbit,
                                           offset=offset, m=self.m, planes=P)
-        y = kernels.ck_dot64p(x, wmt, N=N, m=self.m, planes=P,
-                              digit_bits=cfg.digit_bits)
-        return acc + kernels.recombine(y, kp1, cfg.key_shift)
+        out = kernels.ck_dot64p_sacc(x, wmt, acc.reshape(B, kp1 * N), N=N,
+                                     m=self.m, key_shift=cfg.key_shift,
+                                     planes=P, kp1=kp1,
+                                     digit_bits=cfg.digit_bits)
+        return out.view(B, kp1, N)
 
     def _flat64_planes(self, acc_flat, prepared, fused: bool = False):
         """The digit planes of the 64-bit steps on the flat accumulator (the

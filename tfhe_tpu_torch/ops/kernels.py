@@ -853,16 +853,17 @@ def _ck64_require(name, N, m, Jm, planes, ok=ck64_kernel_ok):
 # The plans of the wgmma contractions (csrc/ck_dot64p.cu, ck_dot64p_sacc.cu,
 # ck_dot64p_acc.cu): a block owns 64 folded columns for 64 or 128 batch rows
 # (one or two consumer warpgroups sharing each key tile), the rows chosen
-# from B.  ck_dot64p alone also has a key-stationary plan for small batches:
-# a block owns 64 key rows and multiplies them, read once, with 128 of the
-# C*B (chunk, batch) rows stacked along M.
+# from B.  ck_dot64p and ck_dot64p_sacc also have a key-stationary plan for
+# small batches (csrc/ck_kst.cuh): a block owns 64 key rows and multiplies
+# them, read once, with 128 of the C*B (chunk, batch) rows stacked along M.
 # Memoized: the 1,000 steps of a circuit bootstrap ask with the same shapes.
 # ck_dot64p and ck_dot64p_sacc count their plan and contraction depth a
 # launch in utils.observability, ``<entry>.plan.<rows>x64.jm<J*m>.p<planes>``
 # (``kst<rows>`` for the key-stationary plan); graph replays add the count
 # again (graphs.py), so a step pays no host cost.
 
-# the stacked rows (C*B) up to which ck_dot64p takes the key-stationary plan:
+# the stacked rows (C*B) up to which ck_dot64p and ck_dot64p_sacc take the
+# key-stationary plan:
 # one 128-row slice reads the key once, each further slice reads it again;
 # the crossover against the output-stationary plan, measured at CB_ACTIVE's
 # and CB_PAPER's lvl2 shapes (C = 32, 16 limb rows, two planes, J*m = 512
@@ -872,7 +873,7 @@ def _ck64_require(name, N, m, Jm, planes, ok=ck64_kernel_ok):
 KST_ROWS = 1280
 # the key-stationary block's resident key: 64 rows x 4 limb groups x J*m
 # bytes in K tiles of 128, at most 6 (192 KB) beside its digit ring; the
-# kernel owns the limit (KST_MAX_KTILES in csrc/ck_dot64p.cu, held there
+# kernel owns the limit (KST_MAX_KTILES in csrc/ck_kst.cuh, held there
 # against its shared memory by a static_assert), this mirrors it
 KST_KTILES = 6
 
@@ -889,25 +890,18 @@ def ck_kst_ok(N: int, m: int, Jm: int) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def ck_dot64p_plan(B: int, N: int, m: int, Jm: int, planes: int) -> tuple:
-    """(rows, kst) of a ck_dot64p launch: the key-stationary plan (kst
-    True; rows 128, a block's slice of the C*B stacked rows) where C*B <=
-    KST_ROWS inside ck_kst_ok, else the output-stationary plan's batch rows
-    (its 64 columns of 4 limb rows are fixed).  Raises outside
-    ck64_kernel_ok."""
-    _ck64_require("ck_dot64p", N, m, Jm, planes)
+def ck_dot64p_plan(B: int, N: int, m: int, Jm: int, planes: int,
+                   entry: str = "ck_dot64p") -> tuple:
+    """(rows, kst) of a ck_dot64p or ck_dot64p_sacc launch (``entry``, the
+    name a domain error gives): the key-stationary plan (kst True; rows
+    128, a block's slice of the C*B stacked rows) where C*B <= KST_ROWS
+    inside ck_kst_ok, else the output-stationary plan's batch rows (its 64
+    columns of 4 limb rows are fixed).  Raises outside ck64_kernel_ok."""
+    _ck64_require(entry, N, m, Jm, planes)
     stacked = (N // m) * B
     if stacked <= KST_ROWS and ck_kst_ok(N, m, Jm):
         return 128, True
     return _ck_rows(B), False
-
-
-@functools.lru_cache(maxsize=None)
-def ck_dot64p_sacc_plan(B: int, N: int, m: int, Jm: int, planes: int) -> int:
-    """The batch rows of a ck_dot64p_sacc block (ck_dot64p's
-    output-stationary rows).  Raises outside ck64_kernel_ok."""
-    _ck64_require("ck_dot64p_sacc", N, m, Jm, planes)
-    return _ck_rows(B)
 
 
 @functools.lru_cache(maxsize=None)
@@ -1073,14 +1067,24 @@ def ck_dot64p_sacc(x, wmt, acc, *, N: int, m: int, key_shift: int,
     ck_dot64p_acc_plain) with the limb axis in the grid, on the K-packed
     key wmt.
 
-    Kernel: csrc/ck_dot64p_sacc.cu (replaces pallas_kernels.ck_dot64p_sacc).
-    Bound by int8 tensor-core MACs, on ck_dot64p's output-stationary
-    mainloop and grid (64 folded columns of 4 limb rows for 64 or 128 batch
-    rows, ck_dot64p_sacc_plan).  A block widens and shifts its limbs'
-    folded products, sums those of one polynomial (a group of 4 limb rows
-    may straddle two) and adds the sum into the output with 64-bit
-    atomicAdd, after acc is copied there on the same stream; the additions
-    commute mod 2^64, so the result is the same bits whatever the order."""
+    Kernel: csrc/ck_dot64p_sacc.cu (replaces pallas_kernels.ck_dot64p_sacc),
+    in ck_dot64p's two plans (ck_dot64p_plan), each ending in the limb
+    recombination and the accumulator add, after acc is copied into the
+    output on the same stream.  Output-stationary, bound by int8
+    tensor-core MACs: 64 folded columns of 4 limb rows for 64 or 128 batch
+    rows; a block widens and shifts its limbs' folded products, sums those
+    of one polynomial (a group of 4 limb rows may straddle two) and adds
+    the sum into the output with 64-bit atomicAdd.  Key-stationary, where
+    C*B <= KST_ROWS (a 4-bit query's B=4), bound by the key's bytes: 64 key
+    rows of 4 limb rows, read once, against 128 stacked (chunk, batch)
+    rows; a block sums its limbs the same way, negates the rows whose ring
+    tile lies at or above N and adds one staged int64 row per polynomial
+    with a TMA reduction.  The additions commute mod 2^64, so the result is
+    the same bits whatever the order; it is the plain version's within the
+    asserted int32 bound, where each tile's partial fold, widened before
+    the blocks' sums meet, is exact.  Each launch counts
+    ``ck_dot64p_sacc.plan.<rows>x64.jm<J*m>.p<planes>`` (``kst<rows>`` for
+    the key-stationary plan; utils.observability)."""
     UL, Jm, ckp = _ck_acc_checks("ck_dot64p_sacc", x, wmt, acc, N=N, m=m,
                                  planes=planes, kp1=kp1,
                                  digit_bits=digit_bits)
@@ -1088,14 +1092,16 @@ def ck_dot64p_sacc(x, wmt, acc, *, N: int, m: int, key_shift: int,
         return ck_dot64p_acc_plain(x, wmt, acc, N=N, m=m,
                                    key_shift=key_shift, planes=planes,
                                    kp1=kp1)
-    rows = ck_dot64p_sacc_plan(x.shape[0], N, m, Jm, planes)
+    rows, kst = ck_dot64p_plan(x.shape[0], N, m, Jm, planes,
+                               entry="ck_dot64p_sacc")
     out = torch.empty_like(acc)
     obs.count("kernel.ck_dot64p_sacc")
-    obs.count(f"ck_dot64p_sacc.plan.{rows}x64.jm{Jm}.p{planes}")
+    obs.count(f"ck_dot64p_sacc.plan.{'kst' if kst else ''}{rows}x64.jm{Jm}"
+              f".p{planes}")
     _launch("ck_dot64p_sacc", x.device,
             x.data_ptr(), wmt.data_ptr(), acc.data_ptr(),
             out.data_ptr(), x.shape[0], N, m, Jm, kp1, UL // kp1, planes, ckp,
-            key_shift, rows)
+            key_shift, rows, int(kst))
     return out
 
 

@@ -16,15 +16,16 @@ launches, so no wrapper time is counted):
 
   * ck_dot64p_sacc at CB_MXU (one plane, 6 limbs, J*m = 640) and CB_ACTIVE
     (two planes, 8 limbs, J*m = 512) B=256 and at CB_MXU tail batches B=1,
-    3, 100: this tree's 64 and 128 rows a block (PLANS);
+    3, 100: this tree's (rows, kst) plans, 64 and 128 rows a block and the
+    key-stationary plan;
   * ck_cmux_step64 at the same shapes: this tree's (rows, split) plans, the
     chosen one first; the parent at the row tile its wrapper chose.
 
 Then, once: this tree's kernels built again with CK_PART=1, 2, 3 (and 4 for
 ck_cmux_step64: the digit builds alone), each keeping one part, at the
 B=256 cases and the chosen plans; the two-kernel steps ck_cmux_step64
-replaces (the default step rotate_decompose64_ck + ck_dot64p + the int64
-epilogue, and the acc step rotate_decompose64_ck_flat + ck_dot64p_acc,
+replaces (the default step rotate_decompose64_ck + ck_dot64p_sacc, and
+the acc step rotate_decompose64_ck_flat + ck_dot64p_acc,
 through the wrappers); the one-call library yardstick (torch._int_mm of the
 same int8 product); and the host's time per launch of each wrapper at B=1.
 
@@ -132,11 +133,13 @@ class Case:
         if self.step:
             return K.ck_cmux_step64_plan(self.B, KP1, N, M, self.Jm, self.L,
                                          self.P, self.acc.device)
-        return (K.ck_dot64p_sacc_plan(self.B, N, M, self.Jm, self.P),)
+        rows, kst = K.ck_dot64p_plan(self.B, N, M, self.Jm, self.P,
+                                     entry="ck_dot64p_sacc")
+        return rows, int(kst)
 
     def plans(self):
         if not self.step:
-            return [(64,), (128,)]
+            return [(64, 0), (128, 0), (128, 1)]
         rows = (64, 128) if self.B > 64 else (64,)
         return [(r, s) for r in rows for s in (1, 2, 3, 4)]
 
