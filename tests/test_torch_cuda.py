@@ -1581,6 +1581,47 @@ def test_graphed_circuit_evaluate(cuda, monkeypatch, chain):
     assert captures == compiles["cuda"] and replays >= captures
 
 
+def test_graphed_comparator32_default(cuda):
+    """comparator(32) at GATE_DEFAULT over 16 instances (the benchmark
+    cell's netlist and key at a sixteenth of its instances): graphed
+    against eager bit for bit, decrypting to lt, eq and gt; an evaluation
+    counts 5 MUX launches (one a MUX wave), 31 x 16 MUX gates, and 7
+    binary + 2 x 5 bootstrap launches."""
+    from tfhe_tpu_torch.params import GATE_DEFAULT
+    from tfhe_tpu_torch.runtime import scheduler
+    circ, outs = scheduler.comparator(32)
+    rng = TfheRng(27)
+    sk = gate.SecretKey.generate(GATE_DEFAULT, rng)
+    ck = gate.CloudKey.generate(sk, rng, backend="onthefly", device=cuda)
+    r = np.random.default_rng(27)
+    inputs, plain = [], []
+    for _ in range(2):
+        x, y = r.integers(0, 1 << 32, (2, 16), dtype=np.uint64)
+        y[:4] = x[:4]                                   # four equal pairs
+        bits = np.stack([(v >> np.uint64(i)) & np.uint64(1)
+                         for v in (x, y) for i in range(32)])  # (64, 16)
+        inputs.append((torch.stack([gate.encrypt_bool(sk, b, rng,
+                                                      device=cuda)
+                                    for b in bits]),))
+        plain.append(np.stack([x < y, x == y, x > y]))
+    obs.reset()
+    captures, replays, _ = _graphed_against_eager(
+        lambda x: scheduler.evaluate(circ, x, ck.data, GATE_DEFAULT, outs,
+                                     backend="onthefly"), inputs)
+    assert captures > 0 and replays > 0
+    c = obs.report()["counters"]
+    assert (c["circuit.mux_launches"], c["circuit.mux_gates"]) == \
+        (4 * 5, 4 * 31 * 16)
+    assert c["bootstrap.launches"] == 4 * (7 + 2 * 5)
+    assert c["bootstrap.ciphertexts"] == 4 * 189 * 16
+    for (cts,), want in zip(inputs, plain):
+        got = scheduler.evaluate(circ, cts, ck.data, GATE_DEFAULT, outs,
+                                 backend="onthefly")
+        dec = np.stack([gate.decrypt_bool(sk, got[i]) for i in range(3)])
+        np.testing.assert_array_equal(dec, want)
+    obs.reset()
+
+
 def test_graphed_rotation_inside_an_outer_capture(cuda):
     """Inside a capture the caller began, blind_rotate records its loop
     into that graph (no program of its own)."""

@@ -185,8 +185,9 @@ def test_cell_entries():
         ("cb_active_lut4", "lut4_b256", 1)
     assert len(cell["why"]) <= 200
     metrics = {m["name"]: m for m in bench["end_to_end"] + bench["per_layer"]}
-    for name in ("cb_per_s", "key_prep_s"):
-        assert metrics[name]["workloads"][-1] == REAL_CELL
+    assert metrics["cb_per_s"]["workloads"][-1] == REAL_CELL
+    # appended after the five cells before it; later cells follow it
+    assert metrics["key_prep_s"]["workloads"].index(REAL_CELL) == 5
     for name in ("lut_tree_ms.cb_lut", "lut_roofline.cb_lut",
                  "device_idle.cb_lut", "rotation_ms.cb_lut",
                  "privks_ms.cb_lut", "preks_ms.cb_lut",

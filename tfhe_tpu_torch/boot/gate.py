@@ -228,9 +228,17 @@ def gate_oryn(ck_data, x, y, params, backend="matmul"):
 
 
 def gate_mux(ck_data, c, x, y, params, backend="matmul"):
-    """MUX(c, x, y) = c ? x : y via two bootstraps + keyswitched sum
-    (upstream bootsMUX structure).  The two first-stage bootstraps run as ONE
-    double-width launch, so a mux costs 2 launches, not 3."""
+    """MUX(c, x, y) = c ? x : y as three full gate bootstraps (key switch
+    included), as the JAX package computes it: u = bootstrap([c + x - 1/8,
+    -c + y - 1/8]) as ONE double-width launch, then bootstrap(u0 + u1 +
+    1/8), so a mux costs 2 launches.
+
+    Upstream bootsMUX (tfhe_gate_bootstrapping.cpp) differs: its two
+    first-stage bootstraps stop before the key switch (two blind rotations,
+    tfhe_bootstrap_woKS_FFT), u0 + u1 + 1/8 is formed on the extracted
+    N-dimensional samples, and one key switch ends it: two rotations and
+    one key switch against three of each here.  The arithmetic stays the
+    JAX package's, the bit-for-bit reference."""
     n = params.lwe.n
     t1 = _trivial(-MU_BOOL, n, c.device) + c + x
     t2 = _trivial(-MU_BOOL, n, c.device) - c + y

@@ -28,7 +28,8 @@ split are the JAX package's, so both packages launch the same widths in
 the same order.  ``bootstrap.launches`` and ``bootstrap.ciphertexts`` are
 counted by ``gate.bootstrap`` itself (once per launch, a replay adding what
 its capture counted; in the JAX package the scheduler counts them, since
-its bootstrap runs under jit); ``circuit.gates``, ``circuit.waves``, the
+its bootstrap runs under jit); ``circuit.gates``, ``circuit.waves``,
+``circuit.mux_gates``, ``circuit.mux_launches`` (the port's alone), the
 ``circuit.wave_width`` observation and the spans are counted here: an
 evaluation is the span ``circuit.evaluate``, each launch (chain) a
 ``circuit.wave.<kind>`` (``circuit.chain``) with the children
@@ -168,7 +169,10 @@ class Circuit:
 def launch_list(circ: Circuit, inst: int):
     """The circuit's waves as a flat list of ("binary"|"mux", [gate
     tuples]) launches, each one gate-call-sized unit, in dependency order;
-    counts circuit.gates / circuit.waves / circuit.wave_width.
+    counts circuit.gates / circuit.waves / circuit.wave_width, and
+    circuit.mux_gates (MUX gates x ``inst``) / circuit.mux_launches (each
+    MUX launch is two bootstrap launches, so these split MUX from binary
+    work).
 
     A launch carries at most TFHE_MAX_WAVE_ROWS (default 8192) bootstrap
     rows across ``inst`` circuit instances; a MUX costs 3 rows.
@@ -183,8 +187,10 @@ def launch_list(circ: Circuit, inst: int):
         obs.observe("circuit.wave_width", len(gates) * inst)
         if kind == "mux":
             per = max(1, max_rows // (3 * inst))
+            obs.count("circuit.mux_gates", len(gates) * inst)
             for s in range(0, len(gates), per):
                 launches.append(("mux", gates[s:s + per]))
+                obs.count("circuit.mux_launches")
             continue
         if split:
             groups: dict = {}
